@@ -1,0 +1,117 @@
+"""toyfhe_tpu_torch square → relinearize → rescale step against the
+reference's ``make_single_chip_step``: on ``__graft_entry__``'s synthetic
+operands, and on real reference keys, where it also decrypts to the
+squares. Plus: importing the port leaves jax unloaded."""
+
+import subprocess
+import sys
+from fractions import Fraction
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import toyfhe_tpu as F
+import toyfhe_tpu_torch as T
+from toyfhe_tpu.core import ring as ref_ring
+from toyfhe_tpu.parallel import ops as ref_ops
+from toyfhe_tpu_torch.parallel import ops as pops
+from toyfhe_tpu_torch.utils import interop as I
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_step_matches_reference_entry_operands():
+    """Synthetic operands made as ``__graft_entry__.entry()`` makes them, at
+    N=256, L=4, B=2."""
+    n, L, B = 256, 4, 2
+    tower = (30, 29, 29, 28)
+    ring, tring = F.make_rns_ring(n, tower), T.make_rns_ring(n, tower)
+    rng = np.random.default_rng(0)
+    lim = min(ring.primes)
+    masks = rng.integers(0, lim, (L, L, n)).astype(np.uint32)
+    maskeds = rng.integers(0, lim, (L, L, n)).astype(np.uint32)
+    batch = rng.integers(0, lim, (B, 2, L, n)).astype(np.uint32)
+    want = np.asarray(ref_ops.make_single_chip_step(
+        ring.tables, jnp.asarray(masks), jnp.asarray(maskeds))(jnp.asarray(batch)))
+    step = pops.make_single_chip_step(tring.tables, I.tensor(masks), I.tensor(maskeds))
+    got = step(I.tensor(batch))
+    assert got.shape == (B, 2, L, n)
+    np.testing.assert_array_equal(I.to_numpy(got), want)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """The reference's real-key fixture (tests/test_parallel.py): N=64, L=4,
+    B=2, keys from PRNGKey(0), values vals·(i+1) at scale 2^45."""
+    N, B = 64, 2
+    ring = F.make_rns_ring(N, (30, 29, 29, 28))
+    params = F.CKKSParams(ring, 0, 3.2)
+    ks = jax.random.split(jax.random.PRNGKey(0), 3)
+    kp = F.keygen(params, ks[0])
+    ek = F.keygen_eval_mult(ks[1], kp.priv)
+    vals = np.linspace(0.1, 1.0, N // 2)
+    scale = Fraction(2) ** 45
+    cts = [F.encrypt(kp, F.make_plaintext(ring, vals * (i + 1), scale), k)
+           for i, k in enumerate(jax.random.split(ks[2], B))]
+    dual = lambda x: np.asarray(ref_ring.ensure_dual(ring, x).dual)
+    masks = np.stack([dual(kc.mask) for kc in ek.key.key])
+    maskeds = np.stack([dual(kc.masked) for kc in ek.key.key])
+    batch = np.stack([np.stack([dual(x) for x in c.cs]) for c in cts])
+    want = np.asarray(ref_ops.make_single_chip_step(
+        ring.tables, jnp.asarray(masks), jnp.asarray(maskeds))(jnp.asarray(batch)))
+
+    tring = T.make_rns_ring(N, (30, 29, 29, 28))
+    tparams = T.CKKSParams(tring, 0, 3.2)
+    tkp = I.priv_key(tparams, np.asarray(kp.priv.secret.primal))
+    tek = I.eval_mult_key(tparams, masks, maskeds)
+    step = pops.make_single_chip_step(tring.tables, I.tensor(masks), I.tensor(maskeds))
+    got = step(I.tensor(batch))
+    return dict(tring=tring, tparams=tparams, tkp=tkp, tek=tek, batch=batch,
+                want=want, got=got, vals=vals, scale=scale)
+
+
+def test_step_matches_reference_real_keys(setup):
+    np.testing.assert_array_equal(I.to_numpy(setup["got"]), setup["want"])
+    assert not setup["got"][:, :, -1].any()              # dropped limb zeroed
+
+
+def test_step_matches_sequential_engine(setup):
+    """The step equals ct_rescale(keyswitch(ek, ct_mul(c, c))) of the port's
+    own engine on the surviving limbs."""
+    tring, tparams, got = setup["tring"], setup["tparams"], setup["got"]
+    L = tring.nlimbs
+    for i, duals in enumerate(setup["batch"]):
+        c = I.ciphertext(tparams, tring, duals, setup["scale"])
+        seq = T.ct_rescale(T.keyswitch(setup["tek"], T.ct_mul(c, c)))
+        np.testing.assert_array_equal(I.ciphertext_to_numpy(seq),
+                                      I.to_numpy(got[i, :, :L - 1]))
+
+
+def test_step_decrypts(setup):
+    """Decoded squares within 2e-4 — the tolerance of the reference's
+    test_sharded_step_decrypts (rescale rounding and relinearization noise
+    at scale 2^90/q_last ≈ 2^62 are far below it)."""
+    tring, got = setup["tring"], setup["got"]
+    sub = tring.drop_last()
+    new_scale = setup["scale"] ** 2 / tring.primes[-1]
+    for i in range(got.shape[0]):
+        cs = tuple(T.RingElt(dual=got[i, j, :tring.nlimbs - 1]) for j in range(2))
+        c = T.CipherText(setup["tparams"], cs, sub, enc=T.CKKSTag(new_scale))
+        np.testing.assert_allclose(T.decrypt(setup["tkp"], c).real,
+                                   (setup["vals"] * (i + 1)) ** 2, atol=2e-4)
+
+
+def test_port_import_leaves_jax_out():
+    code = ("import sys, toyfhe_tpu_torch, toyfhe_tpu_torch.parallel.ops, "
+            "toyfhe_tpu_torch.ops.ntt_cuda; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
+            "assert not bad, bad")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr

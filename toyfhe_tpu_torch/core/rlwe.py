@@ -1,0 +1,407 @@
+"""Scheme-generic RLWE engine (layer L3) — the subset the CKKS
+square → relinearize → rescale step needs.
+
+Port of ``toyfhe_tpu/core/rlwe.py``: keygen, encrypt / decrypt, ciphertext
+add and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
+digits; ``relin_window = w > 0``: base-2^w digits of each residue), eval-key
+generation, the plain (non-hybrid, non-modraised) key switch and the CKKS
+rescale. A scheme is a :class:`SchemeParams` subclass supplying the encoder
+π⁻¹, decoder π, noise sampler 𝒩 and secret sampler 𝒢.
+
+Randomness comes from an explicit ``torch.Generator``: keys and ciphertexts
+are made on the generator's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops import modmath, ntt as nttmod, sampling
+from . import ring as R
+from .ring import RingContext, RingElt
+
+
+class UsageError(Exception):
+    """Parameter-mixing and invariant violations."""
+
+
+# ---------------------------------------------------------------------------
+# SchemeParams protocol
+# ---------------------------------------------------------------------------
+
+class SchemeParams:
+    """Base protocol. Subclasses define the four scheme functions."""
+
+    relin_window: int = 0
+
+    @property
+    def ring_cipher(self) -> RingContext:
+        raise NotImplementedError
+
+    @property
+    def ring_key(self) -> RingContext:
+        return self.ring_cipher
+
+    def plaintext_space(self):
+        raise NotImplementedError
+
+    # π⁻¹ : plaintext -> RingElt in ring_cipher
+    def encode(self, plaintext) -> RingElt:
+        raise NotImplementedError
+
+    # π : RingElt -> native plaintext (host side)
+    def decode(self, b: RingElt, ring: RingContext):
+        raise NotImplementedError
+
+    # 𝒩 : noise sampler over the given ring
+    def noise(self, gen: torch.Generator, ring: RingContext, batch=()) -> RingElt:
+        raise NotImplementedError
+
+    # 𝒢 : secret/ephemeral sampler
+    def secret_sampler(self, gen: torch.Generator, ring: RingContext, batch=()) -> RingElt:
+        raise NotImplementedError
+
+    # optional multiplication hooks
+    def mul_expand_pair(self, c1: "CipherText", c2: "CipherText"):
+        return c1.ring, (c1.cs, c2.cs)
+
+    def mul_contract_pair(self, ring: RingContext, cs: Sequence[RingElt]):
+        return ring, tuple(cs)
+
+    def scheme_name(self) -> str:
+        return type(self).__name__
+
+
+# ---------------------------------------------------------------------------
+# Key and ciphertext types
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PrivKey:
+    params: SchemeParams
+    secret: RingElt          # lives in ring_key
+
+
+@dataclasses.dataclass
+class KeyComponent:
+    mask: RingElt
+    masked: RingElt
+
+
+@dataclasses.dataclass
+class PubKey:
+    params: SchemeParams
+    key: KeyComponent
+
+
+@dataclasses.dataclass
+class KeySwitchKey:
+    params: SchemeParams
+    key: List[KeyComponent]  # one per gadget digit
+    ring: RingContext        # ring the key elements live in
+
+
+@dataclasses.dataclass
+class EvalMultKey:
+    key: KeySwitchKey
+
+
+@dataclasses.dataclass
+class KeyPair:
+    priv: PrivKey
+    pub: PubKey
+
+
+@dataclasses.dataclass
+class CipherText:
+    """Tuple of ring elements + static metadata.
+
+    ``enc`` is the plaintext-encoding tag applied on decryption; ``ring``
+    tracks the (possibly rescaled) tower the components live in.
+    """
+    params: SchemeParams
+    cs: Tuple[RingElt, ...]
+    ring: RingContext
+    enc: Any = None
+
+    def __len__(self):
+        return len(self.cs)
+
+    def __getitem__(self, i):
+        return self.cs[i]
+
+
+# ---------------------------------------------------------------------------
+# Key generation
+# ---------------------------------------------------------------------------
+
+def keygen(params: SchemeParams, gen: torch.Generator) -> KeyPair:
+    ring = params.ring_key
+    mask = RingElt(primal=sampling.uniform(gen, ring.mp, ring.n))
+    secret = params.secret_sampler(gen, ring)
+    error = params.noise(gen, ring)
+    # masked = -(mask*secret + error)
+    masked = R.neg(ring, R.add(ring, R.mul(ring, mask, secret), error))
+    return KeyPair(
+        PrivKey(params, secret),
+        PubKey(params, KeyComponent(mask=mask, masked=masked)))
+
+
+# ---------------------------------------------------------------------------
+# Encryption / decryption
+# ---------------------------------------------------------------------------
+
+def encrypt_zero(pub: PubKey, gen: torch.Generator) -> CipherText:
+    params = pub.params
+    ring = params.ring_cipher
+    u = params.secret_sampler(gen, ring)
+    e1 = params.noise(gen, ring)
+    e2 = params.noise(gen, ring)
+    c1 = R.add(ring, R.mul(ring, pub.key.masked, u), e1)
+    c2 = R.add(ring, R.mul(ring, pub.key.mask, u), e2)
+    return CipherText(params, (c1, c2), ring)
+
+
+def encrypt(key, plaintext, gen: torch.Generator) -> CipherText:
+    """encrypt(kp|pub, plaintext) — encode with π⁻¹ then add to a fresh
+    encryption of zero, on the generator's device."""
+    pub = key.pub if isinstance(key, KeyPair) else key
+    params = pub.params
+    c = encrypt_zero(pub, gen)
+    pt, enc_tag = _encode_with_tag(params, plaintext, gen.device)
+    cs = (R.add(c.ring, c.cs[0], pt),) + c.cs[1:]
+    return CipherText(params, cs, c.ring, enc=enc_tag)
+
+
+def _encode_with_tag(params, plaintext, device):
+    """Returns (RingElt, decode-tag). Encoding objects know how to encode
+    themselves; raw RingElts pass through untagged."""
+    if isinstance(plaintext, RingElt):
+        return plaintext, None
+    if hasattr(plaintext, "to_ring"):
+        return plaintext.to_ring(params, device), plaintext.decode_tag(params)
+    return params.encode(plaintext), None
+
+
+def _aligned_secret(priv: PrivKey, ring: RingContext) -> RingElt:
+    """The secret on the ciphertext's tower (drops limbs after rescales)."""
+    secret = priv.secret
+    skr = priv.params.ring_key
+    while skr.nlimbs > ring.nlimbs:
+        skr, secret = R.modswitch_drop(skr, secret)
+    if skr.primes != ring.primes:
+        raise UsageError("secret/ciphertext tower mismatch")
+    return secret
+
+
+def decrypt_raw(key, c: CipherText) -> RingElt:
+    """b = Σ cᵢ·sⁱ without π."""
+    priv = key.priv if isinstance(key, KeyPair) else key
+    ring = c.ring
+    secret = _aligned_secret(priv, ring)
+    b = c.cs[0]
+    spow = secret
+    for i in range(1, len(c.cs)):
+        b = R.add(ring, b, R.mul(ring, spow, c.cs[i]))
+        if i + 1 < len(c.cs):
+            spow = R.mul(ring, spow, secret)
+    return b
+
+
+def decrypt(key, c: CipherText):
+    """Σ cᵢ·sⁱ, then π, then the encoding's decode."""
+    priv = key.priv if isinstance(key, KeyPair) else key
+    dec = priv.params.decode(decrypt_raw(priv, c), c.ring)
+    if c.enc is not None:
+        return c.enc.decode(priv.params, dec, c.ring)
+    return dec
+
+
+# ---------------------------------------------------------------------------
+# Homomorphic arithmetic
+# ---------------------------------------------------------------------------
+
+def ct_add(c1: CipherText, c2: CipherText) -> CipherText:
+    if c1.params is not c2.params:
+        raise UsageError("Attempting to add ciphertexts with differing parameters")
+    ring = c1.ring
+    n1, n2 = len(c1), len(c2)
+    cs = []
+    for i in range(max(n1, n2)):
+        if i >= n1:
+            cs.append(c2.cs[i])
+        elif i >= n2:
+            cs.append(c1.cs[i])
+        else:
+            cs.append(R.add(ring, c1.cs[i], c2.cs[i]))
+    enc = c1.enc if c1.enc is not None else c2.enc
+    if c1.enc is not None and c2.enc is not None:
+        enc = c1.enc.combine_add(c2.enc)
+    return CipherText(c1.params, tuple(cs), ring, enc=enc)
+
+
+def enc_mul(c1: CipherText, c2: CipherText) -> Tuple[RingContext, Tuple[RingElt, ...]]:
+    """Tensor product with the scheme's expand/contract hooks."""
+    if c1.params is not c2.params:
+        raise UsageError("Attempting to multiply ciphertexts with differing parameters")
+    params = c1.params
+    ring, (a, b) = params.mul_expand_pair(c1, c2)
+    out: List[Optional[RingElt]] = [None] * (len(a) + len(b) - 1)
+    for i in range(len(a)):
+        for j in range(len(b)):
+            t = R.mul(ring, a[i], b[j])
+            out[i + j] = t if out[i + j] is None else R.add(ring, out[i + j], t)
+    return params.mul_contract_pair(ring, out)
+
+
+def ct_mul(c1: CipherText, c2: CipherText) -> CipherText:
+    ring, cs = enc_mul(c1, c2)
+    enc = None
+    if c1.enc is not None and c2.enc is not None:
+        enc = c1.enc.combine_mul(c2.enc)
+    return CipherText(c1.params, cs, ring, enc=enc)
+
+
+# ---------------------------------------------------------------------------
+# Gadget decomposition + key switching
+# ---------------------------------------------------------------------------
+
+def _gadget_shape(ring: RingContext, window: int) -> Tuple[int, int]:
+    """(digits per limb K, total digits L*K) for the unified gadget."""
+    if window == 0:
+        return 1, ring.nlimbs
+    maxbits = max(p.bit_length() for p in ring.primes)
+    k = -(-maxbits // window)
+    return k, ring.nlimbs * k
+
+
+def gadget_factors(ring: RingContext, window: int) -> List[int]:
+    """Integer factor g_{ik} each key digit is multiplied by:
+    (q/q_i)·[(q/q_i)^{-1}]_{q_i} · 2^{w·k}  (mod q)."""
+    q = ring.modulus
+    out = []
+    k, _ = _gadget_shape(ring, window)
+    for qi in ring.primes:
+        qhat = q // qi
+        resid = qhat * pow(qhat % qi, -1, qi) % q
+        for kk in range(k):
+            out.append(resid * pow(2, window * kk, q) % q if window else resid)
+    return out
+
+
+def gadget_decompose(ring: RingContext, target: RingContext, x: RingElt,
+                     window: int, k_per_limb: Optional[int] = None) -> torch.Tensor:
+    """Decompose x (in ``ring``) into digit ring elements embedded in
+    ``target``'s tower. Returns the primal tensor int64[ndig, ..., Lt, N].
+
+    window == 0: centered RNS digits; window > 0: raw base-2^w digits of
+    each residue. ``k_per_limb`` must match the digit count the key was
+    generated with."""
+    p = R.ensure_primal(ring, x).primal        # [..., L, N]
+    shape = p.shape[:-2] + (target.nlimbs, ring.n)
+    digs = []
+    if window == 0:
+        for i in range(ring.nlimbs):
+            lift = modmath.centered(p[..., i:i + 1, :], ring.mp.select([i]))
+            digs.append(modmath.from_signed(lift.expand(shape), target.mp))
+    else:
+        k = k_per_limb if k_per_limb is not None else _gadget_shape(ring, window)[0]
+        mask = (1 << window) - 1
+        for i in range(ring.nlimbs):
+            xi = p[..., i:i + 1, :]
+            for kk in range(k):
+                digs.append(((xi >> (window * kk)) & mask).expand(shape))
+    return torch.stack(digs, dim=0)
+
+
+def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey) -> KeySwitchKey:
+    """Key-switching key old → new.secret; ``old`` is a ring element in
+    new's key ring (e.g. s²)."""
+    params = new.params
+    ring = params.ring_key
+    old = R.ensure_primal(ring, old)
+    comps: List[KeyComponent] = []
+    for g in gadget_factors(ring, params.relin_window):
+        mask = RingElt(primal=sampling.uniform(gen, ring.mp, ring.n))
+        e = params.noise(gen, ring)
+        ga = R.scalar_mul(ring, g % ring.modulus, old)
+        masked = R.sub(ring, ga, R.add(ring, R.mul(ring, mask, new.secret), e))
+        comps.append(KeyComponent(mask=mask, masked=masked))
+    return KeySwitchKey(params, comps, ring)
+
+
+def keygen_eval_mult(gen: torch.Generator, priv: PrivKey) -> EvalMultKey:
+    ring = priv.params.ring_key
+    s2 = R.mul(ring, priv.secret, priv.secret)
+    return EvalMultKey(make_eval_key(gen, s2, priv))
+
+
+def _key_stacks(ek: KeySwitchKey, target: RingContext, ndig: int):
+    """Key components as dual tensors [ndig, Lt, N] restricted to the
+    target tower (downswitch_keyelement): after rescales only the first
+    ``ndig`` gadget components and the first Lt limbs apply."""
+    which = list(range(target.nlimbs))
+    masks, maskeds = [], []
+    for comp in ek.key[:ndig]:
+        _, m = R.limb_select(ek.ring, R.ensure_dual(ek.ring, comp.mask), which)
+        _, md = R.limb_select(ek.ring, R.ensure_dual(ek.ring, comp.masked), which)
+        masks.append(m.dual)
+        maskeds.append(md.dual)
+    return torch.stack(masks, 0), torch.stack(maskeds, 0)
+
+
+def keyswitch(ek, c: CipherText) -> CipherText:
+    """Key switch c's last component back onto the base secret."""
+    if isinstance(ek, EvalMultKey):
+        ek = ek.key
+    params = ek.params
+    if len(c.cs) not in (2, 3):
+        raise UsageError(f"keyswitch takes 2 or 3 components, got {len(c.cs)}")
+    ring = c.ring
+    c1 = c.cs[0]
+    c2 = c.cs[1] if len(c.cs) == 3 else None
+
+    window = params.relin_window
+    kpl = _gadget_shape(ek.ring, window)[0] if window else None
+    digits = gadget_decompose(ring, ring, c.cs[-1], window, k_per_limb=kpl)  # [ndig, ..., L, N]
+    ddual = nttmod.ntt(ring.tables, digits)
+
+    masks, maskeds = _key_stacks(ek, ring, int(digits.shape[0]))
+    # batched ciphertexts carry leading axes between the digit and limb
+    # axes — insert singleton dims so the key stacks broadcast
+    extra = ddual.dim() - 3
+    if extra:
+        shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
+        masks = masks.reshape(shp)
+        maskeds = maskeds.reshape(shp)
+    mp = ring.mp
+    acc2 = modmath.mod_sum(modmath.mul_mod(masks, ddual, mp), mp, axis=0)
+    acc1 = modmath.mod_sum(modmath.mul_mod(maskeds, ddual, mp), mp, axis=0)
+
+    c1 = R.add(ring, R.ensure_dual(ring, c1), RingElt(dual=acc1))
+    if c2 is None:
+        c2 = RingElt(dual=acc2)
+    else:
+        c2 = R.add(ring, R.ensure_dual(ring, c2), RingElt(dual=acc2))
+    return CipherText(c.params, (c1, c2), ring, enc=c.enc)
+
+
+# ---------------------------------------------------------------------------
+# Rescale
+# ---------------------------------------------------------------------------
+
+def ct_rescale(c: CipherText) -> CipherText:
+    """CKKS rescale by the last prime: exact divide-and-round of every
+    component and division of the scale tag. The tower shrinks to L-1."""
+    ring = c.ring
+    cs = []
+    sub = None
+    for x in c.cs:
+        sub, y = R.rescale(ring, x)
+        cs.append(y)
+    enc = (c.enc.rescale_by(ring.primes[-1])
+           if c.enc is not None and hasattr(c.enc, "rescale_by") else c.enc)
+    return CipherText(c.params, tuple(cs), sub, enc=enc)

@@ -1,0 +1,77 @@
+"""Carry keys and ciphertexts between numpy arrays and the port's objects.
+
+A caller exports the reference package's objects as numpy arrays (residue
+tensors ``[..., L, N]`` of any integer dtype, e.g. ``np.asarray(x.dual)``)
+and builds the port's keys and ciphertexts from them here; the inverse
+direction gives ``uint32`` numpy arrays for comparison. Only numpy goes in
+and out: this module never imports the reference package.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.ckks_encoding import CKKSTag
+from ..core.ring import RingContext, RingElt
+from ..core.rlwe import (CipherText, EvalMultKey, KeyComponent, KeySwitchKey,
+                         PrivKey, PubKey, SchemeParams)
+
+
+def tensor(x, device="cpu") -> torch.Tensor:
+    """Residues as an int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Residues as a uint32 numpy array (the reference's dtype)."""
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def ring_elt(primal=None, dual=None, device="cpu") -> RingElt:
+    return RingElt(primal=None if primal is None else tensor(primal, device),
+                   dual=None if dual is None else tensor(dual, device))
+
+
+def elt_to_numpy(ring: RingContext, x: RingElt, domain: str = "dual") -> np.ndarray:
+    from ..core import ring as R
+    x = R.ensure_dual(ring, x) if domain == "dual" else R.ensure_primal(ring, x)
+    return to_numpy(x.dual if domain == "dual" else x.primal)
+
+
+def priv_key(params: SchemeParams, secret, domain: str = "primal",
+             device="cpu") -> PrivKey:
+    return PrivKey(params, ring_elt(**{domain: secret}, device=device))
+
+
+def pub_key(params: SchemeParams, mask, masked, domain: str = "primal",
+            device="cpu") -> PubKey:
+    return PubKey(params, KeyComponent(mask=ring_elt(**{domain: mask}, device=device),
+                                       masked=ring_elt(**{domain: masked}, device=device)))
+
+
+def eval_mult_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
+                  device="cpu", ring: Optional[RingContext] = None) -> EvalMultKey:
+    """Relinearization key from the stacks ``masks``/``maskeds`` [ndig, L, N]."""
+    ring = ring if ring is not None else params.ring_key
+    comps = [KeyComponent(mask=ring_elt(**{domain: m}, device=device),
+                          masked=ring_elt(**{domain: md}, device=device))
+             for m, md in zip(np.asarray(masks), np.asarray(maskeds))]
+    return EvalMultKey(KeySwitchKey(params, comps, ring))
+
+
+def ciphertext(params: SchemeParams, ring: RingContext, components: Sequence,
+               scale=None, domain: str = "dual", device="cpu") -> CipherText:
+    """Ciphertext from its component residue arrays (each [..., L, N]) in
+    ``domain``, tagged with a CKKS ``scale`` when one is given."""
+    cs = tuple(ring_elt(**{domain: x}, device=device) for x in components)
+    enc = None if scale is None else CKKSTag(Fraction(scale))
+    return CipherText(params, cs, ring, enc=enc)
+
+
+def ciphertext_to_numpy(c: CipherText, domain: str = "dual") -> np.ndarray:
+    """The components stacked as uint32 [ncomp, ..., L, N]."""
+    return np.stack([elt_to_numpy(c.ring, x, domain) for x in c.cs])
