@@ -34,10 +34,11 @@ class RingContext:
     they are cached on the root ring).
     """
 
-    def __init__(self, n: int, primes: Sequence[int], psis: Optional[Sequence[int]] = None):
+    def __init__(self, n: int, primes: Sequence[int], psis: Optional[Sequence[int]] = None,
+                 tables: Optional[nttmod.NttTables] = None):
         self.n = int(n)
         self.primes = [int(p) for p in primes]
-        self.tables = nttmod.NttTables(self.n, self.primes, psis)
+        self.tables = tables if tables is not None else nttmod.NttTables(self.n, self.primes, psis)
         self.mp: MontParams = self.tables.mp
         self.psis = self.tables.psis
         self._children: dict = {}
@@ -76,9 +77,8 @@ class RingContext:
         if key == root._root_indices:
             return root
         if key not in root._children:
-            child = RingContext(
-                self.n, [root.primes[i] for i in key],
-                [root.psis[i] for i in key])
+            child = RingContext(self.n, [root.primes[i] for i in key],
+                                tables=root.tables.select(key))
             child._root = root
             child._root_indices = key
             root._children[key] = child

@@ -4,9 +4,11 @@ square → relinearize → rescale step needs.
 Port of ``toyfhe_tpu/core/rlwe.py``: keygen, encrypt / decrypt, ciphertext
 add and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
 digits; ``relin_window = w > 0``: base-2^w digits of each residue), eval-key
-generation, the plain (non-hybrid, non-modraised) key switch and the CKKS
-rescale. A scheme is a :class:`SchemeParams` subclass supplying the encoder
-π⁻¹, decoder π, noise sampler 𝒩 and secret sampler 𝒢.
+generation, the plain key switch and its dispatch to the dnum-grouped hybrid
+key switch (:mod:`.hybrid`), limb drops and the CKKS rescale. A scheme is a
+:class:`SchemeParams` subclass supplying the encoder π⁻¹, decoder π, noise
+sampler 𝒩 and secret sampler 𝒢; :class:`PassthroughParams` wraps one to
+override selected hooks.
 
 Randomness comes from an explicit ``torch.Generator``: keys and ciphertexts
 are made on the generator's device.
@@ -73,6 +75,64 @@ class SchemeParams:
 
     def scheme_name(self) -> str:
         return type(self).__name__
+
+
+class PassthroughParams(SchemeParams):
+    """Composable scheme modifier: delegate everything to ``self.params``,
+    override selectively. Unknown attributes (scheme fields such as
+    ``sigma``) fall through to the wrapped params via ``__getattr__``."""
+
+    def __init__(self, params: SchemeParams):
+        self.params = params
+
+    @property
+    def parent(self) -> SchemeParams:
+        return self.params
+
+    @property
+    def ring_cipher(self):
+        return self.params.ring_cipher
+
+    @property
+    def ring_key(self):
+        return self.params.ring_key
+
+    @property
+    def relin_window(self):
+        return self.params.relin_window
+
+    def plaintext_space(self):
+        return self.params.plaintext_space()
+
+    def encode(self, plaintext, ring=None):
+        # encode at the WRAPPER's ciphertext tower: raising modifiers
+        # encrypt one or more limbs short of the base scheme's ring
+        return self.params.encode(plaintext,
+                                  ring=ring if ring is not None
+                                  else self.ring_cipher)
+
+    def decode(self, b, ring):
+        return self.params.decode(b, ring)
+
+    def noise(self, gen, ring, batch=()):
+        return self.params.noise(gen, ring, batch)
+
+    def secret_sampler(self, gen, ring, batch=()):
+        return self.params.secret_sampler(gen, ring, batch)
+
+    def mul_expand_pair(self, c1, c2):
+        return self.params.mul_expand_pair(c1, c2)
+
+    def mul_contract_pair(self, ring, cs):
+        return self.params.mul_contract_pair(ring, cs)
+
+    def scheme_name(self):
+        return self.params.scheme_name()
+
+    def __getattr__(self, name):
+        if name == "params":
+            raise AttributeError(name)
+        return getattr(self.params, name)
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +216,20 @@ def keygen(params: SchemeParams, gen: torch.Generator) -> KeyPair:
 
 def encrypt_zero(pub: PubKey, gen: torch.Generator) -> CipherText:
     params = pub.params
-    ring = params.ring_cipher
+    # raising modifiers (HybridRaised) encrypt on their own tower
+    hook = getattr(params, "encrypt_zero", None)
+    if hook is not None:
+        return hook(pub, gen)
+    return _encrypt_zero_at(params, params.ring_cipher, pub.key, gen)
+
+
+def _encrypt_zero_at(params: SchemeParams, ring: RingContext,
+                     key: KeyComponent, gen: torch.Generator) -> CipherText:
     u = params.secret_sampler(gen, ring)
     e1 = params.noise(gen, ring)
     e2 = params.noise(gen, ring)
-    c1 = R.add(ring, R.mul(ring, pub.key.masked, u), e1)
-    c2 = R.add(ring, R.mul(ring, pub.key.mask, u), e2)
+    c1 = R.add(ring, R.mul(ring, key.masked, u), e1)
+    c2 = R.add(ring, R.mul(ring, key.mask, u), e2)
     return CipherText(params, (c1, c2), ring)
 
 
@@ -319,12 +387,15 @@ def gadget_decompose(ring: RingContext, target: RingContext, x: RingElt,
 
 def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey) -> KeySwitchKey:
     """Key-switching key old → new.secret; ``old`` is a ring element in
-    new's key ring (e.g. s²)."""
+    new's key ring (e.g. s²). A scheme with a ``hybrid_factors`` hook
+    (HybridRaised) supplies one factor per digit group."""
     params = new.params
     ring = params.ring_key
     old = R.ensure_primal(ring, old)
+    hfac = getattr(params, "hybrid_factors", None)
+    factors = hfac() if hfac is not None else gadget_factors(ring, params.relin_window)
     comps: List[KeyComponent] = []
-    for g in gadget_factors(ring, params.relin_window):
+    for g in factors:
         mask = RingElt(primal=sampling.uniform(gen, ring.mp, ring.n))
         e = params.noise(gen, ring)
         ga = R.scalar_mul(ring, g % ring.modulus, old)
@@ -360,6 +431,8 @@ def keyswitch(ek, c: CipherText) -> CipherText:
     params = ek.params
     if len(c.cs) not in (2, 3):
         raise UsageError(f"keyswitch takes 2 or 3 components, got {len(c.cs)}")
+    if getattr(params, "hybrid_decompose", None) is not None:
+        return _keyswitch_hybrid(params, ek, c)
     ring = c.ring
     c1 = c.cs[0]
     c2 = c.cs[1] if len(c.cs) == 3 else None
@@ -389,9 +462,81 @@ def keyswitch(ek, c: CipherText) -> CipherText:
     return CipherText(c.params, (c1, c2), ring, enc=c.enc)
 
 
+def _keyswitch_hybrid(params, ek: KeySwitchKey, c: CipherText) -> CipherText:
+    """dnum-grouped hybrid key switch (:mod:`.hybrid`): digits are limb
+    groups fast-base-converted into the Q_t ∪ P tower; the accumulator
+    alone is divided by P (the base components are never pre-scaled)."""
+    ring = c.ring
+    exp_ring, ddual = params.hybrid_decompose_dual(ring, c.cs[-1])
+    masks, maskeds = _hybrid_key_stack(params, ek, exp_ring,
+                                       int(ddual.shape[0]), ddual.dim() - 3)
+    mp = exp_ring.mp
+    acc2 = modmath.mod_sum(modmath.mul_mod(masks, ddual, mp), mp, axis=0)
+    acc1 = modmath.mod_sum(modmath.mul_mod(maskeds, ddual, mp), mp, axis=0)
+
+    # one stacked contraction: the fused ModDown's transforms batch over
+    # both accumulator components in a single NTT call
+    out_ring, a = params.hybrid_contract(
+        exp_ring, RingElt(dual=torch.stack([acc1, acc2], dim=0)))
+    a1, a2 = RingElt(dual=a.dual[0]), RingElt(dual=a.dual[1])
+    if out_ring is not ring:
+        raise UsageError("hybrid contraction left the ciphertext tower")
+    c1 = R.add(ring, c.cs[0], a1)
+    c2 = a2 if len(c.cs) == 2 else R.add(ring, c.cs[1], a2)
+    return CipherText(c.params, (c1, c2), ring, enc=c.enc)
+
+
+def _hybrid_key_stack(params, ksk: KeySwitchKey, exp_ring: RingContext,
+                      ndig: int, extra: int):
+    """A hybrid key's components as dual tensors [ndig, Le, N] restricted
+    to the expanded tower, with ``extra`` broadcast axes inserted for
+    batched ciphertexts."""
+    key_ring = ksk.ring
+    which = params.hybrid_key_limbs(exp_ring)
+    masks, maskeds = [], []
+    for comp in ksk.key[:ndig]:
+        _, m = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.mask), which)
+        _, md = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.masked), which)
+        masks.append(m.dual)
+        maskeds.append(md.dual)
+    masks = torch.stack(masks, 0)
+    maskeds = torch.stack(maskeds, 0)
+    if extra:
+        shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
+        masks = masks.reshape(shp)
+        maskeds = maskeds.reshape(shp)
+    return masks, maskeds
+
+
 # ---------------------------------------------------------------------------
-# Rescale
+# Modulus switching and rescale
 # ---------------------------------------------------------------------------
+
+def ct_modswitch_drop(c: CipherText) -> CipherText:
+    """Drop every component's last limb without rescaling (the scale tag is
+    unchanged)."""
+    ring = c.ring
+    cs = []
+    sub = None
+    for x in c.cs:
+        sub, y = R.modswitch_drop(ring, x)
+        cs.append(y)
+    enc = (c.enc.drop_limb(ring)
+           if c.enc is not None and hasattr(c.enc, "drop_limb") else c.enc)
+    return CipherText(c.params, tuple(cs), sub, enc=enc)
+
+
+def bgv_plain_modulus(params):
+    """The plaintext modulus when the (possibly wrapped) base scheme is
+    BGV, None for every other scheme. BGV is not ported, so a BGV base
+    raises rather than take the CKKS rounding."""
+    base = params
+    while isinstance(base, PassthroughParams):
+        base = base.params
+    if base.scheme_name() == "BGV":
+        raise NotImplementedError("BGV is not ported: its p-adapted rounding "
+                                  "(ring.rescale_adapted) is missing")
+    return None
 
 def ct_rescale(c: CipherText) -> CipherText:
     """CKKS rescale by the last prime: exact divide-and-round of every

@@ -1,0 +1,73 @@
+// Device helpers shared by the port's kernels: the Montgomery product, the
+// bit-reversal index, the radix-2 DIT stage loop of the NTT over one
+// polynomial in shared memory, and the launch plumbing.
+//
+// Residues are canonical 32-bit words in [0, p), p < 2^31, so a sum of two
+// fits a uint32. Twiddles are Montgomery-form uint32 tables with the stage of
+// half-length h stored at offsets [h, 2h) of one row of N per limb.
+//
+// Each library is built from one .cu that includes this header once, so the
+// extern "C" error-string function below is defined once per library.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace toyfhe {
+
+// REDC(a*b) for a*b < p * 2^32: (x + m p) / 2^32 with m = x * ninv mod 2^32.
+// Only b needs to be below p: a may be any residue below 2^32 whose product
+// with b stays under p * 2^32 (the hybrid key switch feeds ŷ mod q_i here).
+__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
+                                             uint32_t p, uint32_t ninv) {
+  const uint64_t x = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(x) * ninv;
+  const uint64_t t = (x + static_cast<uint64_t>(m) * p) >> 32;   // < 2p
+  return t >= p ? static_cast<uint32_t>(t - p) : static_cast<uint32_t>(t);
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
+  const uint32_t s = a + b;                // < 2p < 2^32
+  return s >= p ? s - p : s;
+}
+
+__device__ __forceinline__ int bitrev(int i, int logn) {
+  return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - logn));
+}
+
+// log2 N radix-2 DIT stages over s[0..n), bit-reversed in, natural out, with
+// the packed stage twiddles twl of one limb. Every butterfly is fully
+// reduced. Ends with the block synchronised.
+__device__ __forceinline__ void dit_stages(uint32_t* s, const uint32_t* twl,
+                                           int n, uint32_t p, uint32_t ninv) {
+  for (int h = 1; h < n; h <<= 1) {
+    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
+      const int j = b & (h - 1);
+      const int k = ((b - j) << 1) + j;      // start of the pair (k, k + h)
+      const uint32_t u = s[k];
+      const uint32_t t = mont_mul(s[k + h], twl[h + j], p, ninv);
+      s[k] = add_mod(u, t, p);
+      s[k + h] = u >= t ? u - t : u + (p - t);
+    }
+    __syncthreads();
+  }
+}
+
+// Threads for one block that owns one polynomial of n residues.
+inline int poly_threads(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
+
+// Raise a kernel's dynamic shared-memory limit when smem exceeds 48 KB.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace toyfhe
+
+extern "C" const char* toyfhe_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

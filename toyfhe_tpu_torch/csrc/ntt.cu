@@ -26,21 +26,15 @@
 //
 // Residues arrive and leave as int64 (the port's residue dtype); twiddles are
 // uint32 Montgomery-form tables, one row of N per limb, with the stage of
-// half-length h stored at offsets [h, 2h).
+// half-length h stored at offsets [h, 2h). The Montgomery product and the
+// stage loop live in common.cuh, shared with the hybrid key switch (K3).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b,
-                                             uint32_t p, uint32_t ninv) {
-  // REDC(a*b) for a*b < p * 2^32: (x + m p) / 2^32 with m = x * ninv mod 2^32.
-  const uint64_t x = static_cast<uint64_t>(a) * b;
-  const uint32_t m = static_cast<uint32_t>(x) * ninv;
-  const uint64_t t = (x + static_cast<uint64_t>(m) * p) >> 32;   // < 2p
-  return t >= p ? static_cast<uint32_t>(t - p) : static_cast<uint32_t>(t);
-}
+using toyfhe::bitrev;
+using toyfhe::mont_mul;
 
 template <bool kInverse>
 __global__ void ntt_kernel(const int64_t* __restrict__ x,
@@ -63,22 +57,11 @@ __global__ void ntt_kernel(const int64_t* __restrict__ x,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     uint32_t v = static_cast<uint32_t>(xin[i]);
     if (!kInverse) v = mont_mul(v, twistl[i], p, ninv);
-    s[__brev(static_cast<unsigned>(i)) >> (32 - logn)] = v;
+    s[bitrev(i, logn)] = v;
   }
   __syncthreads();
 
-  for (int h = 1; h < n; h <<= 1) {
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int j = b & (h - 1);
-      const int k = ((b - j) << 1) + j;      // start of the pair (k, k + h)
-      const uint32_t u = s[k];
-      const uint32_t t = mont_mul(s[k + h], twl[h + j], p, ninv);
-      const uint32_t sum = u + t;            // < 2p < 2^32
-      s[k] = sum >= p ? sum - p : sum;
-      s[k + h] = u >= t ? u - t : u + (p - t);
-    }
-    __syncthreads();
-  }
+  toyfhe::dit_stages(s, twl, n, p, ninv);
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     uint32_t v = s[i];
@@ -101,25 +84,16 @@ int toyfhe_ntt(const void* x, void* out, const void* twist, const void* tw,
   if (polys <= 0) return 0;
   const int n = 1 << logn;
   const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  const int threads = n / 2 < 1024 ? n / 2 : 1024;
   void (*kern)(const int64_t*, int64_t*, const uint32_t*, const uint32_t*,
                const uint32_t*, int, int) =
       inverse ? ntt_kernel<true> : ntt_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kern),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kern<<<polys, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t e = toyfhe::allow_smem(kern, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<polys, toyfhe::poly_threads(n), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
       static_cast<const uint32_t*>(twist), static_cast<const uint32_t*>(tw),
       static_cast<const uint32_t*>(pn), nlimbs, logn);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* toyfhe_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -93,6 +93,20 @@ class MontParams:
         return MontParams(self.p[idx], self.ninv[idx], self.r2[idx],
                           self.r1[idx], self.half[idx], self.rinv[idx])
 
+    def expand(self) -> "MontParams":
+        """Constants reshaped ``[L, 1]`` → ``[L, 1, 1]`` to broadcast over
+        one more trailing axis (the cross-base contractions of the hybrid
+        gadget), in whichever form (host or device) they are held."""
+        f = lambda a: a[:, :, None]
+        return MontParams(f(self.p), f(self.ninv), f(self.r2), f(self.r1),
+                          f(self.half), f(self.rinv))
+
+
+def as_residues(a, device) -> torch.Tensor:
+    """Host integer array (e.g. a ``uint32`` constant column) → ``int64``
+    tensor on ``device``."""
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
 
 def _dev(mp: MontParams, x: torch.Tensor) -> MontParams:
     return mp.on(x.device)

@@ -103,6 +103,24 @@ class NttTables:
             ln *= 2
         self._dev: dict = {}
 
+    def select(self, rows: Sequence[int]) -> "NttTables":
+        """The tables of the sub-tower made of ``rows`` (indices may repeat),
+        sliced from these instead of recomputed: every table row depends
+        only on its own prime and root."""
+        idx = [int(r) for r in rows]
+        sub = NttTables.__new__(NttTables)
+        sub.n = self.n
+        sub.primes = [self.primes[i] for i in idx]
+        sub.mp = self.mp.select(idx)
+        sub.psis = [self.psis[i] for i in idx]
+        sub.bitrev = self.bitrev
+        sub.psi_pow = self.psi_pow[idx]
+        sub.psi_ipow = self.psi_ipow[idx]
+        sub.stage_tw = [tw[idx] for tw in self.stage_tw]
+        sub.stage_tw_inv = [tw[idx] for tw in self.stage_tw_inv]
+        sub._dev = {}
+        return sub
+
     def __hash__(self):
         return id(self)
 
