@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
-source, started together): the NTT (K1, ``ntt.cu``) and the fused hybrid
-key switch (K3, ``hybrid_ks.cu``). Then, for each path:
+source, started together): the NTT (K1, ``ntt.cu``), the fused hybrid key
+switch (K3, ``hybrid_ks.cu``), the bit-reversed DIF transform (K5,
+``ntt_bitrev.cu``) and the fused windowed key switch (K6, ``keyswitch.cu``).
+Then, for each path:
 
 * the per-limb RNS gadget step: K1 bit-equal to its plain radix-2 torch
   twin, the square → relinearize → rescale step at the ``__graft_entry__``
@@ -16,7 +18,17 @@ key switch (K3, ``hybrid_ks.cu``). Then, for each path:
   flavours (v1, ``fused=True`` through K3, the fused schedule) with real
   keys at the MNIST serving shape on the full and the one-limb-shorter
   tower (bit-equal to each other and to the CPU, decoded against the
-  squares), and at ``bench.py``'s hybrid fixture shape.
+  squares), and at ``bench.py``'s hybrid fixture shape;
+* the windowed special-prime rotation: K5 and K6 bit-equal to their plain
+  twins over shape sweeps, then K5 + K6 + the special-prime rescale with a
+  real Galois key at the MNIST data width (N = 2^13, seven 28-bit limbs +
+  one special, window 8), bit-equal to ``layers._modraise_keyswitch`` on the
+  card and on the CPU and decoded against the rotated slots; the windowed
+  and hybrid layers on the card bit-equal to the CPU;
+* the encrypted-MNIST serving pipeline at the reference's full
+  ``MNISTConfig()`` through ``encrypted_inference_fast``: 64 images, a 7×7
+  grid of ciphertexts, 315 hybrid rotations and 2 relinearizations per
+  batch, logits held against the plaintext forward pass.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -100,17 +112,19 @@ def phase_environment():
 
 
 def phase_build():
-    from toyfhe_tpu_torch.ops import cuda_lib, hybrid_ks_cuda, ntt_cuda
+    from toyfhe_tpu_torch.ops import (cuda_lib, hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda,
+                                      pallas_keyswitch_cuda)
 
     log("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    cuda_lib.build_all([ntt_cuda.LIB, hybrid_ks_cuda.LIB])
-    for lib in (ntt_cuda.LIB, hybrid_ks_cuda.LIB):
+    libs = [ntt_cuda.LIB, hybrid_ks_cuda.LIB, ntt_pallas_cuda.LIB, pallas_keyswitch_cuda.LIB]
+    cuda_lib.build_all(libs)
+    for lib in libs:
         lib.load()
         log(f"{lib.library.name}: nvcc {lib.build_info.get('seconds', 0.0):.2f} s")
         for line in lib.build_info.get("log", "").strip().splitlines():
             log(f"  {line}")
-    log(f"built and loaded both in {time.perf_counter() - t0:.2f} s")
+    log(f"built and loaded all {len(libs)} in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel_vs_plain(dev):
@@ -272,9 +286,9 @@ HYBRID_B = 4
 # K1 / K3 launches one step of each flavour makes (the bodies'
 # transform calls)
 FLAVOUR_LAUNCHES = {
-    "v1": {"fwd": 2, "inv": 3, "k3": 0},
-    "fused_k3": {"fwd": 1, "inv": 3, "k3": 1},
-    "fused_schedule": {"fwd": 2, "inv": 2, "k3": 0},
+    "v1": {"fwd": 2, "inv": 3, "k3": 0, "k5": 0, "k6": 0},
+    "fused_k3": {"fwd": 1, "inv": 3, "k3": 1, "k5": 0, "k6": 0},
+    "fused_schedule": {"fwd": 2, "inv": 2, "k3": 0, "k5": 0, "k6": 0},
 }
 
 
@@ -297,12 +311,16 @@ def synthetic_eval_key(params, seed, device):
 
 
 def eval_key_to(ek, device):
+    """An EvalMultKey or GaloisKey with its components moved to ``device``."""
     import toyfhe_tpu_torch as T
     mv = lambda x: T.RingElt(primal=None if x.primal is None else x.primal.to(device),
                              dual=None if x.dual is None else x.dual.to(device))
     ksk = ek.key
     comps = [T.KeyComponent(mask=mv(c.mask), masked=mv(c.masked)) for c in ksk.key]
-    return T.EvalMultKey(T.KeySwitchKey(ksk.params, comps, ksk.ring))
+    moved = T.KeySwitchKey(ksk.params, comps, ksk.ring)
+    if isinstance(ek, T.GaloisKey):
+        return T.GaloisKey(ek.galois_element, moved)
+    return T.EvalMultKey(moved)
 
 
 def flavour_steps(params, ek, ct_ring):
@@ -313,8 +331,9 @@ def flavour_steps(params, ek, ct_ring):
 
 
 def reset_launches():
-    from toyfhe_tpu_torch.ops import hybrid_ks_cuda, ntt_cuda
-    for d in (ntt_cuda.launches, ntt_cuda.transforms, hybrid_ks_cuda.launches):
+    from toyfhe_tpu_torch.ops import hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda, pallas_keyswitch_cuda
+    for d in (ntt_cuda.launches, ntt_cuda.transforms, hybrid_ks_cuda.launches,
+              ntt_pallas_cuda.launches, pallas_keyswitch_cuda.launches):
         for k in d:
             d[k] = 0
 
@@ -328,8 +347,9 @@ def census(batch: int) -> str:
 
 
 def read_launches() -> dict:
-    from toyfhe_tpu_torch.ops import hybrid_ks_cuda, ntt_cuda
-    return {**ntt_cuda.launches, **hybrid_ks_cuda.launches}
+    from toyfhe_tpu_torch.ops import hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda, pallas_keyswitch_cuda
+    return {**ntt_cuda.launches, **hybrid_ks_cuda.launches, **ntt_pallas_cuda.launches,
+            **pallas_keyswitch_cuda.launches}
 
 
 def phase_k3_vs_plain(dev):
@@ -497,6 +517,322 @@ def phase_hybrid_timing(dev, smi, mnist, bench):
     return times, k3
 
 
+# ---------------------------------------------------------------------------
+# the windowed special-prime rotation (K5, K6) and the layers
+# ---------------------------------------------------------------------------
+
+PHASE3_TOWERS = ((30, 29, 29, 28), (28,) * 7, (28,) * 8)
+# path (b): the MNIST data width with one special prime and window 8
+K6_N, K6_TOWER, K6_WINDOW, K6_STEPS = 1 << 13, (28,) * 7 + (29,), 8, 64
+
+
+def phase_k5_vs_plain(dev):
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_pallas
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log("== phase 13: K5 (bit-reversed DIF transform) against its plain twin on the card")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    err, ncase = 0, 0
+    for n in (256, 1024, 4096, 8192, 16384):
+        for tower in PHASE3_TOWERS:
+            tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
+            pt = ntt_pallas.PallasNttTables(tables)
+            brev = torch.as_tensor(tables.bitrev, device=dev)
+            for rows in (1, 4, 16):
+                a = random_residues(tables.primes, (rows,), n, gen, dev).transpose(0, 1).contiguous()
+                got = ntt_pallas.ntt_pallas_bitrev(pt, a)
+                want = ntt_pallas.ntt_bitrev_plain(pt, a)
+                nat = nttmod.ntt(tables, a.transpose(0, 1)).transpose(0, 1)[..., brev]
+                sync(dev)
+                err = max(err, int((got - want).abs().max()))
+                if not (torch.equal(got, want) and torch.equal(got, nat)):
+                    raise AssertionError(f"K5 != plain at N={n} tower={tower} rows={rows}")
+                ncase += 1
+        log(f"N={n:5d}: 3 towers x rows (1, 4, 16) bit-equal to the plain twin and to K1 "
+            f"read bit-reversed")
+    log(f"{ncase} cases: K5 == plain twin == bit-reversed K1")
+    return err
+
+
+def synthetic_fused_keyswitch(n, tower, window, seed, device):
+    """A FusedKeyswitch over ``tower`` (its last prime the special) with
+    uniform key duals from a numpy seed."""
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops.pallas_keyswitch import FusedKeyswitch
+    from toyfhe_tpu_torch.utils import interop as I
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
+    lc = len(tower) - 1
+    kpl = -(-max(p.bit_length() for p in tables.primes[:lc]) // window)
+    rng = np.random.default_rng(seed)
+    keys = [I.tensor(np.stack([rng.integers(0, p, (lc * kpl, n)) for p in tables.primes], 1),
+                     device) for _ in range(2)]
+    return FusedKeyswitch(tables, keys[0], keys[1], window, kpl, lc)
+
+
+def phase_k6_vs_plain(dev):
+    from toyfhe_tpu_torch.ops import pallas_keyswitch
+
+    log("== phase 14: K6 (fused windowed key switch) against its plain twin on the card")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    err, ncase = 0, 0
+    cases = [(n, w, lead) for n in (256, 4096, 8192, 16384) for w in (8, 5)
+             for lead in ((), (2,))] + [(32768, 8, ())]
+    for n, window, lead in cases:
+        fk = synthetic_fused_keyswitch(n, K6_TOWER, window, n + window, dev)
+        primes = fk.pt.primes
+        c2 = random_residues(primes[:-1], lead, n, gen, dev)
+        c1e = random_residues(primes, lead, n, gen, dev)
+        got = fk(c2, c1e)
+        want = pallas_keyswitch.fused_keyswitch_plain(fk, c2, c1e)
+        sync(dev)
+        for g, w in zip(got, want):
+            err = max(err, int((g - w).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"K6 != plain at N={n} window={window} lead={lead}")
+        ncase += 1
+        log(f"N={n:5d} window={window} kpl={fk.kpl} ndig={fk.ndig} lead={lead}: bit-equal")
+    log(f"{ncase} cases: K6 == plain twin (accumulators in shared memory up to N=2^14, "
+        f"in global scratch at 2^15)")
+    return err
+
+
+def modraise_params(n, tower, window):
+    import toyfhe_tpu_torch as T
+    return T.ModulusRaised(T.CKKSParams(T.make_rns_ring(n, tower), window, 3.2))
+
+
+def phase_k6_path(dev):
+    """K5 + K6 + the special-prime rescale with a real Galois key at the
+    MNIST data width, against ``layers._modraise_keyswitch`` on the card and
+    on the CPU and against the engine's ``rotate``, decoded."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.parallel import layers as TL
+
+    log(f"== phase 15: windowed special-prime rotation with real keys (N={K6_N}, "
+        f"{K6_TOWER}, window {K6_WINDOW}, {K6_STEPS}-slot rotation)")
+    params = modraise_params(K6_N, K6_TOWER, K6_WINDOW)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    t0 = time.perf_counter()
+    kp = T.keygen(params, gen)
+    gk = T.keygen_galois(gen, kp.priv, steps=K6_STEPS)
+    ek = T.keygen_eval_mult(gen, kp.priv)
+    vals = np.linspace(0.1, 1.0, K6_N // 2)
+    scale = Fraction(2) ** 40
+    ring = params.ring_cipher
+    c = T.encrypt(kp, T.make_plaintext(ring, vals, scale), gen)
+    g = T.apply_galois_ct(c, gk.galois_element)
+    c1p, c2p = (T.ringops.ensure_primal(ring, x).primal for x in g.cs)
+    ka = TL.build_modraise_key_arrays(params, gk.key)
+    fk = TL.build_fused_keyswitch(ka)
+    sync(dev)
+    log(f"keygen + Galois key ({len(gk.key.key)} components) + eval key + encryption + "
+        f"K6 tables: {time.perf_counter() - t0:.2f} s (host clock)")
+
+    reset_launches()
+    fused = TL._modraise_keyswitch_fused(ka, fk, c1p, c2p)
+    sync(dev)
+    launches = read_launches()
+    want = {"fwd": 0, "inv": 0, "k3": 0, "k5": 1, "k6": 1}
+    if launches != want:
+        raise AssertionError(f"fused key switch launched {launches}, expected {want}")
+    log(f"one fused key switch launched {launches}")
+    reset_launches()
+    for _ in range(3):
+        TL._modraise_keyswitch_fused(ka, fk, c1p, c2p)
+    if read_launches()["k6"] != 3:
+        raise AssertionError("expected one K6 launch per call")
+    log("three calls: three K6 launches, one per call")
+
+    unfused = TL._modraise_keyswitch(ka, c1p, c2p)
+    ka_cpu = TL.build_modraise_key_arrays(params, eval_key_to(gk, "cpu").key)
+    cpu = TL._modraise_keyswitch(ka_cpu, c1p.cpu(), c2p.cpu())
+    eng = T.rotate(gk, c)
+    eng_p = [T.ringops.ensure_primal(eng.ring, x).primal for x in eng.cs]
+    for f, u, h, e in zip(fused, unfused, cpu, eng_p):
+        if not (torch.equal(f, u) and torch.equal(f.cpu(), h) and torch.equal(f, e)):
+            raise AssertionError("K5 + K6 + rescale differs from _modraise_keyswitch or rotate")
+    log("K5 + K6 + rescale == _modraise_keyswitch on the card == on the CPU == engine rotate")
+    out = T.CipherText(params, tuple(T.RingElt(primal=x) for x in fused), ring, enc=c.enc)
+    got = T.decrypt(kp, out).real
+    if got.shape != (K6_N // 2,) or not np.all(np.isfinite(got)):
+        raise AssertionError("bad decode shape or non-finite values")
+    worst = float(np.max(np.abs(got - np.roll(vals, K6_STEPS))))
+    log(f"decoded np.roll(vals, {K6_STEPS}): max abs error {worst:.3e} (limit {DECODE_ATOL})")
+    if not worst < DECODE_ATOL:
+        raise AssertionError(f"rotation decode error {worst} >= {DECODE_ATOL}")
+    return dict(params=params, kp=kp, gk=gk, ek=ek, c=c, ka=ka, fk=fk, c1p=c1p, c2p=c2p,
+                launches=launches, decode_err=worst)
+
+
+def _layers_card_vs_cpu(label, params, gk, ek, rot_ring, sq_ring, d, gen):
+    from toyfhe_tpu_torch.parallel import layers as TL
+
+    dev = gen.device
+    rot = {dv: TL.RotateMatmulLayer(params, k, gk.galois_element, d, rot_ring)
+           for dv, k in ((dev, gk), ("cpu", eval_key_to(gk, "cpu")))}
+    sq = {dv: TL.SquareRelinLayer(params, k, sq_ring)
+          for dv, k in ((dev, ek), ("cpu", eval_key_to(ek, "cpu")))}
+    x = [random_residues(rot_ring.primes, (), rot_ring.n, gen, dev) for _ in range(2)]
+    diag = random_residues(rot_ring.primes, (d,), rot_ring.n, gen, dev)
+    y = [random_residues(sq_ring.primes, (2,), sq_ring.n, gen, dev) for _ in range(2)]
+    t0 = time.perf_counter()
+    card = (rot[dev](*x, diag), sq[dev](*y))
+    sync(dev)
+    t1 = time.perf_counter()
+    host = (rot["cpu"](*[v.cpu() for v in x], diag.cpu()), sq["cpu"](*[v.cpu() for v in y]))
+    t2 = time.perf_counter()
+    for name, a, b in (("RotateMatmulLayer", card[0], host[0]),
+                       ("SquareRelinLayer", card[1], host[1])):
+        for u, v in zip(a, b):
+            if not torch.equal(u.cpu(), v):
+                raise AssertionError(f"{label} {name} on the card differs from the CPU")
+    log(f"{label}: RotateMatmulLayer (d={d}, {rot_ring.nlimbs} limbs) and SquareRelinLayer "
+        f"({sq_ring.nlimbs} limbs, batch 2) on the card == on the CPU "
+        f"[card {(t1 - t0) * 1e3:.1f} ms, CPU {(t2 - t1) * 1e3:.1f} ms, host clock]")
+
+
+def phase_layers(dev, kpath):
+    import toyfhe_tpu_torch as T
+
+    log("== phase 16: the windowed and hybrid layers on the card against the CPU, bit-equal")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    params = kpath["params"]
+    ring = params.ring_cipher
+    _layers_card_vs_cpu(f"ModulusRaised window {K6_WINDOW}, N={K6_N}", params, kpath["gk"],
+                        kpath["ek"], ring, ring, 4, gen)
+    name, tower, dnum, k, _ = HYBRID_CONFIGS[0]
+    hp = hybrid_params(HYBRID_N, tower, dnum, k)
+    kp = T.keygen(hp, gen)
+    hek = T.keygen_eval_mult(gen, kp.priv)
+    hgk = T.keygen_galois(gen, kp.priv, steps=K6_STEPS)
+    full = hp.ring_cipher
+    _layers_card_vs_cpu(f"HybridRaised dnum={dnum} k={k}, N={HYBRID_N}", hp, hgk, hek,
+                        full.select(range(5)), full.select(range(6)), 4, gen)
+
+
+PIPE_REPS = 3
+
+
+def pipeline_launches(cfg) -> dict:
+    """K1 launches one batch of the pipeline makes: encryption 2 forward;
+    conv 1 inverse; each square 2 + 2; each dense channel 1 forward plus,
+    per rotation, 3 forward and 1 inverse; the bias rescale 1 inverse;
+    decryption 1 + 1."""
+    rot = cfg.positions - 1
+    dense = cfg.channels + 1
+    return {"fwd": 2 + 2 * 2 + dense * (1 + 3 * rot) + 1,
+            "inv": 1 + 2 * 2 + dense * rot + 1 + 1, "k3": 0, "k5": 0, "k6": 0}
+
+
+def phase_mnist_pipeline(dev, smi):
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.ops import ntt_cuda
+
+    cfg = M.MNISTConfig()
+    rots = (cfg.channels + 1) * (cfg.positions - 1)
+    log(f"== phase 17: the encrypted-MNIST serving pipeline at MNISTConfig() (N=2^{cfg.ring_logn}, "
+        f"{cfg.limb_bits}, {cfg.gadget} dnum={cfg.dnum} k={cfg.num_special}, {cfg.batch} "
+        f"images, {cfg.grid}x{cfg.grid} grid, {cfg.channels} channels, {rots} rotations)")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    t0 = time.perf_counter()
+    setup = M.fhe_setup(cfg, gen)
+    sync(dev)
+    log(f"fhe_setup (key pair, eval key, Galois key of {cfg.batch} slots): "
+        f"{time.perf_counter() - t0:.2f} s (host clock)")
+    weights = M.init_params(cfg, 17)
+    imgs = np.random.default_rng(17).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
+    plain = M.model_forward(cfg, weights, imgs)
+    t0 = time.perf_counter()
+    M.encrypted_inference_fast(setup, weights, imgs, gen)
+    sync(dev)
+    log(f"build (layers, {cfg.channels * cfg.positions + cfg.positions} diagonal encodings) + "
+        f"first batch: {time.perf_counter() - t0:.2f} s (host clock)")
+
+    reset_launches()
+    logits = M.encrypted_inference_fast(setup, weights, imgs, gen).T      # the main path
+    sync(dev)
+    launches = read_launches()
+    transforms = dict(ntt_cuda.transforms)
+    want = pipeline_launches(cfg)
+    log(f"one batch launched {launches}; K1 limb transforms {transforms['fwd']} forward + "
+        f"{transforms['inv']} inverse")
+    if launches != want:
+        raise AssertionError(f"pipeline launched {launches}, expected {want}")
+    if logits.shape != (cfg.batch, cfg.classes) or not np.all(np.isfinite(logits)):
+        raise AssertionError(f"bad logits: shape {logits.shape} or non-finite values")
+    err = float(np.max(np.abs(logits - plain)))
+    top2 = np.sort(plain, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * err
+    agree = np.argmax(logits, -1) == np.argmax(plain, -1)
+    log(f"logits vs model_forward: max abs error {err:.3e} (limit 0.5); labels agree on "
+        f"{int(agree.sum())}/{cfg.batch} images; {int(clear.sum())} images have a plaintext "
+        f"top-two margin > 2x error, labels agree on {int(agree[clear].sum())} of them")
+    if not err < 0.5:
+        raise AssertionError(f"logit error {err} >= 0.5")
+    if not agree[clear].all():
+        raise AssertionError("a label differs on an image with a clear plaintext margin")
+
+    run = setup._pipeline
+    walls = []
+    for _ in range(PIPE_REPS):
+        sync(dev)
+        t = time.perf_counter()
+        run(imgs, gen)
+        sync(dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+    per_layer = []
+    for _ in range(PIPE_REPS):
+        lt = {}
+        run(imgs, gen, layer_times=lt)
+        per_layer.append(lt)
+    ms = float(np.median(walls))
+    layers = {k: float(np.median([lt[k] for lt in per_layer])) for k in per_layer[0]}
+    log(f"warm batch: {ms:.1f} ms/batch (median of {PIPE_REPS}: "
+        f"{', '.join(f'{w:.1f}' for w in walls)}), {cfg.batch * 1e3 / ms:.1f} images/s [{smi}]")
+    log("per stage (median ms, synchronised between stages): " +
+        ", ".join(f"{k} {v:.2f}" for k, v in layers.items()) + f" [{smi}]")
+    return dict(launches=launches, transforms=transforms, err=err, ms=ms, layers=layers,
+                agree=int(agree.sum()), clear=int(clear.sum()), batch=cfg.batch)
+
+
+def phase_k5_k6_timing(dev, smi, kpath):
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_pallas, pallas_keyswitch
+    from toyfhe_tpu_torch.parallel import layers as TL
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log(f"== phase 18: K5 and K6 timing, CUDA events, median of {REPS} after {WARMUP} "
+        f"warm-up [{smi}]")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    fk = kpath["fk"]
+    for label, pt, rows in (("path (b): 8 limbs x 1 row", fk.pt, 1),
+                            ("28 x N=2^13: 7 limbs x 4 rows", ntt_pallas.PallasNttTables(
+                                nttmod.NttTables(K6_N, nt.ntt_prime_chain(K6_N, (28,) * 7))), 4)):
+        a = random_residues(pt.primes, (rows,), pt.n, gen, dev).transpose(0, 1).contiguous()
+        row = {"kernel": cuda_ms(lambda: ntt_pallas.ntt_pallas_bitrev(pt, a)),
+               "plain": cuda_ms(lambda: ntt_pallas.ntt_bitrev_plain(pt, a))}
+        out[("k5", label)] = row
+        log(f"K5 {label}: kernel {row['kernel']:.4f} ms, plain {row['plain']:.4f} ms [{smi}]")
+    c1e = random_residues(fk.pt.primes, (), fk.n, gen, dev)
+    c2p = kpath["c2p"]
+    row = {"kernel": cuda_ms(lambda: fk(c2p, c1e)),
+           "plain": cuda_ms(lambda: pallas_keyswitch.fused_keyswitch_plain(fk, c2p, c1e))}
+    out["k6"] = row
+    log(f"K6 path (b) (Lc={fk.Lc}, {fk.ndig} digits, N={fk.n}): kernel {row['kernel']:.4f} ms, "
+        f"plain {row['plain']:.4f} ms [{smi}]")
+    ka, c1p = kpath["ka"], kpath["c1p"]
+    row = {"fused": cuda_ms(lambda: TL._modraise_keyswitch_fused(ka, fk, c1p, c2p)),
+           "unfused": cuda_ms(lambda: TL._modraise_keyswitch(ka, c1p, c2p))}
+    out["keyswitch"] = row
+    log(f"whole windowed key switch at path (b): K5 + K6 + rescale {row['fused']:.4f} ms, "
+        f"_modraise_keyswitch (K1 + torch) {row['unfused']:.4f} ms [{smi}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -529,11 +865,18 @@ def main() -> int:
         f"{hybrid_launches['inv']} inverse, as the step body makes them; "
         f"real-key decode error {decode_err:.3e}")
 
+    k5_err = phase_k5_vs_plain(dev)
+    k6_err = phase_k6_vs_plain(dev)
+    kpath = phase_k6_path(dev)
+    phase_layers(dev, kpath)
+    pipe = phase_mnist_pipeline(dev, smi)
+    k56 = phase_k5_k6_timing(dev, smi, kpath)
+
     shape = "B*L=28, N=2^13"
     kernels = [
         {"name": f"k1_ntt_{k}", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt.cu",
          "replaces": f"toyfhe_tpu/ops/ntt_mxu_pallas.py:{line}",
-         "launches": launches[k], "max_abs_err": err[k],
+         "launches": pipe["launches"][k], "max_abs_err": err[k],
          "ms": times[shape][k], "plain_ms": times[shape][f"{k}_plain"]}
         for k, line in (("fwd", 242), ("inv", 255))]
     kernels.append(
@@ -541,6 +884,19 @@ def main() -> int:
          "replaces": "toyfhe_tpu/ops/pallas_hybrid_ks.py:47",
          "launches": hybrid_launches["k3"], "max_abs_err": k3_err,
          "ms": k3_times["mnist"]["kernel"], "plain_ms": k3_times["mnist"]["plain"]})
+    k5_row = k56[("k5", "path (b): 8 limbs x 1 row")]
+    kernels.append(
+        {"name": "k5_ntt_bitrev", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_bitrev.cu",
+         "replaces": "toyfhe_tpu/ops/ntt_pallas.py:246",
+         "launches": kpath["launches"]["k5"], "max_abs_err": k5_err,
+         "ms": k5_row["kernel"], "plain_ms": k5_row["plain"]})
+    kernels.append(
+        {"name": "k6_fused_keyswitch", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/keyswitch.cu",
+         "replaces": "toyfhe_tpu/ops/pallas_keyswitch.py:40",
+         "launches": kpath["launches"]["k6"], "max_abs_err": k6_err,
+         "ms": k56["k6"]["kernel"], "plain_ms": k56["k6"]["plain"]})
+    log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch, "
+        f"logit error {pipe['err']:.3e}; rotation decode error {kpath['decode_err']:.3e}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -111,7 +111,11 @@ def test_port_import_leaves_jax_out():
     code = ("import sys, toyfhe_tpu_torch, toyfhe_tpu_torch.parallel.ops, "
             "toyfhe_tpu_torch.ops.ntt_cuda, toyfhe_tpu_torch.core.hybrid, "
             "toyfhe_tpu_torch.ops.hybrid_ks, toyfhe_tpu_torch.ops.hybrid_ks_cuda, "
-            "toyfhe_tpu_torch.ops.cuda_lib; "
+            "toyfhe_tpu_torch.ops.cuda_lib, toyfhe_tpu_torch.core.modraise, "
+            "toyfhe_tpu_torch.ops.ntt_pallas, toyfhe_tpu_torch.ops.ntt_pallas_cuda, "
+            "toyfhe_tpu_torch.ops.pallas_keyswitch, "
+            "toyfhe_tpu_torch.ops.pallas_keyswitch_cuda, "
+            "toyfhe_tpu_torch.parallel.layers, toyfhe_tpu_torch.models.mnist; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

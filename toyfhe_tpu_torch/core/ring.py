@@ -43,6 +43,7 @@ class RingContext:
         self.psis = self.tables.psis
         self._children: dict = {}
         self._rescale_cache: dict = {}
+        self._galois_cache: dict = {}
         # derived towers are cached on the ROOT ring by absolute limb
         # indices, so drop_last() of a derived tower is the same object
         self._root: "RingContext" = self
@@ -101,6 +102,13 @@ class RingContext:
             self._rescale_cache["rescale"] = (qk_mod, inv_m)
         return self._rescale_cache["rescale"]
 
+    def galois_tables(self, g: int):
+        """(src, neg) gather tables of x(X) ↦ x(X^g), host numpy, cached."""
+        g = int(g)
+        if g not in self._galois_cache:
+            self._galois_cache[g] = nttmod.galois_perm_tables(self.n, g)
+        return self._galois_cache[g]
+
     # ---- host-side exact CRT (decode path) ----
     def to_bigint(self, primal: np.ndarray) -> list:
         """CRT-reconstruct [L, N] residues to Python ints in [0, q)."""
@@ -156,6 +164,17 @@ def make_ring(n: int, primes: Sequence[int]) -> RingContext:
 def make_rns_ring(n: int, logqs: Sequence[int]) -> RingContext:
     """RNS ring from requested limb bit-sizes, with primes ≡ 1 (mod 2N)."""
     return RingContext(n, nt.ntt_prime_chain(n, logqs))
+
+
+def zero(ring: RingContext, batch: Tuple[int, ...] = (), device="cpu") -> RingElt:
+    return RingElt(primal=torch.zeros(tuple(batch) + (ring.nlimbs, ring.n),
+                                      dtype=torch.int64, device=device))
+
+
+def zero_like(ring: RingContext, x: RingElt) -> RingElt:
+    arr = x.primal if x.primal is not None else x.dual
+    z = torch.zeros_like(arr)
+    return RingElt(primal=z, dual=z)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +242,13 @@ def scalar_mul(ring: RingContext, s, a: RingElt) -> RingElt:
     return RingElt(
         primal=None if a.primal is None else modmath.mul_mod(a.primal, s, mp),
         dual=None if a.dual is None else modmath.mul_mod(a.dual, s, mp))
+
+
+def apply_galois(ring: RingContext, a: RingElt, galois_element: int) -> RingElt:
+    """x(X) ↦ x(X^g) — primal-domain permutation."""
+    src, negm = ring.galois_tables(galois_element)
+    a = ensure_primal(ring, a)
+    return RingElt(primal=nttmod.apply_galois(ring.mp, a.primal, src, negm))
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ square → relinearize → rescale step needs.
 Port of ``toyfhe_tpu/core/rlwe.py``: keygen, encrypt / decrypt, ciphertext
 add and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
 digits; ``relin_window = w > 0``: base-2^w digits of each residue), eval-key
-generation, the plain key switch and its dispatch to the dnum-grouped hybrid
-key switch (:mod:`.hybrid`), limb drops and the CKKS rescale. A scheme is a
+and Galois-key generation, the plain key switch with the special-prime
+expand / contract hooks (:mod:`.modraise`) and its dispatch to the
+dnum-grouped hybrid key switch (:mod:`.hybrid`), single-key rotations,
+limb drops and the CKKS rescale. A scheme is a
 :class:`SchemeParams` subclass supplying the encoder π⁻¹, decoder π, noise
 sampler 𝒩 and secret sampler 𝒢; :class:`PassthroughParams` wraps one to
 override selected hooks.
@@ -166,6 +168,12 @@ class KeySwitchKey:
 
 @dataclasses.dataclass
 class EvalMultKey:
+    key: KeySwitchKey
+
+
+@dataclasses.dataclass
+class GaloisKey:
+    galois_element: int
     key: KeySwitchKey
 
 
@@ -387,13 +395,20 @@ def gadget_decompose(ring: RingContext, target: RingContext, x: RingElt,
 
 def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey) -> KeySwitchKey:
     """Key-switching key old → new.secret; ``old`` is a ring element in
-    new's key ring (e.g. s²). A scheme with a ``hybrid_factors`` hook
-    (HybridRaised) supplies one factor per digit group."""
+    new's key ring (e.g. s² or σ(s)). A modifier with a ``lift_old_key``
+    hook (ModulusRaised: ps·old) applies it here; gadget factors are taken
+    over the decomposition ring (the ciphertext tower when modulus-raised)
+    and a ``hybrid_factors`` hook (HybridRaised) supplies one factor per
+    digit group."""
     params = new.params
     ring = params.ring_key
-    old = R.ensure_primal(ring, old)
+    hook = getattr(params, "lift_old_key", None)
+    if hook is not None:
+        old = hook(old)
+    dec_ring = params.ring_cipher if _is_modraised(params) else ring
     hfac = getattr(params, "hybrid_factors", None)
-    factors = hfac() if hfac is not None else gadget_factors(ring, params.relin_window)
+    factors = hfac() if hfac is not None else gadget_factors(dec_ring, params.relin_window)
+    old = R.ensure_primal(ring, old)
     comps: List[KeyComponent] = []
     for g in factors:
         mask = RingElt(primal=sampling.uniform(gen, ring.mp, ring.n))
@@ -404,29 +419,60 @@ def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey) -> KeySwitch
     return KeySwitchKey(params, comps, ring)
 
 
+def _is_modraised(params) -> bool:
+    from .modraise import ModulusRaised
+    return isinstance(params, ModulusRaised)
+
+
 def keygen_eval_mult(gen: torch.Generator, priv: PrivKey) -> EvalMultKey:
     ring = priv.params.ring_key
     s2 = R.mul(ring, priv.secret, priv.secret)
     return EvalMultKey(make_eval_key(gen, s2, priv))
 
 
-def _key_stacks(ek: KeySwitchKey, target: RingContext, ndig: int):
+def galois_element_for_steps(n: int, steps: int) -> int:
+    """3^(2N−steps) for steps > 0 else 3^(−steps), mod 2N."""
+    m = 2 * n
+    if steps > 0:
+        return pow(3, 2 * n - steps, m)
+    return pow(3, -steps, m)
+
+
+def keygen_galois(gen: torch.Generator, priv: PrivKey, steps: Optional[int] = None,
+                  galois_element: Optional[int] = None) -> GaloisKey:
+    """Rotation key for ``steps`` slots (or an explicit Galois element)."""
+    if (steps is None) == (galois_element is None):
+        raise ValueError("give exactly one of steps and galois_element")
+    ring = priv.params.ring_key
+    if galois_element is None:
+        galois_element = galois_element_for_steps(ring.n, steps)
+    sg = R.apply_galois(ring, priv.secret, galois_element)
+    return GaloisKey(galois_element, make_eval_key(gen, sg, priv))
+
+
+def _downswitch_stack(params, ek: KeySwitchKey, target: RingContext, ndig: int):
     """Key components as dual tensors [ndig, Lt, N] restricted to the
     target tower (downswitch_keyelement): after rescales only the first
-    ``ndig`` gadget components and the first Lt limbs apply."""
-    which = list(range(target.nlimbs))
+    ``ndig`` gadget components apply; the limbs are the target's first Lt
+    (modulus-raised: its first Lt−1 and the key ring's special limb)."""
+    key_ring = ek.ring
+    if _is_modraised(params):
+        which = list(range(target.nlimbs - 1)) + [key_ring.nlimbs - 1]
+    else:
+        which = list(range(target.nlimbs))
     masks, maskeds = [], []
     for comp in ek.key[:ndig]:
-        _, m = R.limb_select(ek.ring, R.ensure_dual(ek.ring, comp.mask), which)
-        _, md = R.limb_select(ek.ring, R.ensure_dual(ek.ring, comp.masked), which)
+        _, m = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.mask), which)
+        _, md = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.masked), which)
         masks.append(m.dual)
         maskeds.append(md.dual)
     return torch.stack(masks, 0), torch.stack(maskeds, 0)
 
 
 def keyswitch(ek, c: CipherText) -> CipherText:
-    """Key switch c's last component back onto the base secret."""
-    if isinstance(ek, EvalMultKey):
+    """Key switch c's last component back onto the base secret. Handles both
+    gadget paths and the ModulusRaised expand / contract hooks."""
+    if isinstance(ek, (EvalMultKey, GaloisKey)):
         ek = ek.key
     params = ek.params
     if len(c.cs) not in (2, 3):
@@ -434,15 +480,22 @@ def keyswitch(ek, c: CipherText) -> CipherText:
     if getattr(params, "hybrid_decompose", None) is not None:
         return _keyswitch_hybrid(params, ek, c)
     ring = c.ring
-    c1 = c.cs[0]
-    c2 = c.cs[1] if len(c.cs) == 3 else None
+    expand = getattr(params, "keyswitch_expand", None)
+    contract = getattr(params, "keyswitch_contract", None)
+    if expand is not None:
+        exp_ring, c1 = expand(ring, c.cs[0])
+        c2 = R.zero_like(exp_ring, c1) if len(c.cs) == 2 else expand(ring, c.cs[1])[1]
+    else:
+        exp_ring, c1 = ring, c.cs[0]
+        c2 = c.cs[1] if len(c.cs) == 3 else None
 
     window = params.relin_window
-    kpl = _gadget_shape(ek.ring, window)[0] if window else None
-    digits = gadget_decompose(ring, ring, c.cs[-1], window, k_per_limb=kpl)  # [ndig, ..., L, N]
-    ddual = nttmod.ntt(ring.tables, digits)
+    key_dec_ring = params.ring_cipher if _is_modraised(params) else ek.ring
+    kpl = _gadget_shape(key_dec_ring, window)[0] if window else None
+    digits = gadget_decompose(ring, exp_ring, c.cs[-1], window, k_per_limb=kpl)
+    ddual = nttmod.ntt(exp_ring.tables, digits)              # [ndig, ..., Lt, N]
 
-    masks, maskeds = _key_stacks(ek, ring, int(digits.shape[0]))
+    masks, maskeds = _downswitch_stack(params, ek, exp_ring, int(digits.shape[0]))
     # batched ciphertexts carry leading axes between the digit and limb
     # axes — insert singleton dims so the key stacks broadcast
     extra = ddual.dim() - 3
@@ -450,16 +503,20 @@ def keyswitch(ek, c: CipherText) -> CipherText:
         shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
         masks = masks.reshape(shp)
         maskeds = maskeds.reshape(shp)
-    mp = ring.mp
+    mp = exp_ring.mp
     acc2 = modmath.mod_sum(modmath.mul_mod(masks, ddual, mp), mp, axis=0)
     acc1 = modmath.mod_sum(modmath.mul_mod(maskeds, ddual, mp), mp, axis=0)
 
-    c1 = R.add(ring, R.ensure_dual(ring, c1), RingElt(dual=acc1))
+    c1 = R.add(exp_ring, R.ensure_dual(exp_ring, c1), RingElt(dual=acc1))
     if c2 is None:
         c2 = RingElt(dual=acc2)
     else:
-        c2 = R.add(ring, R.ensure_dual(ring, c2), RingElt(dual=acc2))
-    return CipherText(c.params, (c1, c2), ring, enc=c.enc)
+        c2 = R.add(exp_ring, R.ensure_dual(exp_ring, c2), RingElt(dual=acc2))
+    out_ring = exp_ring
+    if contract is not None:
+        out_ring, c1 = contract(exp_ring, c1)
+        _, c2 = contract(exp_ring, c2)
+    return CipherText(c.params, (c1, c2), out_ring, enc=c.enc)
 
 
 def _keyswitch_hybrid(params, ek: KeySwitchKey, c: CipherText) -> CipherText:
@@ -506,6 +563,22 @@ def _hybrid_key_stack(params, ksk: KeySwitchKey, exp_ring: RingContext,
         masks = masks.reshape(shp)
         maskeds = maskeds.reshape(shp)
     return masks, maskeds
+
+
+# ---------------------------------------------------------------------------
+# Rotations
+# ---------------------------------------------------------------------------
+
+def apply_galois_ct(c: CipherText, galois_element: int) -> CipherText:
+    cs = tuple(R.apply_galois(c.ring, x, galois_element) for x in c.cs)
+    return CipherText(c.params, cs, c.ring, enc=c.enc)
+
+
+def rotate(gk: GaloisKey, c: CipherText) -> CipherText:
+    """Slot rotation: Galois automorphism, then the key switch."""
+    if not isinstance(gk, GaloisKey):
+        raise TypeError("rotate takes one GaloisKey (key sets are not ported)")
+    return keyswitch(gk, apply_galois_ct(c, gk.galois_element))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels: the Montgomery product, the
-// bit-reversal index, the radix-2 DIT stage loop of the NTT over one
-// polynomial in shared memory, and the launch plumbing.
+// bit-reversal index, the radix-2 DIT and DIF stage loops of the NTT over
+// one polynomial in shared memory, and the launch plumbing.
 //
 // Residues are canonical 32-bit words in [0, p), p < 2^31, so a sum of two
 // fits a uint32. Twiddles are Montgomery-form uint32 tables with the stage of
@@ -49,6 +49,27 @@ __device__ __forceinline__ void dit_stages(uint32_t* s, const uint32_t* twl,
       const uint32_t t = mont_mul(s[k + h], twl[h + j], p, ninv);
       s[k] = add_mod(u, t, p);
       s[k + h] = u >= t ? u - t : u + (p - t);
+    }
+    __syncthreads();
+  }
+}
+
+// log2 N radix-2 Gentleman–Sande DIF stages over s[0..n), natural in,
+// bit-reversed out, with the packed forward stage twiddles twl of one limb:
+// the stage of half-length h pairs (k, k + h) as a' = a + b,
+// b' = (a - b) * twl[h + k mod h]. Every butterfly is fully reduced. The
+// caller synchronises before the first stage; ends with the block
+// synchronised.
+__device__ __forceinline__ void dif_stages(uint32_t* s, const uint32_t* twl,
+                                           int n, uint32_t p, uint32_t ninv) {
+  for (int h = n >> 1; h >= 1; h >>= 1) {
+    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
+      const int j = b & (h - 1);
+      const int k = ((b - j) << 1) + j;      // start of the pair (k, k + h)
+      const uint32_t u = s[k];
+      const uint32_t v = s[k + h];
+      s[k] = add_mod(u, v, p);
+      s[k + h] = mont_mul(u >= v ? u - v : u + (p - v), twl[h + j], p, ninv);
     }
     __syncthreads();
   }

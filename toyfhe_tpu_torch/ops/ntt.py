@@ -26,7 +26,8 @@ import torch
 
 from .modmath import MontParams, canonical_device, mont_mul_raw
 
-__all__ = ["NttTables", "ntt", "intt", "ntt_plain", "intt_plain"]
+__all__ = ["NttTables", "ntt", "intt", "ntt_plain", "intt_plain",
+           "galois_perm_tables", "apply_galois", "galois_dual_perm"]
 
 
 def _bitrev_perm(n: int) -> np.ndarray:
@@ -204,3 +205,40 @@ def ntt(tables: NttTables, x: torch.Tensor) -> torch.Tensor:
 def intt(tables: NttTables, x: torch.Tensor) -> torch.Tensor:
     """Inverse negacyclic NTT (reference ``inntt``)."""
     return _dispatch(tables, x, True)
+
+
+# ---------------------------------------------------------------------------
+# Galois automorphisms x(X) ↦ x(X^g)
+# ---------------------------------------------------------------------------
+
+def galois_perm_tables(n: int, galois_element: int):
+    """Gather indices + sign mask for x(X) ↦ x(X^g) on primal coefficients:
+    coefficient i moves to (g·i mod N), negated when ⌊g·i/N⌋ is odd.
+    Returned in gather form, ``out[j] = ±x[src[j]]`` (host numpy)."""
+    g = int(galois_element)
+    i = np.arange(n, dtype=np.int64)
+    dest = (g * i) % n
+    sign = ((g * i) // n) % 2
+    src = np.zeros(n, dtype=np.int64)
+    neg = np.zeros(n, dtype=bool)
+    src[dest] = i
+    neg[dest] = sign.astype(bool)
+    return src, neg
+
+
+def apply_galois(mp: MontParams, x: torch.Tensor, src, neg) -> torch.Tensor:
+    """Apply a precomputed Galois permutation to int64[..., L, N] primal
+    residues (``src`` / ``neg`` as host arrays or tensors)."""
+    src = torch.as_tensor(src, device=x.device)
+    neg = torch.as_tensor(neg, device=x.device)
+    y = x.index_select(-1, src)
+    return torch.where(neg, torch.remainder(-y, mp.on(x.device).p), y)
+
+
+def galois_dual_perm(n: int, galois_element: int) -> np.ndarray:
+    """x(X) ↦ x(X^g) as a dual-domain gather (no sign flips): the natural
+    dual holds evaluations at ψ^{2k+1}, so ``out[k] = in[(((2k+1)·g mod
+    2N) − 1)/2]``."""
+    g = int(galois_element)
+    k = np.arange(n, dtype=np.int64)
+    return (((2 * k + 1) * g) % (2 * n) - 1) // 2

@@ -17,8 +17,8 @@ import torch
 
 from ..core.ckks_encoding import CKKSTag
 from ..core.ring import RingContext, RingElt
-from ..core.rlwe import (CipherText, EvalMultKey, KeyComponent, KeySwitchKey,
-                         PrivKey, PubKey, SchemeParams)
+from ..core.rlwe import (CipherText, EvalMultKey, GaloisKey, KeyComponent,
+                         KeyPair, KeySwitchKey, PrivKey, PubKey, SchemeParams)
 
 
 def tensor(x, device="cpu") -> torch.Tensor:
@@ -53,14 +53,57 @@ def pub_key(params: SchemeParams, mask, masked, domain: str = "primal",
                                        masked=ring_elt(**{domain: masked}, device=device)))
 
 
-def eval_mult_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
-                  device="cpu", ring: Optional[RingContext] = None) -> EvalMultKey:
-    """Relinearization key from the stacks ``masks``/``maskeds`` [ndig, L, N]."""
+def key_switch_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
+                   device="cpu", ring: Optional[RingContext] = None) -> KeySwitchKey:
+    """Key-switching key from the stacks ``masks``/``maskeds`` [ndig, L, N]
+    over ``ring`` (default ``params.ring_key``: the full tower, special
+    primes included, for the raising modifiers)."""
     ring = ring if ring is not None else params.ring_key
     comps = [KeyComponent(mask=ring_elt(**{domain: m}, device=device),
                           masked=ring_elt(**{domain: md}, device=device))
              for m, md in zip(np.asarray(masks), np.asarray(maskeds))]
-    return EvalMultKey(KeySwitchKey(params, comps, ring))
+    return KeySwitchKey(params, comps, ring)
+
+
+def eval_mult_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
+                  device="cpu", ring: Optional[RingContext] = None) -> EvalMultKey:
+    """Relinearization key from the stacks ``masks``/``maskeds`` [ndig, L, N]."""
+    return EvalMultKey(key_switch_key(params, masks, maskeds, domain, device, ring))
+
+
+def galois_key(params: SchemeParams, element: int, masks, maskeds,
+               domain: str = "dual", device="cpu",
+               ring: Optional[RingContext] = None) -> GaloisKey:
+    """Rotation key of Galois element ``element`` from its stacks."""
+    return GaloisKey(int(element), key_switch_key(params, masks, maskeds, domain,
+                                                  device, ring))
+
+
+MNIST_PARAM_NAMES = ("conv_w", "conv_b", "w1", "b1", "w2", "b2")
+
+
+def mnist_params(model_params) -> dict:
+    """The reference's MNIST ``model_params`` (any array type) as float64
+    numpy arrays."""
+    return {k: np.asarray(model_params[k], dtype=np.float64) for k in MNIST_PARAM_NAMES}
+
+
+def fhe_setup_from_numpy(cfg, secret, pub_mask, pub_masked, ek_masks, ek_maskeds,
+                         gk_element: int, gk_masks, gk_maskeds, device="cpu"):
+    """The port's MNIST ``FHESetup`` from exported key material: the secret
+    and public key primal over the key tower, the relinearization and Galois
+    key stacks as duals."""
+    from fractions import Fraction
+
+    from ..models import mnist as M
+
+    params = M.make_params(cfg)
+    kp = KeyPair(priv_key(params, secret, device=device),
+                 pub_key(params, pub_mask, pub_masked, device=device))
+    return M.FHESetup(cfg, params, kp,
+                      eval_mult_key(params, ek_masks, ek_maskeds, device=device),
+                      galois_key(params, gk_element, gk_masks, gk_maskeds, device=device),
+                      Fraction(2) ** cfg.scale_log2)
 
 
 def ciphertext(params: SchemeParams, ring: RingContext, components: Sequence,
