@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
-source, started together): the NTT (K1, ``ntt.cu``), the fused hybrid key
-switch (K3, ``hybrid_ks.cu``), the bit-reversed DIF transform (K5,
-``ntt_bitrev.cu``) and the fused windowed key switch (K6, ``keyswitch.cu``).
-Then, for each path:
+source, started together): the NTT (K1, ``ntt.cu``), the four-step digit
+transform (K2, ``ntt_mxu.cu``), the fused hybrid key switch (K3,
+``hybrid_ks.cu``), the fused polynomial product (K4, ``polymul.cu``), the
+bit-reversed DIF transform (K5, ``ntt_bitrev.cu``) and the fused windowed
+key switch (K6, ``keyswitch.cu``). Then, for each path:
 
 * the per-limb RNS gadget step: K1 bit-equal to its plain radix-2 torch
   twin, the square → relinearize → rescale step at the ``__graft_entry__``
@@ -28,11 +29,24 @@ Then, for each path:
 * the encrypted-MNIST serving pipeline at the reference's full
   ``MNISTConfig()`` through ``encrypted_inference_fast``: 64 images, a 7×7
   grid of ciphertexts, 315 hybrid rotations and 2 relinearizations per
-  batch, logits held against the plaintext forward pass.
+  batch, logits held against the plaintext forward pass;
+* the kernel A/B entry point ``toyfhe_tpu_torch.tools.bench_kernels`` at its
+  full width (N = 2^14, eight 28-bit limbs, 16 rows): K2 in both
+  recombinations and K4 bit-equal to their plain twins over shape sweeps
+  (K2 also to K1, K4 also to the unfused product through K1), then the
+  tool's five rows;
+* the production serving configuration of encrypted MNIST: hoisted
+  rotations (``rotate_many`` / ``rotate_sum``) with real keys on the card
+  bit-equal to the CPU and decoded, then the same full-width pipeline with
+  the 14 BSGS Galois keys and the dual flow, its logits held against the
+  plaintext pass and against the iterated schedule on the same encrypted
+  grid, its key products, decompositions and K1 launches counted.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
-kernels.
+kernels. The kernels line gives each kernel's time beside its plain twin's
+and beside the least time the card could take for the same bytes and
+operations.
 
 Phases print as they run. The line before the last is one JSON object
 describing each kernel; the last line is
@@ -112,12 +126,13 @@ def phase_environment():
 
 
 def phase_build():
-    from toyfhe_tpu_torch.ops import (cuda_lib, hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda,
-                                      pallas_keyswitch_cuda)
+    from toyfhe_tpu_torch.ops import (cuda_lib, hybrid_ks_cuda, ntt_cuda, ntt_mxu_pallas_cuda,
+                                      ntt_pallas_cuda, pallas_keyswitch_cuda)
 
     log("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    libs = [ntt_cuda.LIB, hybrid_ks_cuda.LIB, ntt_pallas_cuda.LIB, pallas_keyswitch_cuda.LIB]
+    libs = [ntt_cuda.LIB, hybrid_ks_cuda.LIB, ntt_pallas_cuda.LIB, pallas_keyswitch_cuda.LIB,
+            ntt_mxu_pallas_cuda.LIB, ntt_pallas_cuda.LIB_POLYMUL]
     cuda_lib.build_all(libs)
     for lib in libs:
         lib.load()
@@ -510,7 +525,7 @@ def phase_hybrid_timing(dev, smi, mnist, bench):
         fks = hybrid_ks.FusedHybridKS(params, synthetic_eval_key(params, 3, dev), lt=lt)
         y = random_residues(params.ring_cipher.primes, (HYBRID_B,), HYBRID_N, gen, dev)
         row = {"kernel": cuda_ms(lambda: fks(y)),
-               "plain": cuda_ms(lambda: hybrid_ks.fused_hybrid_ks_plain(fks, y))}
+               "plain": cuda_ms(lambda: hybrid_ks.fused_hybrid_ks_plain(fks, y)), "fks": fks}
         k3[name] = row
         log(f"K3 {name} (R={HYBRID_B}, T={fks.exp_ring.nlimbs}, dnum={fks.dnum_t}, "
             f"N={HYBRID_N}): kernel {row['kernel']:.4f} ms, plain {row['plain']:.4f} ms [{smi}]")
@@ -727,11 +742,33 @@ def pipeline_launches(cfg) -> dict:
             "inv": 1 + 2 * 2 + dense * rot + 1 + 1, "k3": 0, "k5": 0, "k6": 0}
 
 
-def phase_mnist_pipeline(dev, smi):
+PIPE_ENC_SEED = 170     # the encryption randomness of the batch both schedules are held on
+
+
+def time_pipeline(run, imgs, gen, dev):
+    """Warm wall ms per batch (median and the runs) and the median ms of
+    each stage, the device synchronised between stages."""
+    walls = []
+    for _ in range(PIPE_REPS):
+        sync(dev)
+        t = time.perf_counter()
+        run(imgs, gen)
+        sync(dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+    per_layer = []
+    for _ in range(PIPE_REPS):
+        lt = {}
+        run(imgs, gen, layer_times=lt)
+        per_layer.append(lt)
+    layers = {k: float(np.median([lt[k] for lt in per_layer])) for k in per_layer[0]}
+    return float(np.median(walls)), walls, layers
+
+
+def phase_mnist_pipeline(dev, smi, cfg=None):
     from toyfhe_tpu_torch.models import mnist as M
     from toyfhe_tpu_torch.ops import ntt_cuda
 
-    cfg = M.MNISTConfig()
+    cfg = M.MNISTConfig() if cfg is None else cfg
     rots = (cfg.channels + 1) * (cfg.positions - 1)
     log(f"== phase 17: the encrypted-MNIST serving pipeline at MNISTConfig() (N=2^{cfg.ring_logn}, "
         f"{cfg.limb_bits}, {cfg.gadget} dnum={cfg.dnum} k={cfg.num_special}, {cfg.batch} "
@@ -752,7 +789,8 @@ def phase_mnist_pipeline(dev, smi):
         f"first batch: {time.perf_counter() - t0:.2f} s (host clock)")
 
     reset_launches()
-    logits = M.encrypted_inference_fast(setup, weights, imgs, gen).T      # the main path
+    logits = M.encrypted_inference_fast(                                  # the main path
+        setup, weights, imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)).T
     sync(dev)
     launches = read_launches()
     transforms = dict(ntt_cuda.transforms)
@@ -775,27 +813,15 @@ def phase_mnist_pipeline(dev, smi):
     if not agree[clear].all():
         raise AssertionError("a label differs on an image with a clear plaintext margin")
 
-    run = setup._pipeline
-    walls = []
-    for _ in range(PIPE_REPS):
-        sync(dev)
-        t = time.perf_counter()
-        run(imgs, gen)
-        sync(dev)
-        walls.append((time.perf_counter() - t) * 1e3)
-    per_layer = []
-    for _ in range(PIPE_REPS):
-        lt = {}
-        run(imgs, gen, layer_times=lt)
-        per_layer.append(lt)
-    ms = float(np.median(walls))
-    layers = {k: float(np.median([lt[k] for lt in per_layer])) for k in per_layer[0]}
+    ms, walls, layers = time_pipeline(setup._pipeline, imgs, gen, dev)
     log(f"warm batch: {ms:.1f} ms/batch (median of {PIPE_REPS}: "
         f"{', '.join(f'{w:.1f}' for w in walls)}), {cfg.batch * 1e3 / ms:.1f} images/s [{smi}]")
     log("per stage (median ms, synchronised between stages): " +
         ", ".join(f"{k} {v:.2f}" for k, v in layers.items()) + f" [{smi}]")
     return dict(launches=launches, transforms=transforms, err=err, ms=ms, layers=layers,
-                agree=int(agree.sum()), clear=int(clear.sum()), batch=cfg.batch)
+                agree=int(agree.sum()), clear=int(clear.sum()), batch=cfg.batch,
+                cfg=cfg, setup=setup, weights=weights, imgs=imgs, plain=plain, logits=logits,
+                gen=gen)
 
 
 def phase_k5_k6_timing(dev, smi, kpath):
@@ -831,6 +857,370 @@ def phase_k5_k6_timing(dev, smi, kpath):
     log(f"whole windowed key switch at path (b): K5 + K6 + rescale {row['fused']:.4f} ms, "
         f"_modraise_keyswitch (K1 + torch) {row['unfused']:.4f} ms [{smi}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the kernel A/B entry point (K2, K4)
+# ---------------------------------------------------------------------------
+
+K2_TOWERS = ((29, 29, 28, 28),) + PHASE3_TOWERS[1:] + ((29, 28),)   # primes < 2^30
+BENCH_N, BENCH_LIMBS, BENCH_ROWS = 1 << 14, 8, 16     # tools.bench_kernels' defaults
+
+
+def phase_k2_vs_plain(dev):
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_mxu, ntt_mxu_pallas as mxp
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log("== phase 19: K2 (four-step digit transform) against its plain twin on the card")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    err, ncase = 0, 0
+    for n2 in (2, 8, 32, 64, 128):
+        n = 128 * n2
+        for tower in K2_TOWERS:
+            tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
+            mt = ntt_mxu.MxuNttTables(tables)
+            if not mt.paired_ok:
+                raise AssertionError(f"paired bound fails at N={n} tower={tower}")
+            psis = mxp.psi_table(mt, dev)
+            L = len(tower)
+            for rows in (1, 4, 16):
+                a = random_residues(tables.primes, (rows,), n, gen, dev).transpose(0, 1).contiguous()
+                x = a.reshape(L, rows, mxp.N1, n2)
+                got = {pr: mxp.ntt_mxu_pallas(mt, x, psis, pr) for pr in (False, True)}
+                want = {pr: mxp.ntt_mxu_pallas_plain(mt, x, psis, pr) for pr in (False, True)}
+                nat = mxp.ntt_mxu_pallas_natural(mt, a)
+                k1 = nttmod.ntt(tables, a.transpose(0, 1)).transpose(0, 1)
+                sync(dev)
+                for pr in (False, True):
+                    err = max(err, int((got[pr] - want[pr]).abs().max()))
+                if not (torch.equal(got[False], want[False]) and torch.equal(got[True], want[True])
+                        and torch.equal(got[True], got[False]) and torch.equal(nat, k1)):
+                    raise AssertionError(f"K2 != plain at N={n} tower={tower} rows={rows}")
+                ncase += 1
+        log(f"N={n:5d} (n2={n2:3d}): {len(K2_TOWERS)} towers x rows (1, 4, 16), 7-term and "
+            f"paired bit-equal to the plain twin and to each other, natural order == K1")
+    log(f"{ncase} cases: K2 == plain twin in both recombinations == K1")
+    return err
+
+
+def phase_k4_vs_plain(dev):
+    from toyfhe_tpu_torch.ops import modmath
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log("== phase 20: K4 (fused polynomial product) against its plain twin on the card")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    err, ncase = 0, 0
+    for n in (16, 256, 4096, 8192, 16384, 32768):
+        towers = PHASE3_TOWERS if n < 32768 else PHASE3_TOWERS[:1]
+        for tower in towers:
+            tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
+            pt = ntt_pallas.PallasNttTables(tables)
+            for rows in (1, 4, 16):
+                a, b = (random_residues(tables.primes, (rows,), n, gen, dev)
+                        .transpose(0, 1).contiguous() for _ in range(2))
+                got = ntt_pallas.polymul_pallas_raw(pt, a, b)
+                parked = ntt_pallas_cuda.launch_polymul(pt, a, b, park=True)
+                want = ntt_pallas.polymul_plain(pt, a, b)
+                at, bt = a.transpose(0, 1), b.transpose(0, 1)
+                k1 = nttmod.intt(tables, modmath.mul_mod(nttmod.ntt(tables, at),
+                                                         nttmod.ntt(tables, bt), tables.mp))
+                sync(dev)
+                err = max(err, int((got - want).abs().max()), int((parked - want).abs().max()))
+                if not (torch.equal(got, want) and torch.equal(parked, want)
+                        and torch.equal(got.transpose(0, 1), k1)):
+                    raise AssertionError(f"K4 != plain at N={n} tower={tower} rows={rows}")
+                ncase += 1
+        log(f"N={n:5d}: {len(towers)} towers x rows (1, 4, 16): two rows in shared memory"
+            f"{'' if n <= 16384 else ' (not at this N)'} and the parked-row variant bit-equal "
+            f"to the plain twin and to K1-inverse(K1(a) * K1(b))")
+    log(f"{ncase} cases: K4 == plain twin == unfused product through K1")
+    return err
+
+
+def reset_ab_launches():
+    from toyfhe_tpu_torch.ops import ntt_mxu_pallas_cuda, ntt_pallas_cuda
+    ntt_mxu_pallas_cuda.launches["k2"] = 0
+    ntt_pallas_cuda.polymul_launches["k4"] = 0
+
+
+def read_ab_launches() -> dict:
+    from toyfhe_tpu_torch.ops import ntt_mxu_pallas_cuda, ntt_pallas_cuda
+    return {**ntt_mxu_pallas_cuda.launches, **ntt_pallas_cuda.polymul_launches}
+
+
+def phase_bench_kernels(dev, smi):
+    from toyfhe_tpu_torch.tools import bench_kernels
+
+    log(f"== phase 21: the kernel A/B entry point at its full width (N={BENCH_N}, "
+        f"{BENCH_LIMBS} limbs of 28 bits, {BENCH_ROWS} rows), CUDA events, median of {REPS} "
+        f"after {WARMUP} warm-up [{smi}]")
+    reset_launches()
+    reset_ab_launches()
+    res = bench_kernels.run(BENCH_N, BENCH_LIMBS, BENCH_ROWS, dev, REPS)     # the main path
+    sync(dev)
+    launches = {**read_launches(), **read_ab_launches()}
+    log(f"one run launched {launches}")
+    for k in ("fwd", "inv", "k2", "k4"):
+        if launches[k] == 0:
+            raise AssertionError(f"the A/B entry point never launched {k}")
+    for ln in bench_kernels.report(res):
+        log(f"{ln} [{smi}]")
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# the production serving configuration: hoisted rotations, BSGS + dual flow
+# ---------------------------------------------------------------------------
+
+HOIST_STEPS = (64, 128, 512)      # two baby steps and a giant step of the MNIST dense layers
+
+
+def galois_keys_to(gks, device):
+    import toyfhe_tpu_torch as T
+    return T.GaloisKeys([eval_key_to(k, device) for k in gks.keys])
+
+
+def ciphertext_to(c, device):
+    import toyfhe_tpu_torch as T
+    mv = lambda x: T.RingElt(primal=None if x.primal is None else x.primal.to(device),
+                             dual=None if x.dual is None else x.dual.to(device))
+    return T.CipherText(c.params, tuple(mv(x) for x in c.cs), c.ring, enc=c.enc)
+
+
+def phase_hoisted_rotations(dev):
+    """``rotate_many`` / ``rotate_sum`` with real keys under the serving
+    gadget: the card against the CPU bit for bit, and the decoded slots."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import rlwe
+
+    name, tower, dnum, k, _ = HYBRID_CONFIGS[0]
+    log(f"== phase 22: hoisted rotations with real keys under the serving gadget "
+        f"(N={HYBRID_N}, {tower}, dnum={dnum}, k={k}, steps {HOIST_STEPS})")
+    params = hybrid_params(HYBRID_N, tower, dnum, k)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    t0 = time.perf_counter()
+    kp = T.keygen(params, gen)
+    gks = T.keygen_galois_set(gen, kp.priv, HOIST_STEPS)
+    els = [T.galois_element_for_steps(HYBRID_N, s) for s in HOIST_STEPS]
+    vals = np.linspace(0.1, 1.0, HYBRID_N // 2)
+    c = T.encrypt(kp, T.make_plaintext(params.ring_cipher, vals, Fraction(2) ** 45), gen)
+    sync(dev)
+    log(f"keygen + {len(gks.keys)} Galois keys + encryption: {time.perf_counter() - t0:.2f} s "
+        f"(host clock)")
+    gks_cpu, c_cpu = galois_keys_to(gks, "cpu"), ciphertext_to(c, "cpu")
+    terms = lambda ct: [(None, ct)] + [(g, ct) for g in els]
+
+    for key in rlwe.hoist_counts:
+        rlwe.hoist_counts[key] = 0
+    reset_launches()
+    many = T.rotate_many(gks, c, els)
+    lazy = T.rotate_sum(gks, terms(c))
+    sync(dev)
+    counts, launches = dict(rlwe.hoist_counts), read_launches()
+    want = {"decompositions": 1 + 3, "decompose_calls": 1 + 3,
+            "key_products": 3 + 3, "key_product_calls": 3 + 3}
+    log(f"rotate_many of 3 + rotate_sum of identity + 3: {counts}; K1 launches "
+        f"{launches['fwd']} forward + {launches['inv']} inverse")
+    if counts != want:
+        raise AssertionError(f"hoisting counts {counts}, expected {want}")
+    many_cpu = T.rotate_many(gks_cpu, c_cpu, els)
+    lazy_cpu = T.rotate_sum(gks_cpu, terms(c_cpu))
+    same = lambda a, b: all(torch.equal(T.ringops.ensure_dual(a.ring, x).dual.cpu(),
+                                        T.ringops.ensure_dual(b.ring, y).dual)
+                            for x, y in zip(a.cs, b.cs))
+    if not (all(same(many[g], many_cpu[g]) for g in els) and same(lazy, lazy_cpu)):
+        raise AssertionError("hoisted rotations on the card differ from the CPU")
+    log("rotate_many and rotate_sum on the card == on the CPU")
+    worst = 0.0
+    for s, g in zip(HOIST_STEPS, els):
+        got = T.decrypt(kp, many[g]).real
+        ref = T.decrypt(kp, T.rotate(gks, c, steps=s)).real
+        worst = max(worst, float(np.max(np.abs(got - np.roll(vals, s)))),
+                    float(np.max(np.abs(got - ref))))
+    log(f"decoded np.roll(vals, s) for each step, and against per-rotation rotate: max abs "
+        f"error {worst:.3e} (limit {DECODE_ATOL})")
+    expect = vals + sum(np.roll(vals, s) for s in HOIST_STEPS)
+    err_sum = float(np.max(np.abs(T.decrypt(kp, lazy).real - expect)))
+    log(f"decoded the sum of the identity and the three rotations: max abs error "
+        f"{err_sum:.3e} (limit {4 * DECODE_ATOL})")
+    if not (worst < DECODE_ATOL and err_sum < 4 * DECODE_ATOL):
+        raise AssertionError(f"hoisted rotation decode error {worst} / {err_sum}")
+    return dict(decode_err=worst, sum_err=err_sum)
+
+
+def bsgs_counts(cfg) -> dict:
+    """Ciphertext decompositions and key products, and the calls that make
+    them, of one batch on the BSGS schedule: dense 1 hoists its channels as
+    one batched ciphertext (one decomposition each) and merges their giant
+    steps; dense 2 is one ciphertext."""
+    from toyfhe_tpu_torch.core.bootstrap import bsgs_split
+    bs, gs = bsgs_split(cfg.positions)
+    nb, ng = bs - 1, gs - 1
+    return {"decompositions": cfg.channels + ng + 1 + ng, "decompose_calls": 2 * (1 + ng),
+            "key_products": cfg.channels * nb + ng + nb + ng,
+            "key_product_calls": 2 * (nb + ng)}
+
+
+def bsgs_pipeline_launches(cfg, params) -> dict:
+    """K1 launches of one batch of the BSGS + dual-flow pipeline:
+    encryption 2 forward; the dual rescales of conv and bias 1 + 1 each; each
+    fused square 2 + 2; each dense layer one inverse per decomposition and
+    one forward per digit group of it, one inverse and one forward per
+    stacked contraction (each baby rotation, and the layer's one lazy
+    ModDown); decryption 1 + 1."""
+    from toyfhe_tpu_torch.core.bootstrap import bsgs_split
+    bs, gs = bsgs_split(cfg.positions)
+    nb, ng = bs - 1, gs - 1
+    lc = params.ring_cipher.nlimbs
+    fwd, inv = 2 + 1 + 2 * 2 + 1 + 1, 1 + 2 * 2 + 1 + 1
+    for lt in (lc - 2, lc - 4):                          # the towers of dense 1 and dense 2
+        ndig = -(-lt // params.alpha)
+        fwd += (1 + ng) * ndig + nb + 1
+        inv += (1 + ng) + nb + 1
+    return {"fwd": fwd, "inv": inv, "k3": 0, "k5": 0, "k6": 0}
+
+
+def phase_bsgs_pipeline(dev, smi, base):
+    """The serving pipeline of phase 17 again with BSGS keys and the default
+    dual flow, on the same setup, weights, images and encryption seed."""
+    from toyfhe_tpu_torch.core import rlwe
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.ops import ntt_cuda
+
+    cfg, setup, weights, imgs, gen = (base[k] for k in ("cfg", "setup", "weights", "imgs", "gen"))
+    baby, giant = M.bsgs_steps(cfg)
+    log(f"== phase 23: the production serving configuration, BSGS dense layers + dual flow, at "
+        f"the same MNISTConfig ({len(baby)} baby + {len(giant)} giant Galois keys, "
+        f"{cfg.batch} images)")
+    t0 = time.perf_counter()
+    gks = M.keygen_matmul_bsgs(setup, gen)
+    sync(dev)
+    key_mb = sum(2 * c.mask.primal.numel() * 8 for k in gks.keys for c in k.key.key) / 2 ** 20
+    log(f"keygen_matmul_bsgs: {len(gks.keys)} keys, {key_mb:.1f} MiB as int64, "
+        f"{time.perf_counter() - t0:.2f} s (host clock)")
+    t0 = time.perf_counter()
+    M.encrypted_inference_fast(setup, weights, imgs, gen, gks_bsgs=gks)
+    sync(dev)
+    log(f"build (layers, diagonal encodings) + first batch: {time.perf_counter() - t0:.2f} s "
+        f"(host clock)")
+
+    for key in rlwe.hoist_counts:
+        rlwe.hoist_counts[key] = 0
+    reset_launches()
+    logits = M.encrypted_inference_fast(                                  # the main path
+        setup, weights, imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED),
+        gks_bsgs=gks).T
+    sync(dev)
+    launches, counts = read_launches(), dict(rlwe.hoist_counts)
+    transforms = dict(ntt_cuda.transforms)
+    log(f"one batch launched {launches}; K1 limb transforms {transforms['fwd']} forward + "
+        f"{transforms['inv']} inverse; {counts}")
+    want_l, want_c = bsgs_pipeline_launches(cfg, setup.params), bsgs_counts(cfg)
+    if launches != want_l:
+        raise AssertionError(f"BSGS pipeline launched {launches}, expected {want_l}")
+    if counts != want_c:
+        raise AssertionError(f"BSGS pipeline counts {counts}, expected {want_c}")
+    plain = base["plain"]
+    if logits.shape != (cfg.batch, cfg.classes) or not np.all(np.isfinite(logits)):
+        raise AssertionError(f"bad logits: shape {logits.shape} or non-finite values")
+    err = float(np.max(np.abs(logits - plain)))
+    diff = float(np.max(np.abs(logits - base["logits"])))
+    top2 = np.sort(plain, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * err
+    agree = np.argmax(logits, -1) == np.argmax(plain, -1)
+    log(f"logits vs model_forward: max abs error {err:.3e} (limit 0.5); vs the iterated "
+        f"pipeline on the same encrypted grid: {diff:.3e} (limit 1e-2); labels agree on "
+        f"{int(agree.sum())}/{cfg.batch} images and on {int(agree[clear].sum())} of the "
+        f"{int(clear.sum())} with a clear plaintext margin")
+    if not (err < 0.5 and diff < 1e-2):
+        raise AssertionError(f"logit error {err} or distance to the iterated pipeline {diff}")
+    if not agree[clear].all():
+        raise AssertionError("a label differs on an image with a clear plaintext margin")
+
+    ms, walls, layers = time_pipeline(setup._pipeline, imgs, gen, dev)
+    log(f"warm batch: {ms:.1f} ms/batch (median of {PIPE_REPS}: "
+        f"{', '.join(f'{w:.1f}' for w in walls)}), {cfg.batch * 1e3 / ms:.1f} images/s; the "
+        f"iterated schedule in this call: {base['ms']:.1f} ms/batch [{smi}]")
+    log("per stage, BSGS + dual flow / iterated (median ms, synchronised between stages): " +
+        ", ".join(f"{k} {v:.2f} / {base['layers'][k]:.2f}" for k, v in layers.items())
+        + f" [{smi}]")
+    return dict(launches=launches, transforms=transforms, counts=counts, err=err, diff=diff,
+                ms=ms, layers=layers)
+
+
+# ---------------------------------------------------------------------------
+# the least time the card could take (the kernels line's bound_ms)
+# ---------------------------------------------------------------------------
+
+# Published peaks of one H100 SXM: device-memory rate, the int8 tensor-core
+# rate (K2's digit products are int8 multiply-adds) and, for 32-bit integer
+# work on the CUDA cores, the non-tensor float32 rate (NVIDIA publishes no
+# separate integer figure; the integer lanes are no faster, so the bound
+# stays a lower bound).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+ALU32_OPS_PER_S = 67e12
+MONT_OPS = 5           # three 32-bit multiplies, an add and a conditional subtract
+MODADD_OPS = 2
+BUTTERFLY_OPS = MONT_OPS + 2 * MODADD_OPS
+RESIDUE_BYTES = 8      # residues travel as int64
+
+
+def stage_ops(n: int) -> int:
+    """32-bit operations of the log2 N radix-2 stages of one polynomial."""
+    return n // 2 * (n.bit_length() - 1) * BUTTERFLY_OPS
+
+
+def bound(nbytes: float, ops32: float, ops8: float = 0.0) -> dict:
+    """bound_ms and bound_by from the bytes a call must move (each input
+    read once, each output written once) and the operations it does."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops32 / ALU32_OPS_PER_S, ops8 / INT8_OPS_PER_S)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bound_transform(polys: int, limbs: int, n: int) -> dict:
+    """K1 / K5: residues in and out, the twist and stage-twiddle rows."""
+    nbytes = 2 * polys * n * RESIDUE_BYTES + 2 * limbs * n * 4 + limbs * 8
+    return bound(nbytes, polys * (stage_ops(n) + n * MONT_OPS))
+
+
+def bound_k2(limbs: int, rows: int, n: int) -> dict:
+    polys, n2 = limbs * rows, n // 128
+    nbytes = ((2 * polys + limbs) * n * RESIDUE_BYTES            # x, out, psis
+              + limbs * 4 * (128 * 128 + n2 * n2) + limbs * n * 4 + limbs * 64)
+    macs = polys * (128 + n2) * n * 16                           # int8 multiply-adds
+    ops32 = polys * n * (2 * MONT_OPS + 2 * (7 + 2 * MONT_OPS + 2 * MODADD_OPS + 8))
+    return bound(nbytes, ops32, 2 * macs)
+
+
+def bound_k4(limbs: int, rows: int, n: int) -> dict:
+    polys = limbs * rows
+    nbytes = 3 * polys * n * RESIDUE_BYTES + 4 * limbs * n * 4 + limbs * 12
+    return bound(nbytes, polys * (3 * stage_ops(n) + 5 * n * MONT_OPS))
+
+
+def bound_k3(fks, rows: int) -> dict:
+    T, n = fks.exp_ring.nlimbs, fks.exp_ring.n
+    widths = [hi - lo for lo, hi in fks.bounds]
+    nbytes = ((rows * fks.lt + 2 * rows * T + 2 * fks.dnum_t * T) * n * RESIDUE_BYTES
+              + 2 * T * n * 4 + fks.dnum_t * T * fks.alpha * 4)
+    ops = rows * T * sum(n * a * (MONT_OPS + MODADD_OPS) + stage_ops(n)
+                         + 2 * n * (MONT_OPS + MODADD_OPS) for a in widths)
+    return bound(nbytes, ops)
+
+
+def bound_k6(fk, lead: int = 1) -> dict:
+    Le, n, ndig = fk.Lc + 1, fk.n, fk.ndig
+    nbytes = ((lead * (fk.Lc + 3 * Le) + 2 * ndig * Le) * n * RESIDUE_BYTES + 4 * Le * n * 4)
+    ops = lead * Le * (ndig * (n * (2 + 2 * MONT_OPS) + stage_ops(n)
+                               + 2 * n * (MONT_OPS + MODADD_OPS))
+                       + 2 * (stage_ops(n) + n * MONT_OPS))
+    return bound(nbytes, ops)
 
 
 def main() -> int:
@@ -872,31 +1262,61 @@ def main() -> int:
     pipe = phase_mnist_pipeline(dev, smi)
     k56 = phase_k5_k6_timing(dev, smi, kpath)
 
+    k2_err = phase_k2_vs_plain(dev)
+    k4_err = phase_k4_vs_plain(dev)
+    ab, ab_launches = phase_bench_kernels(dev, smi)
+    hoist = phase_hoisted_rotations(dev)
+    bsgs = phase_bsgs_pipeline(dev, smi, pipe)
+
+    # No single PyTorch call computes a modular transform, a modular
+    # polynomial product or a key switch, so library_ms is null in every row.
     shape = "B*L=28, N=2^13"
     kernels = [
         {"name": f"k1_ntt_{k}", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt.cu",
          "replaces": f"toyfhe_tpu/ops/ntt_mxu_pallas.py:{line}",
          "launches": pipe["launches"][k], "max_abs_err": err[k],
-         "ms": times[shape][k], "plain_ms": times[shape][f"{k}_plain"]}
+         "ms": times[shape][k], "plain_ms": times[shape][f"{k}_plain"],
+         **bound_transform(28, 7, 1 << 13), "library_ms": None}
         for k, line in (("fwd", 242), ("inv", 255))]
+    ab_rows = ab["rows_ms"]
+    kernels.append(
+        {"name": "k2_ntt_mxu", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_mxu.cu",
+         "replaces": "toyfhe_tpu/ops/ntt_mxu_pallas.py:153",
+         "launches": ab_launches["k2"], "max_abs_err": k2_err,
+         "ms": ab_rows["k2_paired"]["ms"], "plain_ms": ab_rows["k2_paired"]["plain_ms"],
+         **bound_k2(BENCH_LIMBS, BENCH_ROWS, BENCH_N), "library_ms": None})
     kernels.append(
         {"name": "k3_hybrid_ks", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/hybrid_ks.cu",
          "replaces": "toyfhe_tpu/ops/pallas_hybrid_ks.py:47",
          "launches": hybrid_launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_times["mnist"]["kernel"], "plain_ms": k3_times["mnist"]["plain"]})
+         "ms": k3_times["mnist"]["kernel"], "plain_ms": k3_times["mnist"]["plain"],
+         **bound_k3(k3_times["mnist"]["fks"], HYBRID_B), "library_ms": None})
+    kernels.append(
+        {"name": "k4_polymul", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/polymul.cu",
+         "replaces": "toyfhe_tpu/ops/ntt_pallas.py:180",
+         "launches": ab_launches["k4"], "max_abs_err": k4_err,
+         "ms": ab_rows["polymul_k4"]["ms"], "plain_ms": ab_rows["polymul_k4"]["plain_ms"],
+         **bound_k4(BENCH_LIMBS, BENCH_ROWS, BENCH_N), "library_ms": None})
     k5_row = k56[("k5", "path (b): 8 limbs x 1 row")]
     kernels.append(
         {"name": "k5_ntt_bitrev", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_bitrev.cu",
          "replaces": "toyfhe_tpu/ops/ntt_pallas.py:246",
          "launches": kpath["launches"]["k5"], "max_abs_err": k5_err,
-         "ms": k5_row["kernel"], "plain_ms": k5_row["plain"]})
+         "ms": k5_row["kernel"], "plain_ms": k5_row["plain"],
+         **bound_transform(len(K6_TOWER), len(K6_TOWER), K6_N), "library_ms": None})
     kernels.append(
         {"name": "k6_fused_keyswitch", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "toyfhe_tpu/ops/pallas_keyswitch.py:40",
          "launches": kpath["launches"]["k6"], "max_abs_err": k6_err,
-         "ms": k56["k6"]["kernel"], "plain_ms": k56["k6"]["plain"]})
-    log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch, "
-        f"logit error {pipe['err']:.3e}; rotation decode error {kpath['decode_err']:.3e}")
+         "ms": k56["k6"]["kernel"], "plain_ms": k56["k6"]["plain"],
+         **bound_k6(kpath["fk"]), "library_ms": None})
+    log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch on the "
+        f"iterated schedule (K1 {pipe['launches']['fwd']} + {pipe['launches']['inv']} launches, "
+        f"logit error {pipe['err']:.3e}), {bsgs['ms']:.1f} ms with BSGS + dual flow (K1 "
+        f"{bsgs['launches']['fwd']} + {bsgs['launches']['inv']} launches, "
+        f"{bsgs['counts']['key_products']} key products, {bsgs['counts']['decompositions']} "
+        f"decompositions, logit error {bsgs['err']:.3e}); rotation decode error "
+        f"{kpath['decode_err']:.3e}, hoisted {hoist['decode_err']:.3e}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

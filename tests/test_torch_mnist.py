@@ -135,7 +135,7 @@ def test_pipeline_logits_ciphertext_bit_equal(small, monkeypatch):
 
 def test_encrypted_inference_fast_port_keys(small):
     """The entry point with keys and sampling of the port's own, cached on
-    the setup; the unported schedules raise."""
+    the setup; the unported sharded schedule raises."""
     tcfg = small["tcfg"]
     gen = torch.Generator().manual_seed(8)
     tsetup = TM.fhe_setup(tcfg, gen)
@@ -147,9 +147,10 @@ def test_encrypted_inference_fast_port_keys(small):
     pipe = tsetup._pipeline
     TM.encrypted_inference_fast(tsetup, small["params"], small["imgs"], gen)
     assert tsetup._pipeline is pipe
-    for kw in (dict(gks_bsgs=object()), dict(dual_flow=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            TM.build_inference_pipeline(tsetup, small["params"], **kw)
+    with pytest.raises(NotImplementedError):
+        TM.build_inference_pipeline(tsetup, small["params"], mesh=object())
+    with pytest.raises(ValueError):                    # dual flow needs BSGS keys
+        TM.build_inference_pipeline(tsetup, small["params"], dual_flow=True)
 
 
 def test_audit_pipeline_depth_raises_like_reference():

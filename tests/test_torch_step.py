@@ -115,7 +115,11 @@ def test_port_import_leaves_jax_out():
             "toyfhe_tpu_torch.ops.ntt_pallas, toyfhe_tpu_torch.ops.ntt_pallas_cuda, "
             "toyfhe_tpu_torch.ops.pallas_keyswitch, "
             "toyfhe_tpu_torch.ops.pallas_keyswitch_cuda, "
-            "toyfhe_tpu_torch.parallel.layers, toyfhe_tpu_torch.models.mnist; "
+            "toyfhe_tpu_torch.parallel.layers, toyfhe_tpu_torch.models.mnist, "
+            "toyfhe_tpu_torch.ops.ntt_mxu, toyfhe_tpu_torch.ops.ntt_mxu_pallas, "
+            "toyfhe_tpu_torch.ops.ntt_mxu_pallas_cuda, toyfhe_tpu_torch.core.bootstrap, "
+            "toyfhe_tpu_torch.tools.bench_kernels, toyfhe_tpu_torch.tools.profile_mnist, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

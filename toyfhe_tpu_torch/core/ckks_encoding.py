@@ -21,6 +21,7 @@ import torch
 from ..utils import numtheory as nt
 from . import ring as R
 from .ring import RingContext, RingElt
+from .rlwe import CipherText
 
 ScaleLike = Union[int, Fraction]
 
@@ -134,3 +135,33 @@ def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
     f = np.fft.fft(multed)
     r1, _ = zmstar_indices(n)
     return f[r1]
+
+
+# ---------------------------------------------------------------------------
+# homomorphic plaintext operations (scale-tracked)
+# ---------------------------------------------------------------------------
+
+def _ct_scale(c: CipherText) -> Fraction:
+    if not isinstance(c.enc, CKKSTag):
+        raise ValueError("ciphertext carries no CKKS scale tag")
+    return c.enc.scale
+
+
+def _mul_plain_at(c: CipherText, vec, at_scale: Fraction) -> CipherText:
+    scale = _ct_scale(c)
+    pe = R.ensure_dual(c.ring, ckks_encode(c.ring, np.asarray(vec, dtype=np.complex128),
+                                           at_scale, c.cs[0].device))
+    cs = tuple(R.mul(c.ring, x_, pe) for x_ in c.cs)
+    return CipherText(c.params, cs, c.ring, enc=CKKSTag(scale * at_scale))
+
+
+def mul_plain_vector(c: CipherText, vec) -> CipherText:
+    """c ·ₚ slot vector, encoded at the ciphertext's scale on its device;
+    the result's scale squares."""
+    return _mul_plain_at(c, vec, _ct_scale(c))
+
+
+def mul_plain_vector_at(c: CipherText, vec, at_scale: ScaleLike) -> CipherText:
+    """c ·ₚ slot vector quantized at an explicit scale; result scale =
+    ct_scale · at_scale."""
+    return _mul_plain_at(c, vec, Fraction(at_scale))

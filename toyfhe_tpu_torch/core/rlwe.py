@@ -1,13 +1,16 @@
 """Scheme-generic RLWE engine (layer L3) — the subset the CKKS
-square → relinearize → rescale step needs.
+square → relinearize → rescale step and the rotation schedules need.
 
 Port of ``toyfhe_tpu/core/rlwe.py``: keygen, encrypt / decrypt, ciphertext
 add and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
 digits; ``relin_window = w > 0``: base-2^w digits of each residue), eval-key
 and Galois-key generation, the plain key switch with the special-prime
 expand / contract hooks (:mod:`.modraise`) and its dispatch to the
-dnum-grouped hybrid key switch (:mod:`.hybrid`), single-key rotations,
-limb drops and the CKKS rescale. A scheme is a
+dnum-grouped hybrid key switch (:mod:`.hybrid`), rotations with one key or
+a key set, the hoisted rotation schedules (:func:`rotate_many`: one gadget
+decomposition shared by several rotations; :func:`rotate_sum`: one
+contraction for a sum of rotations), limb drops and the CKKS rescale. A
+scheme is a
 :class:`SchemeParams` subclass supplying the encoder π⁻¹, decoder π, noise
 sampler 𝒩 and secret sampler 𝒢; :class:`PassthroughParams` wraps one to
 override selected hooks.
@@ -175,6 +178,29 @@ class EvalMultKey:
 class GaloisKey:
     galois_element: int
     key: KeySwitchKey
+
+
+@dataclasses.dataclass
+class GaloisKeys:
+    """Collection of Galois keys for various rotation steps, addressable by
+    Galois element."""
+
+    keys: List[GaloisKey]
+
+    def for_element(self, galois_element: int) -> GaloisKey:
+        # lookup through a lazily built index, kept outside the dataclass
+        # fields and rebuilt if the key list changed length
+        idx = self.__dict__.get("_index")
+        if idx is None or len(idx) != len(self.keys):
+            idx = {k.galois_element: k for k in self.keys}
+            self.__dict__["_index"] = idx
+        try:
+            return idx[galois_element]
+        except KeyError:
+            raise KeyError(f"no galois key for element {galois_element}") from None
+
+    def for_steps(self, n: int, steps: int) -> GaloisKey:
+        return self.for_element(galois_element_for_steps(n, steps))
 
 
 @dataclasses.dataclass
@@ -450,23 +476,40 @@ def keygen_galois(gen: torch.Generator, priv: PrivKey, steps: Optional[int] = No
     return GaloisKey(galois_element, make_eval_key(gen, sg, priv))
 
 
+def keygen_galois_set(gen: torch.Generator, priv: PrivKey, steps_list) -> GaloisKeys:
+    """A set of rotation keys, one per entry of ``steps_list``."""
+    return GaloisKeys([keygen_galois(gen, priv, steps=s) for s in steps_list])
+
+
+def _key_stack(ksk: KeySwitchKey, which: Sequence[int], ndig: int):
+    """The first ``ndig`` components' (masks, maskeds) as dual tensors
+    [ndig, len(which), N] over the limbs ``which`` of the key ring. Built
+    once per key, limb selection and digit count, and kept on the key: a
+    key's components do not change after it is made."""
+    memo = ksk.__dict__.setdefault("_stacks", {})
+    key = (tuple(which), ndig)
+    if key not in memo:
+        key_ring = ksk.ring
+        masks, maskeds = [], []
+        for comp in ksk.key[:ndig]:
+            _, m = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.mask), which)
+            _, md = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.masked), which)
+            masks.append(m.dual)
+            maskeds.append(md.dual)
+        memo[key] = (torch.stack(masks, 0), torch.stack(maskeds, 0))
+    return memo[key]
+
+
 def _downswitch_stack(params, ek: KeySwitchKey, target: RingContext, ndig: int):
     """Key components as dual tensors [ndig, Lt, N] restricted to the
     target tower (downswitch_keyelement): after rescales only the first
     ``ndig`` gadget components apply; the limbs are the target's first Lt
     (modulus-raised: its first Lt−1 and the key ring's special limb)."""
-    key_ring = ek.ring
     if _is_modraised(params):
-        which = list(range(target.nlimbs - 1)) + [key_ring.nlimbs - 1]
+        which = list(range(target.nlimbs - 1)) + [ek.ring.nlimbs - 1]
     else:
         which = list(range(target.nlimbs))
-    masks, maskeds = [], []
-    for comp in ek.key[:ndig]:
-        _, m = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.mask), which)
-        _, md = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.masked), which)
-        masks.append(m.dual)
-        maskeds.append(md.dual)
-    return torch.stack(masks, 0), torch.stack(maskeds, 0)
+    return _key_stack(ek, which, ndig)
 
 
 def keyswitch(ek, c: CipherText) -> CipherText:
@@ -548,16 +591,7 @@ def _hybrid_key_stack(params, ksk: KeySwitchKey, exp_ring: RingContext,
     """A hybrid key's components as dual tensors [ndig, Le, N] restricted
     to the expanded tower, with ``extra`` broadcast axes inserted for
     batched ciphertexts."""
-    key_ring = ksk.ring
-    which = params.hybrid_key_limbs(exp_ring)
-    masks, maskeds = [], []
-    for comp in ksk.key[:ndig]:
-        _, m = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.mask), which)
-        _, md = R.limb_select(key_ring, R.ensure_dual(key_ring, comp.masked), which)
-        masks.append(m.dual)
-        maskeds.append(md.dual)
-    masks = torch.stack(masks, 0)
-    maskeds = torch.stack(maskeds, 0)
+    masks, maskeds = _key_stack(ksk, params.hybrid_key_limbs(exp_ring), ndig)
     if extra:
         shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
         masks = masks.reshape(shp)
@@ -574,11 +608,199 @@ def apply_galois_ct(c: CipherText, galois_element: int) -> CipherText:
     return CipherText(c.params, cs, c.ring, enc=c.enc)
 
 
-def rotate(gk: GaloisKey, c: CipherText) -> CipherText:
-    """Slot rotation: Galois automorphism, then the key switch."""
+def rotate(gk, c: CipherText, steps: Optional[int] = None) -> CipherText:
+    """Slot rotation: Galois automorphism, then the key switch. Accepts a
+    GaloisKey, or a GaloisKeys collection with ``steps``."""
+    if isinstance(gk, GaloisKeys):
+        gk = gk.for_steps(c.ring.n, steps)
     if not isinstance(gk, GaloisKey):
-        raise TypeError("rotate takes one GaloisKey (key sets are not ported)")
+        raise TypeError("rotate takes a GaloisKey or a GaloisKeys collection")
     return keyswitch(gk, apply_galois_ct(c, gk.galois_element))
+
+
+# Ciphertexts decomposed and key products made by the hoisted schedules
+# (a batched ciphertext counts once per ciphertext it holds), and the calls
+# that made them.
+hoist_counts = {"decompositions": 0, "decompose_calls": 0,
+                "key_products": 0, "key_product_calls": 0}
+
+
+def _count(what: str, calls: str, t: torch.Tensor) -> None:
+    hoist_counts[what] += max(1, t[0].numel() // (t.shape[-1] * t.shape[-2]))
+    hoist_counts[calls] += 1
+
+
+class _HoistGadget:
+    """Gadget adapter for the hoisted-rotation paths (:func:`rotate_many`
+    / :func:`rotate_sum`). Valid only where σ_g commutes with the digit
+    map: the hybrid gadget and centered-RNS digits (relin_window == 0 —
+    odd primes make the centered lift an odd function, so the signed
+    coefficient permutation passes through the decomposition and through
+    the ModulusRaised expand, which is a per-coefficient scalar multiply).
+    Raw base-2^w windowed digits are unsigned and do not commute — those
+    params fall back to per-rotation rotate()."""
+
+    def __init__(self, params, ring: RingContext):
+        self.params = params
+        self.ring = ring
+        self.hybrid = getattr(params, "hybrid_decompose", None) is not None
+        self.exp_ring: Optional[RingContext] = None
+        self.ndig = 0
+
+    @staticmethod
+    def supports(params, c: CipherText) -> bool:
+        return len(c.cs) == 2 and (
+            getattr(params, "hybrid_decompose", None) is not None
+            or getattr(params, "relin_window", None) == 0)
+
+    def decompose_dual(self, elt: RingElt) -> torch.Tensor:
+        """[ndig, ..., Le, N] digit tensor in the (expanded) tower's dual
+        domain; paid once per hoist batch."""
+        if self.hybrid:
+            self.exp_ring, ddual = self.params.hybrid_decompose_dual(self.ring, elt)
+        else:
+            if self.exp_ring is None:
+                expand = getattr(self.params, "keyswitch_expand", None)
+                # expand a zero element once to learn the raised tower
+                self.exp_ring = (expand(self.ring, R.zero_like(self.ring, elt))[0]
+                                 if expand is not None else self.ring)
+            digits = gadget_decompose(self.ring, self.exp_ring, elt, 0)
+            ddual = nttmod.ntt(self.exp_ring.tables, digits)
+        self.ndig = int(ddual.shape[0])
+        _count("decompositions", "decompose_calls", ddual)
+        return ddual
+
+    def key_products(self, ksk: KeySwitchKey, pd: torch.Tensor):
+        """(Σ_digits maskeds·pd, Σ_digits masks·pd) in the raised tower:
+        the contributions to the first and to the second component."""
+        extra = pd.dim() - 3
+        if self.hybrid:
+            masks, maskeds = _hybrid_key_stack(self.params, ksk, self.exp_ring, self.ndig, extra)
+        else:
+            masks, maskeds = _downswitch_stack(self.params, ksk, self.exp_ring, self.ndig)
+            if extra:
+                shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
+                masks = masks.reshape(shp)
+                maskeds = maskeds.reshape(shp)
+        mp = self.exp_ring.mp
+        _count("key_products", "key_product_calls", pd)
+        acc2 = modmath.mod_sum(modmath.mul_mod(masks, pd, mp), mp, axis=0)
+        acc1 = modmath.mod_sum(modmath.mul_mod(maskeds, pd, mp), mp, axis=0)
+        return acc1, acc2
+
+    def contract_pair(self, acc1: torch.Tensor, acc2: torch.Tensor):
+        """ModDown both raised accumulators back to the base tower in one
+        stacked contraction (a no-op for the plain RNS gadget)."""
+        elt = RingElt(dual=torch.stack([acc1, acc2], dim=0))
+        if self.hybrid:
+            out_ring, e = self.params.hybrid_contract(self.exp_ring, elt)
+        else:
+            hook = getattr(self.params, "keyswitch_contract", None)
+            if hook is None:
+                return RingElt(dual=acc1), RingElt(dual=acc2)
+            out_ring, e = hook(self.exp_ring, elt)
+        if out_ring.primes != self.ring.primes:
+            raise UsageError("the contraction left the ciphertext tower")
+        if e.dual is not None:
+            return RingElt(dual=e.dual[0]), RingElt(dual=e.dual[1])
+        return RingElt(primal=e.primal[0]), RingElt(primal=e.primal[1])
+
+
+def rotate_many(gks: GaloisKeys, c: CipherText, elements) -> dict:
+    """Hoisted rotations: {galois_element: rotated ct} for a batch of
+    elements, sharing one gadget decomposition + digit NTT.
+
+    σ_g commutes with the limb / FBC decomposition (per-coefficient linear
+    ops commute with the signed coefficient permutation) and acts on the
+    dual domain as the pure permutation ``ntt.galois_dual_perm``; so the
+    per-rotation cost drops to a digit gather + key contraction + contract —
+    the (ndig·Le)-transform decomposition is paid once. Hybrid-gadget and
+    centered-RNS (window 0, incl. ModulusRaised) params take the fast path;
+    unsigned windowed digits fall back to rotate()."""
+    params = c.params
+    if not _HoistGadget.supports(params, c):
+        return {g: rotate(gks.for_element(g), c) for g in elements}
+    ring = c.ring
+    n = ring.n
+    gad = _HoistGadget(params, ring)
+    ddual = gad.decompose_dual(c.cs[1])                   # [ndig, ..., Le, N]
+    c0d = R.ensure_dual(ring, c.cs[0]).dual
+
+    outs = {}
+    for g in elements:
+        gk = gks.for_element(g)
+        perm = nttmod.galois_dual_perm_dev(n, g, ddual.device)
+        pd = ddual.index_select(-1, perm)
+        acc1, acc2 = gad.key_products(gk.key, pd)
+        a1, a2 = gad.contract_pair(acc1, acc2)
+        c0_rot = RingElt(dual=c0d.index_select(-1, perm))
+        outs[g] = CipherText(c.params, (R.add(ring, c0_rot, a1), a2), ring, enc=c.enc)
+    return outs
+
+
+def rotate_sum(gks: GaloisKeys, terms) -> CipherText:
+    """Σ_g rot_g(term_g) for ``terms`` = [(galois_element | None, ct)]
+    (None = identity, no key switch). Lazy ModDown: the per-rotation
+    key-switch accumulators are summed in the raised tower and the
+    contraction (divide-by-P base conversion) runs once for the whole sum
+    instead of once per rotation — the BSGS giant-step loop's workhorse.
+    One rounding for the batch also means less contraction noise than the
+    rotate-then-add schedule. Valid for the hybrid and centered-RNS
+    (window 0, incl. ModulusRaised) gadgets; other params fall back to
+    rotate() + ct_add."""
+    terms = [(g, t) for (g, t) in terms if t is not None]
+    if not terms:
+        raise ValueError("rotate_sum of an empty term list")
+    params = terms[0][1].params
+    rotated_terms = [(g, t) for (g, t) in terms if g is not None and g != 1]
+    if not all(_HoistGadget.supports(params, t) for _, t in terms):
+        out = None
+        for g, t in terms:
+            r = t if (g is None or g == 1) else rotate(gks.for_element(g), t)
+            out = r if out is None else ct_add(out, r)
+        return out
+
+    # Mirror ct_add's checks up front: the fast path tags the output with
+    # the first rotated term's enc, which is only sound when every term
+    # shares params and a combine_add-compatible enc.
+    enc0 = terms[0][1].enc
+    for _, t in terms[1:]:
+        if t.params is not params:
+            raise UsageError("rotate_sum terms carry differing parameters")
+        if enc0 is not None and t.enc is not None:
+            enc0.combine_add(t.enc)
+
+    c0_ident = None                      # identity terms: plain adds
+    for g, t in terms:
+        if g is None or g == 1:
+            c0_ident = t if c0_ident is None else ct_add(c0_ident, t)
+    if not rotated_terms:
+        return c0_ident
+
+    ring = rotated_terms[0][1].ring
+    n = ring.n
+    mp = ring.mp
+    gad = _HoistGadget(params, ring)
+    acc1s = acc2s = None                 # raised-tower accumulators (dual)
+    c0s = None                           # base-tower Σ σ_g(c0) (dual)
+    for g, t in rotated_terms:
+        if t.ring is not ring:
+            raise UsageError("rotate_sum terms must share one tower")
+        gk = gks.for_element(g)
+        ddual = gad.decompose_dual(t.cs[1])
+        perm = nttmod.galois_dual_perm_dev(n, g, ddual.device)
+        pd = ddual.index_select(-1, perm)             # σ_g ∘ decompose
+        a1, a2 = gad.key_products(gk.key, pd)
+        mp3 = gad.exp_ring.mp
+        acc1s = a1 if acc1s is None else modmath.add_mod(acc1s, a1, mp3)
+        acc2s = a2 if acc2s is None else modmath.add_mod(acc2s, a2, mp3)
+        c0g = R.ensure_dual(ring, t.cs[0]).dual.index_select(-1, perm)
+        c0s = c0g if c0s is None else modmath.add_mod(c0s, c0g, mp)
+
+    a1, a2 = gad.contract_pair(acc1s, acc2s)
+    t0 = rotated_terms[0][1]
+    out = CipherText(params, (R.add(ring, RingElt(dual=c0s), a1), a2), ring, enc=t0.enc)
+    return out if c0_ident is None else ct_add(out, c0_ident)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,8 @@ import torch
 from .modmath import MontParams, canonical_device, mont_mul_raw
 
 __all__ = ["NttTables", "ntt", "intt", "ntt_plain", "intt_plain",
-           "galois_perm_tables", "apply_galois", "galois_dual_perm"]
+           "galois_perm_tables", "apply_galois", "galois_dual_perm",
+           "galois_dual_perm_dev", "naive_negacyclic_mul"]
 
 
 def _bitrev_perm(n: int) -> np.ndarray:
@@ -242,3 +243,35 @@ def galois_dual_perm(n: int, galois_element: int) -> np.ndarray:
     g = int(galois_element)
     k = np.arange(n, dtype=np.int64)
     return (((2 * k + 1) * g) % (2 * n) - 1) // 2
+
+
+_DUAL_PERMS: dict = {}
+
+
+def galois_dual_perm_dev(n: int, galois_element: int, device) -> torch.Tensor:
+    """:func:`galois_dual_perm` as an int64 index tensor on ``device``,
+    cached per (n, element, device): the hoisted rotation schedules gather
+    with the same few permutations on every call."""
+    key = (n, int(galois_element), canonical_device(device))
+    if key not in _DUAL_PERMS:
+        _DUAL_PERMS[key] = torch.as_tensor(galois_dual_perm(n, galois_element),
+                                           device=key[2])
+    return _DUAL_PERMS[key]
+
+
+def naive_negacyclic_mul(a: np.ndarray, b: np.ndarray, p: int) -> np.ndarray:
+    """O(n²) schoolbook negacyclic convolution over Python ints: the
+    independent oracle of the transforms and of the fused product at
+    small N."""
+    n = len(a)
+    out = [0] * n
+    for i in range(n):
+        ai = int(a[i])
+        for j in range(n):
+            k = i + j
+            t = ai * int(b[j])
+            if k < n:
+                out[k] = (out[k] + t) % p
+            else:
+                out[k - n] = (out[k - n] - t) % p
+    return np.array(out, dtype=np.int64)

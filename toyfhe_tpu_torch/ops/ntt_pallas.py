@@ -1,5 +1,5 @@
-"""The DIF / DIT formulation of the negacyclic NTT, and the bit-reversed
-forward transform K5.
+"""The DIF / DIT formulation of the negacyclic NTT: the bit-reversed
+forward transform K5 and the fused polynomial product K4.
 
 Port of ``toyfhe_tpu/ops/ntt_pallas.py``:
 
@@ -18,9 +18,11 @@ are plain torch twins of the reference's ``_dif_stages`` / ``_dit_stages``
 :func:`ntt_pallas_bitrev` (K5) dispatches on the tensor's device: a CUDA
 tensor goes to the hand-written kernel (:mod:`.ntt_pallas_cuda`,
 ``csrc/ntt_bitrev.cu``), which raises rather than fall back; a CPU tensor
-goes to :func:`ntt_bitrev_plain`. Both return canonical residues and agree
-bit for bit. The reference's ``rows_per_block`` is a TPU tiling argument
-and has no counterpart here.
+goes to :func:`ntt_bitrev_plain`. :func:`polymul_pallas` /
+:func:`polymul_pallas_raw` (K4, ``csrc/polymul.cu``) dispatch the same way,
+with :func:`polymul_plain` as the twin. All return canonical residues and
+agree bit for bit. The reference's ``rows_per_block`` is a TPU tiling
+argument and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -151,3 +153,38 @@ def ntt_pallas_bitrev(pt: PallasNttTables, a: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cpu":
         raise ValueError(f"no bit-reversed NTT for tensors on {a.device}")
     return ntt_bitrev_plain(pt, a)
+
+
+def polymul_plain(pt: PallasNttTables, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4's plain twin: the negacyclic product of primal int64 [L, R, N]
+    operands, on any device — ψ-twist and DIF of both, the pointwise
+    ``mont(mont(da, R²), db)`` in bit-reversed order, DIT, and the N⁻¹ψ⁻ⁱ
+    untwist."""
+    _check_lrn(pt, a)
+    _check_lrn(pt, b)
+    if a.shape != b.shape:
+        raise ValueError(f"operand shapes differ: {tuple(a.shape)} and {tuple(b.shape)}")
+    d = pt.on(a.device)
+    p, rinv = d["p"], d["rinv"]
+    fwd = lambda x: dif_stages_plain(mont_mul_raw(x, d["psi_pow"], p, rinv), d["fwd"], p, rinv)
+    da, db = fwd(a), fwd(b)
+    prod = mont_mul_raw(mont_mul_raw(da, d["r2"], p, rinv), db, p, rinv)
+    x = dit_stages_plain(prod, d["inv"], p, rinv)
+    return mont_mul_raw(x, d["psi_ipow"], p, rinv)
+
+
+def polymul_pallas_raw(pt: PallasNttTables, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fused negacyclic product of primal int64 [L, R, N] operands (K4),
+    equal to ``intt(mul_mod(ntt(a), ntt(b)))`` per limb: the CUDA kernel for
+    CUDA tensors, the plain twin for CPU tensors."""
+    if a.device != b.device:
+        raise ValueError(f"operands on different devices: {a.device} and {b.device}")
+    if a.device.type == "cuda":
+        from . import ntt_pallas_cuda
+        return ntt_pallas_cuda.launch_polymul(pt, a.contiguous(), b.contiguous())
+    if a.device.type != "cpu":
+        raise ValueError(f"no fused product for tensors on {a.device}")
+    return polymul_plain(pt, a, b)
+
+
+polymul_pallas = polymul_pallas_raw   # the reference's jitted form of the same call

@@ -17,7 +17,7 @@ import torch
 
 from ..core.ckks_encoding import CKKSTag
 from ..core.ring import RingContext, RingElt
-from ..core.rlwe import (CipherText, EvalMultKey, GaloisKey, KeyComponent,
+from ..core.rlwe import (CipherText, EvalMultKey, GaloisKey, GaloisKeys, KeyComponent,
                          KeyPair, KeySwitchKey, PrivKey, PubKey, SchemeParams)
 
 
@@ -77,6 +77,16 @@ def galois_key(params: SchemeParams, element: int, masks, maskeds,
     """Rotation key of Galois element ``element`` from its stacks."""
     return GaloisKey(int(element), key_switch_key(params, masks, maskeds, domain,
                                                   device, ring))
+
+
+def galois_keys(params: SchemeParams, elements: Sequence[int], masks, maskeds,
+                domain: str = "dual", device="cpu",
+                ring: Optional[RingContext] = None) -> GaloisKeys:
+    """A rotation key set from one Galois element and one pair of stacks
+    [ndig, L, N] per key (``masks[i]`` / ``maskeds[i]`` belong to
+    ``elements[i]``)."""
+    return GaloisKeys([galois_key(params, g, m, md, domain, device, ring)
+                       for g, m, md in zip(elements, masks, maskeds)])
 
 
 MNIST_PARAM_NAMES = ("conv_w", "conv_b", "w1", "b1", "w2", "b2")
