@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
-source, started together): the NTT (K1, ``ntt.cu``), the four-step digit
-transform (K2, ``ntt_mxu.cu``), the fused hybrid key switch (K3,
+source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
+register-radix kernel and the one-block radix-2 kernel it replaced), the
+four-step digit transform on the int8 tensor cores (K2, ``ntt_mxu.cu``), the
+fused hybrid key switch (K3,
 ``hybrid_ks.cu``), the fused polynomial product (K4, ``polymul.cu``), the
 bit-reversed DIF transform (K5, ``ntt_bitrev.cu``) and the fused windowed
 key switch (K6, ``keyswitch.cu``). Then, for each path:
 
 * the per-limb RNS gadget step: K1 bit-equal to its plain radix-2 torch
-  twin, the square → relinearize → rescale step at the ``__graft_entry__``
+  twin (the cluster kernel at every legal cluster size, with lazy and with
+  fully reduced butterflies, and the radix-2 kernel), the square → relinearize → rescale step at the ``__graft_entry__``
   shape (bit-equal to the same step on the CPU) and with real keys at the
   encrypted-MNIST tower width (decoded against the expected squares);
 * the dnum-grouped hybrid gadget step, the encrypted-MNIST serving key
@@ -34,13 +37,18 @@ key switch (K6, ``keyswitch.cu``). Then, for each path:
   full width (N = 2^14, eight 28-bit limbs, 16 rows): K2 in both
   recombinations and K4 bit-equal to their plain twins over shape sweeps
   (K2 also to K1, K4 also to the unfused product through K1), then the
-  tool's five rows;
+  tool's rows at that width and at the serving transform shape (N = 2^13,
+  seven limbs, four rows), the radix-2 K1 beside the cluster kernel;
 * the production serving configuration of encrypted MNIST: hoisted
   rotations (``rotate_many`` / ``rotate_sum``) with real keys on the card
   bit-equal to the CPU and decoded, then the same full-width pipeline with
   the 14 BSGS Galois keys and the dual flow, its logits held against the
   plaintext pass and against the iterated schedule on the same encrypted
-  grid, its key products, decompositions and K1 launches counted.
+  grid, its key products, decompositions and K1 launches counted;
+* device time apart from wrapper time for K1 (both kernels, at the small
+  and the large end of the MNIST launches, the timed shape and the A/B
+  batch) and K2: one launch between two events, 200 launches back to back,
+  one launch's share of a replayed CUDA graph, and the host's time a call.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -142,31 +150,57 @@ def phase_build():
     log(f"built and loaded all {len(libs)} in {time.perf_counter() - t0:.2f} s")
 
 
+K1_SWEEP_TOWERS = ((30, 29, 29, 28), (28,) * 7, (28,) * 8, (30, 30))
+
+
 def phase_kernel_vs_plain(dev):
+    """K1 against its plain twin: the kernel every caller gets, the cluster
+    kernel at every legal cluster size with lazy and with fully reduced
+    butterflies (a tower with a prime in [2^30, 2^31) takes only the latter),
+    and the one-block radix-2 kernel."""
     from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_cuda
     from toyfhe_tpu_torch.utils import numtheory as nt
 
-    log("== phase 3: kernel against plain radix-2 on the card")
+    log("== phase 3: K1 against plain radix-2 on the card: the cluster kernel at every legal "
+        "cluster size, lazy and fully reduced, and the one-block radix-2 kernel")
     gen = torch.Generator(device=dev).manual_seed(3)
     err = {"fwd": 0, "inv": 0}
-    ncase = 0
+    ncase = nlaunch = 0
     for n in (256, 4096, 8192, 16384):
-        for tower in ((30, 29, 29, 28), (28,) * 7, (28,) * 8):
+        for tower in K1_SWEEP_TOWERS:
             tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
+            can_lazy = max(tables.primes) < ntt_cuda.LAZY_PRIME_LIMIT
+            variants = [(c, lz) for c in ntt_cuda.legal_clusters(n)
+                        for lz in ((True, False) if can_lazy else (False,))]
             for lead in ((), (4,), (4, 7), (16,)):
                 x = random_residues(tables.primes, lead, n, gen, dev)
-                kf, pf = nttmod.ntt(tables, x), nttmod.ntt_plain(tables, x)
-                ki, pi = nttmod.intt(tables, x), nttmod.intt_plain(tables, x)
-                back = nttmod.intt(tables, kf)
-                torch.cuda.synchronize()
-                err["fwd"] = max(err["fwd"], int((kf - pf).abs().max()))
-                err["inv"] = max(err["inv"], int((ki - pi).abs().max()))
-                ok = torch.equal(kf, pf) and torch.equal(ki, pi) and torch.equal(back, x)
-                if not ok:
-                    raise AssertionError(f"kernel != plain at N={n} tower={tower} lead={lead}")
+                polys = x.numel() // n
+                for which, inverse, plain in (("fwd", False, nttmod.ntt_plain),
+                                              ("inv", True, nttmod.intt_plain)):
+                    want = plain(tables, x)
+                    got = [nttmod.intt(tables, x) if inverse else nttmod.ntt(tables, x),
+                           ntt_cuda.launch(tables, x, inverse, variant="radix2")]
+                    got += [ntt_cuda.launch_cluster(tables, x, inverse, c, lz)
+                            for c, lz in variants]
+                    torch.cuda.synchronize()
+                    nlaunch += len(got)
+                    for i, g in enumerate(got):
+                        err[which] = max(err[which], int((g - want).abs().max()))
+                        if not torch.equal(g, want):
+                            what = (["default", "radix2"] + [f"C={c} lazy={lz}"
+                                                             for c, lz in variants])[i]
+                            raise AssertionError(f"K1 {what} != plain at N={n} tower={tower} "
+                                                 f"lead={lead} {which}")
+                back = nttmod.intt(tables, nttmod.ntt(tables, x))
+                if not torch.equal(back, x):
+                    raise AssertionError(f"round trip at N={n} tower={tower} lead={lead}")
                 ncase += 1
-            log(f"N={n:5d} tower={tower}: 4 leads bit-equal, round trip exact")
-    log(f"{ncase} cases: kernel == plain, intt(ntt(x)) == x")
+            log(f"N={n:5d} tower={tower}: 4 leads, clusters {ntt_cuda.legal_clusters(n)} x "
+                f"{'lazy and full' if can_lazy else 'full (a prime >= 2^30)'} + radix-2 + the "
+                f"chooser's pick (here C={ntt_cuda.choose_cluster(polys, n, tables.primes)[0]} "
+                f"for {polys} polynomials): bit-equal, round trip exact")
+    log(f"{ncase} cases, {nlaunch} launches: every K1 variant == plain, intt(ntt(x)) == x")
     return err
 
 
@@ -951,12 +985,15 @@ def read_ab_launches() -> dict:
     return {**ntt_mxu_pallas_cuda.launches, **ntt_pallas_cuda.polymul_launches}
 
 
+SERVING_AB = (1 << 13, 7, 4)      # the serving transform shape: N, limbs, rows
+
+
 def phase_bench_kernels(dev, smi):
     from toyfhe_tpu_torch.tools import bench_kernels
 
     log(f"== phase 21: the kernel A/B entry point at its full width (N={BENCH_N}, "
         f"{BENCH_LIMBS} limbs of 28 bits, {BENCH_ROWS} rows), CUDA events, median of {REPS} "
-        f"after {WARMUP} warm-up [{smi}]")
+        f"after {WARMUP} warm-up; device = one call's share of a replayed graph of 50 [{smi}]")
     reset_launches()
     reset_ab_launches()
     res = bench_kernels.run(BENCH_N, BENCH_LIMBS, BENCH_ROWS, dev, REPS)     # the main path
@@ -968,7 +1005,126 @@ def phase_bench_kernels(dev, smi):
             raise AssertionError(f"the A/B entry point never launched {k}")
     for ln in bench_kernels.report(res):
         log(f"{ln} [{smi}]")
+    n, limbs, rows = SERVING_AB
+    log(f"the same rows at the serving transform shape (N={n}, {limbs} limbs, {rows} rows):")
+    serving = bench_kernels.run(n, limbs, rows, dev, REPS)
+    for ln in bench_kernels.report(serving):
+        log(f"{ln} [{smi}]")
     return res, launches
+
+
+# (label, N, tower, lead): the small and the large end of the MNIST launches,
+# the shape the kernels line times, and the A/B batch
+DEVICE_TIME_SHAPES = (("12 x 2^13", 1 << 13, (28,) * 6, (2,)),
+                      ("28 x 2^13", 1 << 13, (28,) * 7, (4,)),
+                      ("196 x 2^12", 1 << 12, (28,) * 7, (28,)),
+                      ("128 x 2^14", 1 << 14, (28,) * 8, (16,)))
+B2B_LAUNCHES = 200
+
+
+def back_to_back_ms(fn, count=B2B_LAUNCHES) -> float:
+    """``count`` calls between one pair of events, per call: the larger of
+    the device time and the host time of a call."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def host_ms(fn, count=B2B_LAUNCHES) -> float:
+    """Host clock per call with the device left to run behind: what a call
+    costs the Python thread."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / count * 1e3
+
+
+def four_times(*fns) -> list:
+    """ms, b2b_ms, device_ms and host_ms of each function. Two functions are
+    measured in turns (first, second, second, first) and each gets the mean
+    of its two readings, so that neither has the quieter moment."""
+    from toyfhe_tpu_torch.tools.bench_kernels import graph_ms
+    order = fns if len(fns) == 1 else (fns[0], fns[1], fns[1], fns[0])
+    meters = {"ms": cuda_ms, "b2b_ms": back_to_back_ms,
+              "device_ms": lambda fn: graph_ms(fn, 100), "host_ms": host_ms}
+    out = [{} for _ in fns]
+    for key, meter in meters.items():
+        readings = [(fns.index(fn), meter(fn)) for fn in order]
+        for i, row in enumerate(out):
+            row[key] = float(np.mean([v for j, v in readings if j == i]))
+    return out
+
+
+def phase_device_time(dev, smi):
+    """Device time apart from wrapper time, for K1 (the cluster kernel and
+    the one-block radix-2 kernel at the same shapes) and K2."""
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_cuda, ntt_mxu, ntt_mxu_pallas as mxp
+    from toyfhe_tpu_torch.ops import ntt_mxu_pallas_cuda as k2c
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log(f"== phase 24: device time and wrapper time of K1 and K2. ms: one launch between two "
+        f"events, median of {REPS} (wrapper included); b2b: {B2B_LAUNCHES} launches between "
+        f"one pair of events, per launch; device: one launch's share of a replayed CUDA graph "
+        f"of 100; host: the Python thread's time a call; wrapper = ms - device; the two K1 "
+        f"kernels in turns (new, old, old, new), means of two readings [{smi}]")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    fmt = lambda t: (f"ms {t['ms']:.4f}, b2b {t['b2b_ms']:.4f}, device {t['device_ms']:.4f}, "
+                     f"host {t['host_ms']:.4f}, wrapper {t['ms'] - t['device_ms']:.4f}")
+    out = {}
+    tiny = nttmod.NttTables(16, nt.ntt_prime_chain(16, (28,)))
+    xt = random_residues(tiny.primes, (), 16, gen, dev)
+    floor, = four_times(lambda: ntt_cuda.launch_cluster(tiny, xt, False, 1))
+    log(f"floor, one polynomial of N=16 through the cluster kernel: {fmt(floor)} [{smi}]")
+    out["floor"] = floor
+    for label, n, tower, lead in DEVICE_TIME_SHAPES:
+        tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
+        x = random_residues(tables.primes, lead, n, gen, dev)
+        polys = x.numel() // n
+        c, lazy = ntt_cuda.choose_cluster(polys, n, tables.primes)
+        local, kf = ntt_cuda.schedule_plan(n.bit_length() - 1, c)
+        shape = ntt_cuda.block_shape(n, c)
+        log(f"K1 {label}: C={c}, lazy={lazy}, grid {polys * c} blocks x {shape['threads']} "
+            f"threads, {shape['smem']} B shared memory a block, local passes {local} + closing "
+            f"{kf} stages, {1 + len(local) + (c > 1)} barriers (radix-2: "
+            f"{n.bit_length()}); registers " + ", ".join(
+                f"{w} {ntt_cuda.kernel_attrs(kf, inv, lazy)['registers']}"
+                for w, inv in (("fwd", False), ("inv", True))))
+        for which, inverse in (("fwd", False), ("inv", True)):
+            new, old = four_times(
+                lambda: ntt_cuda.launch(tables, x, inverse),
+                lambda: ntt_cuda.launch(tables, x, inverse, variant="radix2"))
+            out[(label, which)] = {"new": new, "old": old, "cluster": c}
+            log(f"  {which} cluster kernel: {fmt(new)} [{smi}]")
+            log(f"  {which} one-block radix-2: {fmt(old)}; device time old / new "
+                f"x{old['device_ms'] / new['device_ms']:.2f} [{smi}]")
+    tables = nttmod.NttTables(BENCH_N, nt.ntt_prime_chain(BENCH_N, (28,) * BENCH_LIMBS))
+    mt = ntt_mxu.MxuNttTables(tables)
+    psis = mxp.psi_table(mt, dev)
+    x = random_residues(tables.primes, (BENCH_ROWS,), BENCH_N, gen, dev).transpose(0, 1) \
+        .contiguous().reshape(BENCH_LIMBS, BENCH_ROWS, mxp.N1, mt.n2)
+    rpb = k2c.rows_per_block(BENCH_LIMBS, BENCH_ROWS)
+    log(f"K2 128 x 2^14: grid {BENCH_LIMBS} x {-(-BENCH_ROWS // rpb)} blocks x 512 threads, "
+        f"{rpb} row(s) a block, {k2c.block_smem(mt.n2)} B shared memory a block; registers "
+        f"7-term {k2c.kernel_registers(False)}, paired {k2c.kernel_registers(True)}")
+    for name, paired in (("paired", True), ("7-term", False)):
+        t, = four_times(lambda: mxp.ntt_mxu_pallas(mt, x, psis, paired))
+        out[("k2", name)] = t
+        log(f"  {name}: {fmt(t)} [{smi}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1267,6 +1423,7 @@ def main() -> int:
     ab, ab_launches = phase_bench_kernels(dev, smi)
     hoist = phase_hoisted_rotations(dev)
     bsgs = phase_bsgs_pipeline(dev, smi, pipe)
+    dtime = phase_device_time(dev, smi)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -1275,7 +1432,8 @@ def main() -> int:
         {"name": f"k1_ntt_{k}", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt.cu",
          "replaces": f"toyfhe_tpu/ops/ntt_mxu_pallas.py:{line}",
          "launches": pipe["launches"][k], "max_abs_err": err[k],
-         "ms": times[shape][k], "plain_ms": times[shape][f"{k}_plain"],
+         "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
+         "plain_ms": times[shape][f"{k}_plain"],
          **bound_transform(28, 7, 1 << 13), "library_ms": None}
         for k, line in (("fwd", 242), ("inv", 255))]
     ab_rows = ab["rows_ms"]
@@ -1283,7 +1441,8 @@ def main() -> int:
         {"name": "k2_ntt_mxu", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_mxu.cu",
          "replaces": "toyfhe_tpu/ops/ntt_mxu_pallas.py:153",
          "launches": ab_launches["k2"], "max_abs_err": k2_err,
-         "ms": ab_rows["k2_paired"]["ms"], "plain_ms": ab_rows["k2_paired"]["plain_ms"],
+         "ms": ab_rows["k2_paired"]["ms"], "device_ms": dtime[("k2", "paired")]["device_ms"],
+         "plain_ms": ab_rows["k2_paired"]["plain_ms"],
          **bound_k2(BENCH_LIMBS, BENCH_ROWS, BENCH_N), "library_ms": None})
     kernels.append(
         {"name": "k3_hybrid_ks", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/hybrid_ks.cu",

@@ -14,19 +14,21 @@ from toyfhe_tpu_torch.tools import bench_kernels, profile_mnist
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
-ROWS = ("radix2", "k2_7grp", "k2_paired", "polymul_unfused", "polymul_k4")
+ROWS = ("k1", "k1_radix2", "k2_7grp", "k2_paired", "polymul_unfused", "polymul_k4")
 
 
 def test_run_returns_the_five_rows():
+    """The five rows of the reference tool, and the one-block radix-2 K1
+    beside the cluster kernel."""
     res = bench_kernels.run(n=256, limbs=2, rows=4, device="cpu", reps=1)
     assert tuple(res["rows_ms"]) == ROWS and res["paired_ok"]
     assert (res["n"], res["limbs"], res["rows"], res["device"]) == (256, 2, 4, "cpu")
     for row in res["rows_ms"].values():
         assert row["ms"] > 0 and row["plain_ms"] > 0 and row["transforms_per_s"] > 0
-    assert set(res["ratios"]) == {"k2_7grp_vs_radix2", "k2_paired_vs_radix2",
+    assert set(res["ratios"]) == {"k1_vs_radix2", "k2_7grp_vs_k1", "k2_paired_vs_k1",
                                   "k2_paired_vs_7grp", "polymul_k4_vs_unfused"}
     lines = bench_kernels.report(res)
-    assert len(lines) == 5 and all("ms/batch" in ln for ln in lines)
+    assert len(lines) == 6 and all("ms/batch" in ln for ln in lines)
 
 
 @pytest.mark.parametrize("n, limbs, rows", [(128, 1, 1), (512, 3, 2)])
@@ -41,7 +43,7 @@ def test_command_line_on_the_cpu():
                           "--reps", "1"], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     out = res.stdout.strip().splitlines()
-    assert len(out) == 6 and out[0].startswith("device=cpu") and "polymul K4" in out[-1]
+    assert len(out) == 7 and out[0].startswith("device=cpu") and "polymul K4" in out[-1]
 
 
 def test_command_line_needs_a_card_by_default():
@@ -52,7 +54,7 @@ def test_command_line_needs_a_card_by_default():
 
 
 def test_profile_tool_groups_and_needs_a_card():
-    assert profile_mnist.group_of("void (anonymous namespace)::ntt_kernel<true>(long const*)") \
+    assert profile_mnist.group_of("void (anonymous namespace)::ntt_cluster_kernel<3, true, true>(long const*)") \
         == "K1 transforms"
     assert profile_mnist.group_of("void at::native::vectorized_elementwise_kernel<4, ...>") \
         == "elementwise"

@@ -42,12 +42,12 @@ def test_ckks_device_tower_bitexact():
     params = T.CKKSParams(ring, 0, 3.2)
 
     imp = lambda xs: ring.from_bigint([int(h, 16) for h in xs])
-    kp = I.priv_key(params, imp(g["material"]["secret"]))
+    kp = I.priv_key(params, imp(g["material"]["secret"]), device="cpu")
     c = I.ciphertext(params, ring, [imp(x) for x in g["material"]["ct"]],
-                     domain="primal")
+                     domain="primal", device="cpu")
     ek = I.eval_mult_key(params, [imp(m) for m in g["material"]["ek_masks"]],
                          [imp(m) for m in g["material"]["ek_maskeds"]],
-                         domain="primal")
+                         domain="primal", device="cpu")
 
     out = T.ct_rescale(T.keyswitch(ek, T.ct_mul(c, c)))
     assert out.ring.primes == tower[:-1]
@@ -80,11 +80,11 @@ def carried(request):
     tring = T.make_rns_ring(n, (30, 29, 29, 28))
     assert tring.primes == ring.primes
     tparams = T.CKKSParams(tring, window, 3.2)
-    tkp = I.priv_key(tparams, np.asarray(kp.priv.secret.primal))
+    tkp = I.priv_key(tparams, np.asarray(kp.priv.secret.primal), device="cpu")
     dual = lambda x: np.asarray(ref_ring.ensure_dual(ring, x).dual)
     tek = I.eval_mult_key(tparams, [dual(kc.mask) for kc in ek.key.key],
-                          [dual(kc.masked) for kc in ek.key.key])
-    tcts = [I.ciphertext(tparams, tring, _ref_duals(ring, c), scale) for c in cts]
+                          [dual(kc.masked) for kc in ek.key.key], device="cpu")
+    tcts = [I.ciphertext(tparams, tring, _ref_duals(ring, c), scale, device="cpu") for c in cts]
     return dict(ring=ring, ek=ek, cts=cts, tring=tring, tkp=tkp, tek=tek,
                 tcts=tcts, vals=vals, scale=scale, kp=kp)
 
@@ -142,7 +142,7 @@ def test_carried_public_key(carried):
     dual = lambda x: np.asarray(ref_ring.ensure_dual(ring, x).dual)
     tparams = carried["tcts"][0].params
     tpub = I.pub_key(tparams, dual(kp.pub.key.mask), dual(kp.pub.key.masked),
-                     domain="dual")
+                     domain="dual", device="cpu")
     vals = carried["vals"][::-1].copy()
     gen = torch.Generator().manual_seed(12)
     tc = T.encrypt(tpub, T.make_plaintext(carried["tring"], vals, carried["scale"]), gen)
@@ -179,7 +179,7 @@ def test_rescale_dual_matches_rescale():
     ring = T.make_rns_ring(n, (30, 29, 28))
     rng = np.random.default_rng(2)
     x = np.stack([rng.integers(0, p, (2, n)) for p in ring.primes], axis=-2)
-    a = I.ring_elt(primal=x)
+    a = I.ring_elt(primal=x, device="cpu")
     sub, r = T.ringops.rescale(ring, a)
     sub2, rd = T.ringops.rescale_dual(ring, T.ringops.ensure_dual(ring, a))
     assert sub is sub2 is ring.drop_last()

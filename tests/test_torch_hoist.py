@@ -52,7 +52,7 @@ def carry_keys(params, tparams, gks):
     dual = lambda x: np.asarray(rr.ensure_dual(kr, x).dual)
     return I.galois_keys(tparams, [k.galois_element for k in gks.keys],
                          [[dual(c.mask) for c in k.key.key] for k in gks.keys],
-                         [[dual(c.masked) for c in k.key.key] for k in gks.keys])
+                         [[dual(c.masked) for c in k.key.key] for k in gks.keys], device="cpu")
 
 
 @pytest.fixture(scope="module", params=KINDS)
@@ -67,9 +67,9 @@ def fx(request):
     gks = F.keygen_galois_set(jax.random.PRNGKey(11), kp.priv, STEPS)
     els = [F.galois_element_for_steps(N, s) for s in STEPS]
     tkp = I.priv_key(tparams, np.asarray(rr.ensure_primal(params.ring_key,
-                                                          kp.priv.secret).primal))
+                                                          kp.priv.secret).primal), device="cpu")
     return dict(kind=kind, params=params, tparams=tparams, kp=kp, tkp=tkp, c=c, vals=vals,
-                tc=I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), SCALE),
+                tc=I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), SCALE, device="cpu"),
                 gks=gks, tgks=carry_keys(params, tparams, gks), els=els)
 
 
@@ -189,12 +189,12 @@ def test_hoisted_conjugation():
     g = 2 * N - 1
     gks = F.GaloisKeys([F.keygen_galois(ks[2], kp.priv, galois_element=g)])
     tgks = carry_keys(params, tparams, gks)
-    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), SCALE)
+    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), SCALE, device="cpu")
     got = T.rotate_many(tgks, tc, [g])[g]
     np.testing.assert_array_equal(I.ciphertext_to_numpy(got),
                                   ct_duals(F.rotate_many(gks, c, [g])[g]))
     tkp = I.priv_key(tparams, np.asarray(rr.ensure_primal(params.ring_key,
-                                                          kp.priv.secret).primal))
+                                                          kp.priv.secret).primal), device="cpu")
     np.testing.assert_allclose(T.decrypt(tkp, got), np.conj(vals), atol=2e-4)
 
 

@@ -72,9 +72,9 @@ def carry_keys(params, tparams, kp, ek):
     key_ring = params.ring_key
     dual = lambda x: np.asarray(ref_ring.ensure_dual(key_ring, x).dual)
     secret = np.asarray(ref_ring.ensure_primal(key_ring, kp.priv.secret).primal)
-    tkp = I.priv_key(tparams, secret)
+    tkp = I.priv_key(tparams, secret, device="cpu")
     tek = I.eval_mult_key(tparams, [dual(c.mask) for c in ek.key.key],
-                          [dual(c.masked) for c in ek.key.key])
+                          [dual(c.masked) for c in ek.key.key], device="cpu")
     return tkp, tek
 
 
@@ -128,7 +128,7 @@ def test_decompose_matches_reference(ref, L, dnum, k, lt, lead):
                   axis=-2).astype(np.uint32)
     for name in ("hybrid_decompose", "hybrid_decompose_dual"):
         exp_ring, want = getattr(params, name)(sub, RingElt(primal=jnp.asarray(xp)))
-        texp, got = getattr(tparams, name)(tsub, T.RingElt(primal=I.tensor(xp)))
+        texp, got = getattr(tparams, name)(tsub, T.RingElt(primal=I.tensor(xp, "cpu")))
         assert texp.primes == exp_ring.primes
         assert got.shape == (len(params._tables(lt)[1]),) + lead + (exp_ring.nlimbs, 32)
         np.testing.assert_array_equal(I.to_numpy(got), np.asarray(want))
@@ -154,7 +154,7 @@ def test_engine_square_relin_matches_reference(ref, dnum, k, limbs):
     vals = (rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2)) * 0.8
     c = F.encrypt(kp, F.make_plaintext(params.ring_cipher, vals, SCALE), ks[3])
     tkp, tek = carry_keys(params, tparams, kp, ek)
-    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c.ring, c), SCALE)
+    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c.ring, c), SCALE, device="cpu")
     while c.ring.nlimbs > limbs:
         c, tc = F.ct_modswitch_drop(c), T.ct_modswitch_drop(tc)
     assert tc.ring.primes == c.ring.primes
@@ -171,7 +171,7 @@ def test_contract_fused_matches_sequential():
     _, tparams = hybrid_params(T, 64, 6, 3, 3)
     exp = tparams._tables(5)[0]
     rng = np.random.default_rng(4)
-    acc = I.tensor(np.stack([rng.integers(0, p, (2, 64)) for p in exp.primes], axis=-2))
+    acc = I.tensor(np.stack([rng.integers(0, p, (2, 64)) for p in exp.primes], axis=-2), "cpu")
     ring_d, fused = tparams.hybrid_contract(exp, T.RingElt(dual=acc))
     ring_p, seq = tparams.hybrid_contract(exp, T.RingElt(primal=tntt.intt(exp.tables, acc)))
     assert ring_d is ring_p is tparams.ring_cipher.select(range(5))
@@ -237,7 +237,7 @@ def test_ring_select_repeated_rows():
                     fresh.stage_tw + fresh.stage_tw_inv):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(sub.mp.p, fresh.mp.p)
-    x = I.tensor(np.random.default_rng(0).integers(0, min(sub.primes), (2, 5, 64)))
+    x = I.tensor(np.random.default_rng(0).integers(0, min(sub.primes), (2, 5, 64)), "cpu")
     assert torch.equal(tntt.ntt(sub.tables, x), tntt.ntt(fresh, x))
     assert sub.select((1, 0)).primes == [ring.primes[2], ring.primes[3]]
 
@@ -267,7 +267,7 @@ def test_k3_plain_matches_unfused_reference(ref, L, dnum, k, lt, lead):
     _, tparams = hybrid_params(T, n, L, k, dnum, sp_bits=29)
     masks, maskeds = synthetic_keys(params, L)
     ek = ref_eval_key(jnp, params, masks, maskeds)
-    tek = I.eval_mult_key(tparams, masks, maskeds)
+    tek = I.eval_mult_key(tparams, masks, maskeds, device="cpu")
     lt_ = params.ring_cipher.nlimbs if lt is None else lt
     sub = params.ring_cipher.select(range(lt_))
     rng = np.random.default_rng(5)
@@ -282,7 +282,7 @@ def test_k3_plain_matches_unfused_reference(ref, L, dnum, k, lt, lead):
     want2 = np.asarray(ref_rlwe._mod_sum(ref_mm.mul_mod(m, ddual, mp), mp))
 
     fks = hybrid_ks.FusedHybridKS(tparams, tek, lt=lt)
-    acc1, acc2 = fks(fks.premultiply(I.tensor(xp)))
+    acc1, acc2 = fks(fks.premultiply(I.tensor(xp, "cpu")))
     assert acc1.shape == lead + (exp_ring.nlimbs, n)
     np.testing.assert_array_equal(I.to_numpy(acc1), want1)
     np.testing.assert_array_equal(I.to_numpy(acc2), want2)
@@ -302,10 +302,10 @@ def test_k3_plain_matches_pallas_interpret(ref):
     y = rng.integers(0, min(params.ring_key.primes), (2, 4, n)).astype(np.uint32)
     rf = FusedHybridKS(params, ref_eval_key(jnp, params, masks, maskeds))
     want1, want2 = rf(rf.premultiply(jnp.asarray(y)), interpret=True)
-    fks = hybrid_ks.FusedHybridKS(tparams, I.eval_mult_key(tparams, masks, maskeds))
+    fks = hybrid_ks.FusedHybridKS(tparams, I.eval_mult_key(tparams, masks, maskeds, device="cpu"))
     np.testing.assert_array_equal(fks.cst, rf.cst)
     np.testing.assert_array_equal(fks.inv_col, rf.inv_col)
-    acc1, acc2 = fks(fks.premultiply(I.tensor(y)))
+    acc1, acc2 = fks(fks.premultiply(I.tensor(y, "cpu")))
     np.testing.assert_array_equal(I.to_numpy(acc1), np.asarray(want1))
     np.testing.assert_array_equal(I.to_numpy(acc2), np.asarray(want2))
 
@@ -314,7 +314,7 @@ def test_k3_wrapper_guards():
     """The kernel wrapper takes CUDA tensors only; the dispatcher sends CPU
     tensors to the plain twin and refuses other devices."""
     _, tparams = hybrid_params(T, 32, 4, 2, 2, sp_bits=29)
-    fks = hybrid_ks.FusedHybridKS(tparams, I.eval_mult_key(tparams, *synthetic_keys(tparams, 0)))
+    fks = hybrid_ks.FusedHybridKS(tparams, I.eval_mult_key(tparams, *synthetic_keys(tparams, 0), device="cpu"))
     y = torch.zeros(4, 32, dtype=torch.int64)
     before = dict(hybrid_ks_cuda.launches)
     with pytest.raises(ValueError):

@@ -107,10 +107,10 @@ def test_step_matches_engine_and_decrypts(setup):
     sub = tring.drop_last()
     new_scale = setup["scale"] ** 2 / tring.primes[-1]
     for i, duals in enumerate(setup["batch"]):
-        c = I.ciphertext(tparams, tring, duals, setup["scale"])
+        c = I.ciphertext(tparams, tring, duals, setup["scale"], device="cpu")
         seq = T.ct_rescale(T.keyswitch(tek, T.ct_mul(c, c)))
         np.testing.assert_array_equal(I.ciphertext_to_numpy(seq), out[i, :, :L - 1])
-        got = T.decrypt(tkp, I.ciphertext(tparams, sub, out[i, :, :L - 1], new_scale))
+        got = T.decrypt(tkp, I.ciphertext(tparams, sub, out[i, :, :L - 1], new_scale, device="cpu"))
         np.testing.assert_allclose(got.real, (setup["vals"] * (i + 1)) ** 2, atol=1e-3)
 
 
@@ -129,7 +129,7 @@ def test_fused_k3_step_matches_reference(lt):
     _, tparams = hybrid_params(T, n, 4, 2, 2, sp_bits=29)
     masks, maskeds = synthetic_keys(params, 2)
     ek = ref_eval_key(jnp, params, masks, maskeds)
-    tek = I.eval_mult_key(tparams, masks, maskeds)
+    tek = I.eval_mult_key(tparams, masks, maskeds, device="cpu")
     ring, tring = params.ring_cipher, tparams.ring_cipher.select(range(lt))
     rng = np.random.default_rng(7)
     batch = rng.integers(0, min(ring.primes), (2, 2, lt, n)).astype(np.uint32)
@@ -148,7 +148,7 @@ def test_step_routes_transforms():
     """On the CPU every transform and the fused key switch take their plain
     twins: no kernel launch is counted."""
     _, tparams = hybrid_params(T, 32, 4, 2, 2, sp_bits=29)
-    tek = I.eval_mult_key(tparams, *synthetic_keys(tparams, 3))
+    tek = I.eval_mult_key(tparams, *synthetic_keys(tparams, 3), device="cpu")
     before = dict(ntt_cuda.launches), dict(hybrid_ks_cuda.launches)
     step, place = pops.make_hybrid_sharded_step(None, tparams, tek, fused=True)
     out = step(place(np.zeros((1, 2, 4, 32), dtype=np.uint32)))

@@ -76,9 +76,9 @@ def test_k5_plain_matches_pallas_interpret(ref):
         ref_ntt.NttTables(n, primes)), jnp.asarray(a), 8, True))
     tables = tntt.NttTables(n, primes)
     pt = tnp.PallasNttTables(tables)
-    got = tnp.ntt_pallas_bitrev(pt, I.tensor(a))
+    got = tnp.ntt_pallas_bitrev(pt, I.tensor(a, "cpu"))
     np.testing.assert_array_equal(I.to_numpy(got), want)
-    nat = tntt.ntt(tables, I.tensor(a).transpose(0, 1)).transpose(0, 1)
+    nat = tntt.ntt(tables, I.tensor(a, "cpu").transpose(0, 1)).transpose(0, 1)
     assert torch.equal(got, nat[..., torch.as_tensor(tables.bitrev)])
 
 
@@ -87,7 +87,7 @@ def test_k5_plain_matches_pallas_interpret(ref):
 def test_dif_dit_round_trip(n, tower, rows):
     """The DIT twin inverts the DIF twin: DIT(DIF(ψ·x))·N⁻¹ψ⁻ⁱ = x."""
     pt = tnp.PallasNttTables(tntt.NttTables(n, nt.ntt_prime_chain(n, tower)))
-    x = I.tensor(lrn_residues(pt.primes, rows, n, n))
+    x = I.tensor(lrn_residues(pt.primes, rows, n, n), "cpu")
     d = pt.on("cpu")
     back = tnp.dit_stages_plain(tnp.ntt_bitrev_plain(pt, x), d["inv"], d["p"], d["rinv"])
     assert torch.equal(tmm.mont_mul_raw(back, d["psi_ipow"], d["p"], d["rinv"]), x)
@@ -149,15 +149,15 @@ def test_k6_plain_matches_pallas_interpret(ref):
     kr = params.ring_key
     dual = lambda x: np.asarray(rr.ensure_dual(kr, x).dual)
     tgk = I.galois_key(tparams, gk.galois_element, [dual(k.mask) for k in gk.key.key],
-                       [dual(k.masked) for k in gk.key.key])
+                       [dual(k.masked) for k in gk.key.key], device="cpu")
     tka = TL.build_modraise_key_arrays(tparams, tgk.key)
     tfk = TL.build_fused_keyswitch(tka)
     np.testing.assert_array_equal(I.to_numpy(tfk.masks), np.asarray(fk.masks))
     np.testing.assert_array_equal(tfk._pn, fk._pn)
-    got = tfk(I.tensor(c2p), I.tensor(c1e))
+    got = tfk(I.tensor(c2p, "cpu"), I.tensor(c1e, "cpu"))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(I.to_numpy(a), np.asarray(b))
-    ks_got = TL._modraise_keyswitch_fused(tka, tfk, I.tensor(c1p), I.tensor(c2p))
+    ks_got = TL._modraise_keyswitch_fused(tka, tfk, I.tensor(c1p, "cpu"), I.tensor(c2p, "cpu"))
     ks_want = RL._modraise_keyswitch(ka, jnp.asarray(c1p), jnp.asarray(c2p))
     for a, b in zip(ks_got, ks_want):
         np.testing.assert_array_equal(I.to_numpy(a), np.asarray(b))
@@ -186,7 +186,7 @@ def test_k6_plain_matches_modraise_keyswitch(n, tower, window, lead):
         fk = TL.build_fused_keyswitch(ka)
         rng = np.random.default_rng(lc)
         c1p, c2p = (I.tensor(np.stack([rng.integers(0, p, lead + (n,)) for p in ring.primes],
-                                      axis=-2)) for _ in range(2))
+                                      axis=-2), "cpu") for _ in range(2))
         got = TL._modraise_keyswitch_fused(ka, fk, c1p, c2p)
         want = TL._modraise_keyswitch(ka, c1p, c2p)
         assert got[0].shape == lead + (lc, n)

@@ -35,10 +35,10 @@ def carry(params, tparams, kp, ek, gk):
     prim = lambda x: np.asarray(rr.ensure_primal(kr, x).primal)
     dual = lambda x: np.asarray(rr.ensure_dual(kr, x).dual)
     stacks = lambda k: ([dual(c.mask) for c in k.key.key], [dual(c.masked) for c in k.key.key])
-    tkp = T.KeyPair(I.priv_key(tparams, prim(kp.priv.secret)),
-                    I.pub_key(tparams, prim(kp.pub.key.mask), prim(kp.pub.key.masked)))
-    return (tkp, I.eval_mult_key(tparams, *stacks(ek)),
-            I.galois_key(tparams, gk.galois_element, *stacks(gk)))
+    tkp = T.KeyPair(I.priv_key(tparams, prim(kp.priv.secret), device="cpu"),
+                    I.pub_key(tparams, prim(kp.pub.key.mask), prim(kp.pub.key.masked), device="cpu"))
+    return (tkp, I.eval_mult_key(tparams, *stacks(ek), device="cpu"),
+            I.galois_key(tparams, gk.galois_element, *stacks(gk), device="cpu"))
 
 
 def make_fixture(tower, window=0, hybrid=None, seed=0, scale_log2=28):
@@ -118,7 +118,7 @@ def test_rotate_matmul_layer(request, name, limbs):
     layer = TL.RotateMatmulLayer(fx["tparams"], fx["tgk"], fx["tgk"].galois_element, d,
                                  tring_of(fx, ring))
     assert isinstance(layer.ka, TL.HybridKeyArrays) == (name == "hybrid")
-    got = layer(*[I.tensor(x) for x in primal(ring, c)], I.tensor(diag))
+    got = layer(*[I.tensor(x, "cpu") for x in primal(ring, c)], I.tensor(diag, "cpu"))
     assert_pair(got, want)
 
 
@@ -130,7 +130,7 @@ def test_square_relin_layer(request, name, limbs):
     want = RL.SquareRelinLayer(fx["params"], fx["ek"], ring)(
         *[jnp.asarray(x) for x in primal(ring, c)])
     layer = TL.SquareRelinLayer(fx["tparams"], fx["tek"], tring_of(fx, ring))
-    got = layer(*[I.tensor(x) for x in primal(ring, c)])
+    got = layer(*[I.tensor(x, "cpu") for x in primal(ring, c)])
     assert_pair(got, want)
     assert layer.sub_ring.primes == ring.drop_last().primes
     out = T.CipherText(fx["tparams"], tuple(T.RingElt(primal=x) for x in got),
@@ -152,7 +152,7 @@ def test_conv_layer(request, name, dual_out):
     want = RL.ConvLayer(fx["params"], ring, C, dual_out=dual_out)(
         jnp.asarray(cts), jnp.asarray(w_res), jnp.asarray(bias))
     got = TL.ConvLayer(fx["tparams"], fx["tparams"].ring_cipher, C, dual_out=dual_out)(
-        I.tensor(cts), I.tensor(w_res), I.tensor(bias))
+        I.tensor(cts, "cpu"), I.tensor(w_res, "cpu"), I.tensor(bias, "cpu"))
     assert got.shape == (C, 2, ring.nlimbs - 1, N)
     np.testing.assert_array_equal(I.to_numpy(got), np.asarray(want))
 
@@ -168,7 +168,7 @@ def test_bias_rescale_layer(request, name, dual_out):
     want = RL.BiasRescaleLayer(ring, dual_out=dual_out)(
         jnp.asarray(c1), jnp.asarray(c2), jnp.asarray(bias))
     got = TL.BiasRescaleLayer(fx["tparams"].ring_cipher, dual_out=dual_out)(
-        I.tensor(c1), I.tensor(c2), I.tensor(bias))
+        I.tensor(c1, "cpu"), I.tensor(c2, "cpu"), I.tensor(bias, "cpu"))
     assert_pair(got, want)
 
 
@@ -180,10 +180,10 @@ def test_dual_rescale(request, name):
     x = rng.integers(0, min(ring.primes), (2, 3, ring.nlimbs, N)).astype(np.uint32)
     want = RL.DualRescale(ring).fn(jnp.asarray(x))
     tring = fx["tparams"].ring_cipher
-    got = TL.DualRescale(tring)(I.tensor(x))
+    got = TL.DualRescale(tring)(I.tensor(x, "cpu"))
     np.testing.assert_array_equal(I.to_numpy(got), np.asarray(want))
     # and it equals the primal rescale between the transforms
-    _, prim = T.ringops.rescale(tring, T.RingElt(dual=I.tensor(x)))
+    _, prim = T.ringops.rescale(tring, T.RingElt(dual=I.tensor(x, "cpu")))
     assert torch.equal(got, T.ringops.ensure_dual(tring.drop_last(), prim).dual)
 
 
@@ -207,7 +207,7 @@ def test_modraise_keyswitch_window8(windowed, drop):
     want = RL._modraise_keyswitch(ka, *[jnp.asarray(x) for x in g])
     tka = TL.build_modraise_key_arrays(fx["tparams"], fx["tgk"].key, tring_of(fx, ring))
     assert (tka.window, tka.k_per_limb) == (ka.window, ka.k_per_limb) == (8, 4)
-    got = TL._modraise_keyswitch(tka, *[I.tensor(x) for x in g])
+    got = TL._modraise_keyswitch(tka, *[I.tensor(x, "cpu") for x in g])
     assert_pair(got, want)
     seq = F.rotate(fx["gk"], c)
     assert_pair(got, primal(seq.ring, seq))
@@ -241,7 +241,7 @@ def test_batch_encryptor(request, name):
     ring = tparams.ring_cipher
     B = 3
     vals = [np.linspace(-1.0, 1.0, N // 2) * (i + 1) for i in range(B)]
-    pts = torch.stack([T.ckks_encode(ring, v.astype(complex), fx["scale"]).primal
+    pts = torch.stack([T.ckks_encode(ring, v.astype(complex), fx["scale"], "cpu").primal
                        for v in vals])
     enc = TL.BatchEncryptor(tparams, fx["tkp"].pub)
     cts = enc(pts, torch.Generator().manual_seed(3))
@@ -265,5 +265,5 @@ def test_layers_follow_to():
     assert {"inv_q_mont", "ka.masks", "ka.maskeds", "ka.ps_res", "ka.inv_ps_mont"} <= names
     assert all(b.device.type == "cpu" for b in layer.buffers())
     assert layer.to("cpu") is layer
-    got = layer(*[I.tensor(x) for x in primal(ring, fx["c"])])
+    got = layer(*[I.tensor(x, "cpu") for x in primal(ring, fx["c"])])
     assert got[0].shape == (ring.nlimbs - 1, N)

@@ -52,7 +52,7 @@ def export_setup(setup):
 def small():
     cfg, tcfg = RM.MNISTConfig(**SMALL), TM.MNISTConfig(**SMALL)
     setup = RM.fhe_setup(cfg, jax.random.PRNGKey(5))
-    tsetup = I.fhe_setup_from_numpy(tcfg, **export_setup(setup))
+    tsetup = I.fhe_setup_from_numpy(tcfg, **export_setup(setup), device="cpu")
     params = TM.init_params(tcfg, 3)
     imgs = np.random.default_rng(4).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
     # the shared encrypted grid: the reference's own batched encryption
@@ -112,7 +112,7 @@ def test_pipeline_logits_ciphertext_bit_equal(small, monkeypatch):
     monkeypatch.setattr(RL, "BatchEncryptor",
                         lambda *a, **k: _FixedGrid(pts, grid, jnp.asarray))
     monkeypatch.setattr(TL, "BatchEncryptor",
-                        lambda *a, **k: _FixedGrid(pts, grid, I.tensor))
+                        lambda *a, **k: _FixedGrid(pts, grid, lambda g: I.tensor(g, "cpu")))
     want = RM.build_inference_pipeline(small["setup"], small["params"])(
         small["imgs"], jax.random.PRNGKey(0), _return_ct=True)
     run = TM.build_inference_pipeline(small["tsetup"], small["params"])

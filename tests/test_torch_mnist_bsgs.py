@@ -49,7 +49,7 @@ def matmul(request):
     cfg, tcfg = RM.MNISTConfig(**kw), TM.MNISTConfig(**kw)
     kf, ke = jax.random.split(jax.random.PRNGKey(4), 2)
     setup = RM.fhe_setup(cfg, kf)
-    tsetup = I.fhe_setup_from_numpy(tcfg, **export_setup(setup))
+    tsetup = I.fhe_setup_from_numpy(tcfg, **export_setup(setup), device="cpu")
     gks = RM.keygen_matmul_bsgs(setup, jax.random.PRNGKey(6))
     tgks = carry_keys(setup.params, tsetup.params, gks)
     d = cfg.positions
@@ -57,7 +57,7 @@ def matmul(request):
     W, xfeat = rng.uniform(-1, 1, (d, d)), rng.uniform(-1, 1, d)
     slots = RM._rep_inner(xfeat, cfg.batch).astype(complex)
     c = F.encrypt(setup.kp, F.make_plaintext(setup.params.ring_cipher, slots, setup.scale), ke)
-    tc = I.ciphertext(tsetup.params, tsetup.params.ring_cipher, ct_duals(c), setup.scale)
+    tc = I.ciphertext(tsetup.params, tsetup.params.ring_cipher, ct_duals(c), setup.scale, device="cpu")
     return dict(cfg=cfg, tcfg=tcfg, setup=setup, tsetup=tsetup, gks=gks, tgks=tgks, W=W,
                 xfeat=xfeat, c=c, tc=tc)
 
@@ -125,7 +125,7 @@ def test_bsgs_zero_and_sparse_weights(matmul):
 def small():
     cfg, tcfg = RM.MNISTConfig(**SMALL), TM.MNISTConfig(**SMALL)
     setup = RM.fhe_setup(cfg, jax.random.PRNGKey(5))
-    tsetup = I.fhe_setup_from_numpy(tcfg, **export_setup(setup))
+    tsetup = I.fhe_setup_from_numpy(tcfg, **export_setup(setup), device="cpu")
     gks = RM.keygen_matmul_bsgs(setup, jax.random.PRNGKey(9))
     tgks = carry_keys(setup.params, tsetup.params, gks)
     params = TM.init_params(tcfg, 3)
@@ -145,7 +145,7 @@ def port_cts(small):
     """The port's logits ciphertexts from the shared grid: the iterated
     schedule and the BSGS schedule in the primal and the dual flow."""
     orig = TL.BatchEncryptor
-    TL.BatchEncryptor = lambda *a, **k: _FixedGrid(small["pts"], small["grid"], I.tensor)
+    TL.BatchEncryptor = lambda *a, **k: _FixedGrid(small["pts"], small["grid"], lambda g: I.tensor(g, "cpu"))
     try:
         out, counts = {}, {}
         for name, kw in (("iterated", {}),

@@ -4,8 +4,10 @@
 and stage-1 edges; ``ntt_mxu`` / ``intt_mxu`` bit-equal to the reference's
 and to the port's radix-2 transform; K2's plain twin bit-equal to the
 reference's ``ntt_mxu_pallas`` in the Pallas interpreter in both
-recombination modes; and, on a CUDA device, the hand-written kernel
-bit-equal to its twin.
+recombination modes; the tensor-core kernel's operand layouts and the numpy
+emulation of its ``mma`` fragment walk bit-equal to the twin's digit dots, to
+the twin and to the reference in the Pallas interpreter; and, on a CUDA
+device, the hand-written kernel bit-equal to its twin.
 
 The reference is imported inside the ``ref`` fixture, so the ``cuda`` tests
 run on a host that has torch but no jax (``pytest --noconftest -m cuda``).
@@ -82,7 +84,7 @@ def test_row_view_matches_own_tables(ref):
     for name in TABLE_FIELDS:
         np.testing.assert_array_equal(getattr(view, name), getattr(own, name), err_msg=name)
         np.testing.assert_array_equal(getattr(view, name), getattr(want, name), err_msg=name)
-    x = I.tensor(lrn_residues(own.primes, 2, n, 3).transpose(1, 0, 2))
+    x = I.tensor(lrn_residues(own.primes, 2, n, 3).transpose(1, 0, 2), "cpu")
     assert torch.equal(tmxu.ntt_mxu(view, x), tmxu.ntt_mxu(own, x))
     assert torch.equal(tmxu.intt_mxu(view, x), tmxu.intt_mxu(own, x))
 
@@ -95,7 +97,7 @@ def test_four_step_matches_reference_and_radix2(ref, n1):
     t, rt = tntt.NttTables(n, primes), ref_ntt.NttTables(n, primes)
     mt, rmt = tmxu.MxuNttTables(t, n1=n1), ref_mxu.MxuNttTables(rt, n1=n1)
     a = lrn_residues(primes, 8, n, 0).transpose(1, 0, 2)              # [R, L, N]
-    x = I.tensor(a)
+    x = I.tensor(a, "cpu")
     fwd, inv = tmxu.ntt_mxu(mt, x), tmxu.intt_mxu(mt, x)
     np.testing.assert_array_equal(I.to_numpy(fwd), np.asarray(ref_mxu.ntt_mxu(rmt, jnp.asarray(a))))
     np.testing.assert_array_equal(I.to_numpy(inv), np.asarray(ref_mxu.intt_mxu(rmt, jnp.asarray(a))))
@@ -109,11 +111,11 @@ def test_four_step_matches_reference_and_radix2(ref, n1):
 def test_balanced_digits(ref):
     jnp, _, ref_mxu, _ = ref
     v = np.random.default_rng(5).integers(0, 2 ** 30, 4096).astype(np.uint32)
-    got = tmxu._balanced_digits_device(I.tensor(v))
+    got = tmxu._balanced_digits_device(I.tensor(v, "cpu"))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref_mxu._balanced_digits_device(
         jnp.asarray(v))).astype(np.int64))
     assert int(got.min()) >= -128 and int(got.max()) <= 127
-    assert torch.equal(sum(got[d] << (8 * d) for d in range(4)), I.tensor(v))
+    assert torch.equal(sum(got[d] << (8 * d) for d in range(4)), I.tensor(v, "cpu"))
 
 
 @pytest.mark.parametrize("paired", [False, True, None])
@@ -128,16 +130,16 @@ def test_k2_plain_twin_matches_reference_interpreter(ref, paired):
     xm = a.reshape(len(primes), R, 128, mt.n2)
     psis = np.asarray(rmt.psi_pow).reshape(len(primes), 128, mt.n2)
     want = np.asarray(ref_mxp.ntt_mxu_pallas(rmt, jnp.asarray(xm), jnp.asarray(psis), True, paired))
-    got = tmxp.ntt_mxu_pallas_plain(mt, I.tensor(xm), I.tensor(psis), paired)
+    got = tmxp.ntt_mxu_pallas_plain(mt, I.tensor(xm, "cpu"), I.tensor(psis, "cpu"), paired)
     np.testing.assert_array_equal(I.to_numpy(got), want)
     # the dispatching entry point takes the twin on the CPU and counts no launch
     before = dict(ntt_mxu_pallas_cuda.launches)
-    assert torch.equal(tmxp.ntt_mxu_pallas(mt, I.tensor(xm), I.tensor(psis), paired), got)
+    assert torch.equal(tmxp.ntt_mxu_pallas(mt, I.tensor(xm, "cpu"), I.tensor(psis, "cpu"), paired), got)
     assert ntt_mxu_pallas_cuda.launches == before
-    nat = tmxp.ntt_mxu_pallas_natural(mt, I.tensor(a))
+    nat = tmxp.ntt_mxu_pallas_natural(mt, I.tensor(a, "cpu"))
     np.testing.assert_array_equal(
         I.to_numpy(nat), np.asarray(ref_mxp.ntt_mxu_pallas_natural(rmt, jnp.asarray(a), True)))
-    assert torch.equal(nat.transpose(0, 1), tntt.ntt_plain(t, I.tensor(a).transpose(0, 1)))
+    assert torch.equal(nat.transpose(0, 1), tntt.ntt_plain(t, I.tensor(a, "cpu").transpose(0, 1)))
 
 
 @pytest.mark.parametrize("n", [128, 512, 2048])
@@ -145,7 +147,7 @@ def test_k2_plain_twin_other_sizes(n):
     primes = nt.ntt_prime_chain(n, (28, 29, 28))
     t = tntt.NttTables(n, primes)
     mt = tmxu.MxuNttTables(t)
-    a = I.tensor(lrn_residues(primes, 3, n, n))
+    a = I.tensor(lrn_residues(primes, 3, n, n), "cpu")
     want = tntt.ntt_plain(t, a.transpose(0, 1)).transpose(0, 1)
     x, psis = a.reshape(3, 3, 128, mt.n2), tmxp.psi_table(mt, "cpu")
     for paired in (False, True):
@@ -173,12 +175,113 @@ def test_k2_guards():
     with pytest.raises(ValueError):
         ntt_mxu_pallas_cuda.launch(mt, x, psis, False)                  # CPU tensors
     assert ntt_mxu_pallas_cuda.launches == before
-    assert ntt_mxu_pallas_cuda.contraction_pad(2) == 4
+    assert ntt_mxu_pallas_cuda.contraction_pad(2) == 32     # whole mma steps
     assert ntt_mxu_pallas_cuda.contraction_pad(128) == 128
 
 
+K2C = ntt_mxu_pallas_cuda
+
+
+def _k2_fixture(n2, rows=2, tower=(29, 28)):
+    n = 128 * n2
+    primes = nt.ntt_prime_chain(n, tower)
+    t = tntt.NttTables(n, primes)
+    mt = tmxu.MxuNttTables(t)
+    a = lrn_residues(primes, rows, n, n2)
+    return t, mt, a, a.reshape(len(primes), rows, 128, n2)
+
+
+@pytest.mark.parametrize("n2", [2, 8, 32, 128])
+def test_k2_operand_layouts(n2):
+    """W and the data planes as the fragment loads read them: one row per
+    output index, the contraction index contiguous, rows padded so that the
+    8 rows x 4 words of a fragment load fall into 32 banks, zeros beyond the
+    matrix; everything fits one block's shared memory."""
+    _, mt, _, _ = _k2_fixture(n2, rows=1)
+    n2p, k2p = K2C.output_pad(n2), K2C.contraction_pad(n2)
+    assert n2p % K2C.TILE == 0 and k2p % K2C.K_STEP == 0 and n2p >= n2 and k2p >= n2
+    w1, w2 = K2C.w_planes(mt.w1, 128, 128), K2C.w_planes(mt.w2, n2p, k2p)
+    assert w1.shape == (2, 4, 128, 128 + K2C.ROW_PAD) and w2.shape == (2, 4, n2p, k2p + K2C.ROW_PAD)
+    np.testing.assert_array_equal(w1[..., :128], mt.w1.transpose(0, 1, 3, 2))
+    np.testing.assert_array_equal(w2[:, :, :n2, :n2], mt.w2.transpose(0, 1, 3, 2))
+    assert not w1[..., 128:].any() and not w2[:, :, n2:].any() and not w2[..., n2:].any()
+    for stride in (w1.shape[-1], w2.shape[-1]):
+        words = {(g * stride // 4 + tig) % 32 for g in range(8) for tig in range(4)}
+        assert stride % 16 == 0 and len(words) == 32
+    dig = np.arange(4 * 128 * n2).reshape(4, 128, n2).astype(np.int8)
+    pa, pb = K2C.stage1_planes(dig, n2), K2C.stage2_planes(dig, n2)
+    np.testing.assert_array_equal(pa[:, :n2, :128], dig.transpose(0, 2, 1))
+    np.testing.assert_array_equal(pb[:, :, :n2], dig)
+    assert pa.shape == (4, n2p, 144) and pb.shape == (4, 128, k2p + 16)
+    assert K2C.block_smem(n2) == w1[0].nbytes + pa.nbytes + pb.nbytes <= 232448
+    assert w2[0].nbytes <= pa.nbytes                   # W2 is copied over the stage-1 planes
+    assert K2C.rows_per_block(8, 16) == 1 and K2C.rows_per_block(8, 64) == 4
+    assert K2C.rows_per_block(3, 1) == 1
+
+
+def test_k2_mma_emulation_is_a_matrix_product():
+    """The fragment layout: lanes' registers in, D = A·B out."""
+    rng = np.random.default_rng(7)
+    A = rng.integers(-128, 128, (16, 64)).astype(np.int8)
+    B = rng.integers(-128, 128, (8, 64)).astype(np.int8)      # [n, k], k contiguous
+    c = np.zeros((32, 4), dtype=np.int64)
+    for k0 in (0, 32):
+        c = K2C.mma_m16n8k32(c, K2C.a_fragment(A, 0, k0), K2C.b_fragment(B, 0, k0))
+    D = A.astype(np.int64) @ B.astype(np.int64).T
+    lane = np.arange(32)
+    for i in range(4):
+        np.testing.assert_array_equal(c[:, i], D[(lane >> 2) + 8 * (i >> 1),
+                                                 2 * (lane & 3) + (i & 1)])
+
+
+@pytest.mark.parametrize("n2", [2, 8, 32])
+def test_k2_tile_groups_match_the_twins_digit_dots(n2):
+    """One warp tile of each stage through the fragment walk == the 7
+    diagonal sums of the twin's 16 digit dots."""
+    _, mt, _, xm = _k2_fixture(n2, rows=1)
+    l = 1
+    dig = tmxu._balanced_digits_device(I.tensor(xm[l, 0], "cpu"))            # [4, 128, n2]
+    w1, w2 = I.tensor(mt.w1[l], "cpu"), I.tensor(mt.w2[l], "cpu")            # [4, K, J]
+    s1 = [sum(tmxu.digit_dot("kj,kc->jc", w1[d], dig[s - d])
+              for d in range(4) if 0 <= s - d < 4) for s in range(7)]
+    s2 = [sum(tmxu.digit_dot("kj,ck->cj", w2[d], dig[s - d])
+              for d in range(4) if 0 <= s - d < 4) for s in range(7)]
+    planes = dig.numpy().astype(np.int8)
+    n2p, k2p = K2C.output_pad(n2), K2C.contraction_pad(n2)
+    m0 = 48
+    got1 = K2C.tile_groups(K2C.w_planes(mt.w1, 128, 128)[l], K2C.stage1_planes(planes, n2),
+                           m0, 0, 128)
+    got2 = K2C.tile_groups(K2C.stage2_planes(planes, n2), K2C.w_planes(mt.w2, n2p, k2p)[l],
+                           m0, 0, k2p)
+    cols = min(n2, 16)
+    for s in range(7):
+        np.testing.assert_array_equal(got1[s][:, :cols], s1[s].numpy()[m0:m0 + 16, :cols])
+        np.testing.assert_array_equal(got2[s][:, :cols], s2[s].numpy()[m0:m0 + 16, :cols])
+        assert not got1[s][:, cols:].any() and not got2[s][:, cols:].any()
+    assert max(int(np.abs(g).max()) for g in (got1, got2)) < 1 << 23
+
+
+@pytest.mark.parametrize("paired", [False, True])
+@pytest.mark.parametrize("n2", [2, 8, 32])
+def test_k2_fragment_walk_matches_twin_and_interpreter(ref, n2, paired):
+    """The kernel's whole data flow in numpy (layouts, fragment walk, both
+    stages) == the plain twin == the reference's kernel in the Pallas
+    interpreter == the radix-2 transform."""
+    jnp, ref_ntt, ref_mxu, ref_mxp = ref
+    t, mt, a, xm = _k2_fixture(n2)
+    psis = tmxp.psi_table(mt, "cpu")
+    got = K2C.ntt_mxu_fragments(mt, I.tensor(xm, "cpu"), psis, paired)
+    assert torch.equal(got, tmxp.ntt_mxu_pallas_plain(mt, I.tensor(xm, "cpu"), psis, paired))
+    rmt = ref_mxu.MxuNttTables(ref_ntt.NttTables(t.n, t.primes))
+    rpsis = np.asarray(rmt.psi_pow).reshape(len(t.primes), 128, n2)
+    want = np.asarray(ref_mxp.ntt_mxu_pallas(rmt, jnp.asarray(xm), jnp.asarray(rpsis), True, paired))
+    np.testing.assert_array_equal(I.to_numpy(got), want)
+    nat = got.transpose(-1, -2).reshape(a.shape).transpose(0, 1)
+    assert torch.equal(nat, tntt.ntt_plain(t, I.tensor(a, "cpu").transpose(0, 1)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 4096, 16384])
+@pytest.mark.parametrize("n", [256, 1024, 4096, 8192, 16384])
 def test_cuda_k2_matches_plain(n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

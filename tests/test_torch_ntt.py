@@ -1,7 +1,9 @@
 """toyfhe_tpu_torch NTT: the plain radix-2 transform bit-equal to the
 reference's ``ntt``/``intt`` and to the K1 Pallas kernel (interpret mode),
-the round trip, the CUDA wrapper's guards, and — on a CUDA device — the
-hand-written kernel bit-equal to the plain transform.
+the round trip, the CUDA wrapper's guards, the cluster kernel's schedule twin
+(pass plan, index maps, lazy value range, cluster chooser) bit-equal to the
+plain transform and the reference, and — on a CUDA device — both
+hand-written kernels bit-equal to the plain transform.
 
 The reference is imported inside the ``ref`` fixture, so the CUDA test runs
 on a host that has torch but no jax (``pytest --noconftest -m cuda``).
@@ -119,6 +121,168 @@ def test_cuda_wrapper_guards():
         tntt.ntt(tables, x.to("meta"))
     assert torch.equal(tntt.ntt(tables, x), x)     # NTT(0) = 0 on the plain path
     assert ntt_cuda.launches == before
+
+
+# towers for the cluster kernel: lazy butterflies (every prime below 2^30)
+# and fully reduced ones (a prime in [2^30, 2^31))
+LAZY_TOWER, FULL_TOWER = (27, 28, 29), (30, 29)
+SCHEDULE_NS = [1 << k for k in range(4, 14)]
+
+
+@pytest.mark.parametrize("tower", [LAZY_TOWER, FULL_TOWER], ids=["lazy", "full"])
+@pytest.mark.parametrize("n", SCHEDULE_NS)
+def test_schedule_matches_plain_and_reference(ref, n, tower):
+    """The cluster kernel's schedule at every legal cluster size, 1 and 3
+    rows: bit-equal to the plain transform and to the reference's."""
+    jnp, ref_ntt = ref
+    primes = nt.ntt_prime_chain(n, tower)
+    tables, rtables = tntt.NttTables(n, primes), ref_ntt.NttTables(n, primes)
+    lazy = tower is LAZY_TOWER
+    for lead in ((), (3,)):
+        x = _residues(primes, lead, n, n + len(lead))
+        for inverse, plain, rfn in ((False, tntt.ntt_plain, ref_ntt.ntt),
+                                    (True, tntt.intt_plain, ref_ntt.intt)):
+            want = plain(tables, _t(x))
+            np.testing.assert_array_equal(
+                want.numpy(), np.asarray(rfn(rtables, jnp.asarray(x))).astype(np.int64))
+            for cluster in ntt_cuda.legal_clusters(n):
+                got, seen = ntt_cuda.ntt_schedule(tables, _t(x), inverse, cluster)
+                assert torch.equal(got, want), (cluster, inverse, lead)
+                assert seen < (4 if lazy else 1) * max(primes)
+            if lazy:                          # the fully reduced flag on a lazy tower
+                got, seen = ntt_cuda.ntt_schedule(tables, _t(x), inverse, 1, lazy=False)
+                assert torch.equal(got, want) and seen < max(primes)
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+def test_schedule_other_radices(radix):
+    n = 256
+    primes = nt.ntt_prime_chain(n, LAZY_TOWER)
+    tables = tntt.NttTables(n, primes)
+    x = _t(_residues(primes, (2,), n, radix))
+    for cluster in ntt_cuda.legal_clusters(n):
+        assert torch.equal(ntt_cuda.ntt_schedule(tables, x, False, cluster, radix)[0],
+                           tntt.ntt_plain(tables, x))
+        assert torch.equal(ntt_cuda.ntt_schedule(tables, x, True, cluster, radix)[0],
+                           tntt.intt_plain(tables, x))
+
+
+@pytest.mark.parametrize("n", [16, 1024, 8192])
+def test_schedule_lazy_range_on_the_worst_input(n):
+    """Every residue p - 1: the lazy values stay below 4p < 2^32 in every
+    pass, and the output is still canonical and exact."""
+    primes = nt.ntt_prime_chain(n, (29, 29, 28))
+    tables = tntt.NttTables(n, primes)
+    x = _t(np.stack([np.full((2, n), p - 1) for p in primes], axis=-2))
+    for cluster in ntt_cuda.legal_clusters(n):
+        for inverse, plain in ((False, tntt.ntt_plain), (True, tntt.intt_plain)):
+            got, seen = ntt_cuda.ntt_schedule(tables, x, inverse, cluster)
+            assert seen < 4 * max(primes) < 1 << 32
+            assert seen >= max(primes)                 # the range is really used
+            assert torch.equal(got, plain(tables, x))
+    with pytest.raises(ValueError):                    # no lazy values with a 31-bit prime
+        full = tntt.NttTables(n, nt.ntt_prime_chain(n, FULL_TOWER))
+        ntt_cuda.ntt_schedule(full, x[..., :2, :], False, 1, lazy=True)
+
+
+@pytest.mark.parametrize("logn", range(4, 16))
+def test_schedule_plan(logn):
+    n = 1 << logn
+    for cluster in ntt_cuda.legal_clusters(n):
+        local, kf = ntt_cuda.schedule_plan(logn, cluster)
+        logc = cluster.bit_length() - 1
+        assert sum(local) + kf == logn and all(1 <= k <= 3 for k in local + (kf,))
+        assert kf >= logc                              # the cross-block stages close the plan
+        assert sum(local) <= logn - logc               # local passes stay inside a block
+        # one barrier after the load and after each local pass, one cluster
+        # barrier at the end: at most 8 at N = 2^13 (radix-2: 14)
+        assert 1 + len(local) + (cluster > 1) <= (8 if logn <= 13 else 9)
+        if cluster == 1:
+            assert len(local) + 1 == -(-logn // 3)
+        packed, got = ntt_cuda.pack_plan(local), []
+        while packed:
+            got.append(packed & 3)
+            packed >>= 2
+        assert tuple(got) == local
+    assert n // max(ntt_cuda.legal_clusters(n)) >= 8
+    with pytest.raises(ValueError):
+        ntt_cuda.schedule_plan(logn, 16)
+    if logn < 6:
+        with pytest.raises(ValueError):
+            ntt_cuda.schedule_plan(logn, 8)
+
+
+@pytest.mark.parametrize("m", [3, 9, 10, 11, 13, 15])
+def test_swizzle_is_a_bank_spreading_permutation(m):
+    q = np.arange(1 << m)
+    w = ntt_cuda.swizzle(q, m)
+    assert sorted(w.tolist()) == q.tolist()
+    assert np.array_equal(w ^ 1, ntt_cuda.swizzle(q ^ 1, m))     # neighbours stay neighbours
+    if m >= ntt_cuda.SWIZZLE_MIN_LOG:
+        # the load: lanes u..u+31 store the positions bitrev(2u) of a block
+        for u0 in (0, 32, (1 << (m - 1)) - 32):
+            pos = ntt_cuda._bitrev(2 * (u0 + np.arange(32)), m)
+            assert len(set((ntt_cuda.swizzle(pos, m) % 32).tolist())) == 32
+
+
+def test_choose_cluster():
+    small, big = [2 ** 28 - 57, 2 ** 29 - 3], [2 ** 30 + 3, 2 ** 28 - 57]
+    for n in (16, 256, 4096, 8192, 16384, 32768):
+        floor = 2 if n >= ntt_cuda.SPLIT_FROM_N else 1
+        for polys in (1, 8, 12, 28, 42, 66, 100, 131, 132, 196, 1000):
+            c, lazy = ntt_cuda.choose_cluster(polys, n, small)
+            assert lazy and c in ntt_cuda.legal_clusters(n) and (n // 8) % c == 0
+            assert polys * c <= ntt_cuda.BLOCK_CAP or c == floor
+            if c > floor:
+                assert n // c >= ntt_cuda.MIN_CHOSEN_BLOCK_N
+            if polys >= ntt_cuda.BLOCK_CAP:
+                assert c == floor
+            assert ntt_cuda.choose_cluster(polys, n, big) == (c, False)
+    # the serving launches: few polynomials of N = 2^13 get more than one block
+    assert ntt_cuda.choose_cluster(12, 8192, small)[0] == 4
+    assert ntt_cuda.choose_cluster(28, 8192, small)[0] == 4
+    assert ntt_cuda.choose_cluster(196, 4096, small)[0] == 1
+    tables = tntt.NttTables(64, nt.ntt_prime_chain(64, FULL_TOWER))
+    with pytest.raises(ValueError):
+        ntt_cuda.cluster_args(tables, 4, False, lazy=True)       # a 31-bit prime
+    with pytest.raises(ValueError):
+        ntt_cuda.cluster_args(tables, 4, False, cluster=16)
+    assert ntt_cuda.cluster_args(tables, 4, True, cluster=8) == (2, 6, 1, 8, 0, 3, 3)
+    x = torch.zeros(2, 64, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        ntt_cuda.launch(tables, x, False, variant="radix4")
+    with pytest.raises(ValueError):
+        ntt_cuda.launch(tables, x, False, variant="radix2")      # a CPU tensor
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tower", [LAZY_TOWER, FULL_TOWER], ids=["lazy", "full"])
+@pytest.mark.parametrize("n", [16, 64, 512, 2048, 8192, 1 << 14, 1 << 15])
+def test_cuda_cluster_kernel_matches_radix2_and_plain(n, tower):
+    """Every legal cluster size, lazy and fully reduced, and the radix-2
+    kernel: all equal to the plain transform."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    primes = nt.ntt_prime_chain(n, tower)
+    tables = tntt.NttTables(n, primes)
+    x = _t(_residues(primes, (3,), n, n)).to(dev)
+    flags = (False, True) if tower is LAZY_TOWER else (False,)
+    for inverse, plain in ((False, tntt.ntt_plain), (True, tntt.intt_plain)):
+        want = plain(tables, x)
+        before = ntt_cuda.launches["inv" if inverse else "fwd"]
+        assert torch.equal(ntt_cuda.launch(tables, x, inverse), want)
+        assert torch.equal(ntt_cuda.launch(tables, x, inverse, variant="radix2"), want)
+        count = 2
+        for cluster in ntt_cuda.legal_clusters(n):
+            for lazy in flags:
+                got = ntt_cuda.launch_cluster(tables, x, inverse, cluster, lazy)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (cluster, lazy, inverse)
+                count += 1
+        assert ntt_cuda.launches["inv" if inverse else "fwd"] == before + count
+    with pytest.raises(ValueError):
+        ntt_cuda.launch_cluster(tables, x, False, cluster=16)
 
 
 @pytest.mark.cuda

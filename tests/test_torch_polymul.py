@@ -55,17 +55,17 @@ def test_k4_plain_twin_matches_reference_interpreter(ref):
     pt, rpt = tnp.PallasNttTables(t), ref_np.PallasNttTables(rt)
     a, b = lrn_residues(primes, R, n, 0), lrn_residues(primes, R, n, 1)
     want = np.asarray(ref_np.polymul_pallas(rpt, jnp.asarray(a), jnp.asarray(b), 8, True))
-    got = tnp.polymul_plain(pt, I.tensor(a), I.tensor(b))
+    got = tnp.polymul_plain(pt, I.tensor(a, "cpu"), I.tensor(b, "cpu"))
     np.testing.assert_array_equal(I.to_numpy(got), want)
     at, bt = jnp.asarray(a.transpose(1, 0, 2)), jnp.asarray(b.transpose(1, 0, 2))
     xla = np.asarray(ref_ntt.intt(rt, ref_mm.mul_mod(ref_ntt.ntt(rt, at), ref_ntt.ntt(rt, bt),
                                                      rt.mp))).transpose(1, 0, 2)
     np.testing.assert_array_equal(I.to_numpy(got), xla)
-    assert torch.equal(got, unfused(t, I.tensor(a), I.tensor(b)))
+    assert torch.equal(got, unfused(t, I.tensor(a, "cpu"), I.tensor(b, "cpu")))
     # the dispatching entry points take the twin on the CPU and count no launch
     before = dict(ntt_pallas_cuda.polymul_launches)
-    assert torch.equal(tnp.polymul_pallas_raw(pt, I.tensor(a), I.tensor(b)), got)
-    assert torch.equal(tnp.polymul_pallas(pt, I.tensor(a), I.tensor(b)), got)
+    assert torch.equal(tnp.polymul_pallas_raw(pt, I.tensor(a, "cpu"), I.tensor(b, "cpu")), got)
+    assert torch.equal(tnp.polymul_pallas(pt, I.tensor(a, "cpu"), I.tensor(b, "cpu")), got)
     assert ntt_pallas_cuda.polymul_launches == before
 
 
@@ -74,7 +74,7 @@ def test_k4_plain_twin_matches_schoolbook(ref, n, tower):
     primes = nt.ntt_prime_chain(n, tower)
     pt = tnp.PallasNttTables(tntt.NttTables(n, primes))
     a, b = lrn_residues(primes, 3, n, n), lrn_residues(primes, 3, n, n + 1)
-    got = tnp.polymul_plain(pt, I.tensor(a), I.tensor(b)).numpy()
+    got = tnp.polymul_plain(pt, I.tensor(a, "cpu"), I.tensor(b, "cpu")).numpy()
     for l, p in enumerate(primes):
         for r in range(3):
             want = tntt.naive_negacyclic_mul(a[l, r], b[l, r], p)
@@ -88,7 +88,7 @@ def test_k4_plain_twin_matches_unfused(n):
     primes = nt.ntt_prime_chain(n, (30, 29, 28))
     t = tntt.NttTables(n, primes)
     pt = tnp.PallasNttTables(t)
-    a, b = I.tensor(lrn_residues(primes, 2, n, 7)), I.tensor(lrn_residues(primes, 2, n, 8))
+    a, b = I.tensor(lrn_residues(primes, 2, n, 7), "cpu"), I.tensor(lrn_residues(primes, 2, n, 8), "cpu")
     got = tnp.polymul_plain(pt, a, b)
     assert torch.equal(got, unfused(t, a, b))
     assert torch.equal(got, tnp.polymul_plain(pt, b, a))

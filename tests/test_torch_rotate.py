@@ -48,7 +48,7 @@ def test_galois_tables_and_maps(n):
         np.testing.assert_array_equal(src, rsrc)
         np.testing.assert_array_equal(neg, rneg)
         np.testing.assert_array_equal(tntt.galois_dual_perm(n, g), ref_ntt.galois_dual_perm(n, g))
-        got = tntt.apply_galois(tmp, I.tensor(x), src, neg)
+        got = tntt.apply_galois(tmp, I.tensor(x, "cpu"), src, neg)
         want = ref_ntt.apply_galois(mp, jnp.asarray(x), rsrc, rneg)
         np.testing.assert_array_equal(I.to_numpy(got), np.asarray(want))
 
@@ -59,7 +59,7 @@ def test_ring_galois_and_zero():
     n = 64
     ring = T.make_rns_ring(n, (30, 29))
     rng = np.random.default_rng(1)
-    x = I.tensor(np.stack([rng.integers(0, p, n) for p in ring.primes]))
+    x = I.tensor(np.stack([rng.integers(0, p, n) for p in ring.primes]), "cpu")
     g = T.galois_element_for_steps(n, 3)
     got = T.ringops.apply_galois(ring, T.RingElt(dual=tntt.ntt(ring.tables, x)), g)
     assert torch.equal(got.primal, T.ringops.apply_galois(ring, T.RingElt(primal=x), g).primal)
@@ -67,7 +67,7 @@ def test_ring_galois_and_zero():
     assert torch.equal(tntt.ntt(ring.tables, got.primal),
                        tntt.ntt(ring.tables, x).index_select(-1, perm))
     assert ring.galois_tables(g) is ring.galois_tables(g)
-    z = T.ringops.zero(ring, (2,))
+    z = T.ringops.zero(ring, (2,), device="cpu")
     assert z.primal.shape == (2, 2, n) and not z.primal.any() and z.dual is None
     zl = T.ringops.zero_like(ring, got)
     assert zl.primal.shape == zl.dual.shape == (2, n) and not zl.dual.any()
@@ -77,19 +77,19 @@ def carry_galois(params, tparams, gk):
     kr = params.ring_key
     dual = lambda x: np.asarray(rr.ensure_dual(kr, x).dual)
     return I.galois_key(tparams, gk.galois_element, [dual(c.mask) for c in gk.key.key],
-                        [dual(c.masked) for c in gk.key.key])
+                        [dual(c.masked) for c in gk.key.key], device="cpu")
 
 
 def carry_eval(params, tparams, ek):
     kr = params.ring_key
     dual = lambda x: np.asarray(rr.ensure_dual(kr, x).dual)
     return I.eval_mult_key(tparams, [dual(c.mask) for c in ek.key.key],
-                           [dual(c.masked) for c in ek.key.key])
+                           [dual(c.masked) for c in ek.key.key], device="cpu")
 
 
 def carry_secret(params, tparams, kp):
     return I.priv_key(tparams, np.asarray(rr.ensure_primal(params.ring_key,
-                                                           kp.priv.secret).primal))
+                                                           kp.priv.secret).primal), device="cpu")
 
 
 def ct_duals(c):
@@ -115,7 +115,7 @@ def fx(request):
     scale = Fraction(2) ** 26
     vals = np.linspace(0.5, 4.0, N // 2)
     c = F.encrypt(kp, F.make_plaintext(params.ring_cipher, vals, scale), ks[3])
-    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), scale)
+    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), scale, device="cpu")
     return dict(kind=kind, params=params, tparams=tparams, kp=kp, ek=ek, gk=gk, c=c, tc=tc,
                 tkp=carry_secret(params, tparams, kp), tek=carry_eval(params, tparams, ek),
                 tgk=carry_galois(params, tparams, gk), vals=vals)
@@ -217,7 +217,7 @@ def test_golden_ckks_modraise():
     out = F.keyswitch(ek, c)
     tkp = carry_secret(params, tparams, kp)
     tek = carry_eval(params, tparams, F.EvalMultKey(ek))
-    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), scale)
+    tc = I.ciphertext(tparams, tparams.ring_cipher, ct_duals(c), scale, device="cpu")
     tout = T.keyswitch(tek, tc)
     np.testing.assert_array_equal(I.ciphertext_to_numpy(tout), ct_duals(out))
     assert np.max(np.abs(T.decrypt(tkp, tout) - want)) < 2e-8

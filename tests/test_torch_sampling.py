@@ -65,7 +65,7 @@ def test_sparse_ternary_weight(h):
 
 
 def test_zero():
-    z = sampling.zero(MP, 16, batch=(2,))
+    z = sampling.zero(MP, 16, batch=(2,), device="cpu")
     assert z.shape == (2, len(PRIMES), 16) and not z.any()
 
 

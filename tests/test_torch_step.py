@@ -39,8 +39,8 @@ def test_step_matches_reference_entry_operands():
     batch = rng.integers(0, lim, (B, 2, L, n)).astype(np.uint32)
     want = np.asarray(ref_ops.make_single_chip_step(
         ring.tables, jnp.asarray(masks), jnp.asarray(maskeds))(jnp.asarray(batch)))
-    step = pops.make_single_chip_step(tring.tables, I.tensor(masks), I.tensor(maskeds))
-    got = step(I.tensor(batch))
+    step = pops.make_single_chip_step(tring.tables, I.tensor(masks, "cpu"), I.tensor(maskeds, "cpu"))
+    got = step(I.tensor(batch, "cpu"))
     assert got.shape == (B, 2, L, n)
     np.testing.assert_array_equal(I.to_numpy(got), want)
 
@@ -68,10 +68,10 @@ def setup():
 
     tring = T.make_rns_ring(N, (30, 29, 29, 28))
     tparams = T.CKKSParams(tring, 0, 3.2)
-    tkp = I.priv_key(tparams, np.asarray(kp.priv.secret.primal))
-    tek = I.eval_mult_key(tparams, masks, maskeds)
-    step = pops.make_single_chip_step(tring.tables, I.tensor(masks), I.tensor(maskeds))
-    got = step(I.tensor(batch))
+    tkp = I.priv_key(tparams, np.asarray(kp.priv.secret.primal), device="cpu")
+    tek = I.eval_mult_key(tparams, masks, maskeds, device="cpu")
+    step = pops.make_single_chip_step(tring.tables, I.tensor(masks, "cpu"), I.tensor(maskeds, "cpu"))
+    got = step(I.tensor(batch, "cpu"))
     return dict(tring=tring, tparams=tparams, tkp=tkp, tek=tek, batch=batch,
                 want=want, got=got, vals=vals, scale=scale)
 
@@ -87,7 +87,7 @@ def test_step_matches_sequential_engine(setup):
     tring, tparams, got = setup["tring"], setup["tparams"], setup["got"]
     L = tring.nlimbs
     for i, duals in enumerate(setup["batch"]):
-        c = I.ciphertext(tparams, tring, duals, setup["scale"])
+        c = I.ciphertext(tparams, tring, duals, setup["scale"], device="cpu")
         seq = T.ct_rescale(T.keyswitch(setup["tek"], T.ct_mul(c, c)))
         np.testing.assert_array_equal(I.ciphertext_to_numpy(seq),
                                       I.to_numpy(got[i, :, :L - 1]))
@@ -125,3 +125,44 @@ def test_port_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_no_public_function_defaults_to_the_cpu():
+    """An entry point of the port runs where its caller says: no public
+    function or method has a ``device`` parameter that defaults to a CPU
+    device."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import toyfhe_tpu_torch
+
+    def is_cpu(default):
+        if default is inspect.Parameter.empty or default is None:
+            return False
+        try:
+            return torch.device(default).type == "cpu"
+        except (TypeError, RuntimeError):
+            return False
+
+    def functions(mod):
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield name, obj
+            elif inspect.isclass(obj):
+                for mname, meth in vars(obj).items():
+                    fn = getattr(meth, "__func__", meth)
+                    if inspect.isfunction(fn) and (not mname.startswith("_") or mname == "__init__"):
+                        yield f"{name}.{mname}", fn
+
+    seen, bad = 0, []
+    for info in pkgutil.walk_packages(toyfhe_tpu_torch.__path__, "toyfhe_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, fn in functions(mod):
+            seen += 1
+            for pname, prm in inspect.signature(fn).parameters.items():
+                if pname == "device" and is_cpu(prm.default):
+                    bad.append(f"{info.name}.{name}")
+    assert seen > 200 and not bad, bad

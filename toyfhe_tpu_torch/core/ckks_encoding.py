@@ -71,7 +71,7 @@ class CKKSPlaintext:
     slots: np.ndarray          # complex128[N/2]
     scale: Fraction
 
-    def to_ring(self, params, device="cpu") -> RingElt:
+    def to_ring(self, params, device) -> RingElt:
         return ckks_encode(self.ring, self.slots, self.scale, device)
 
     def decode_tag(self, params) -> CKKSTag:
@@ -84,7 +84,7 @@ def make_plaintext(ring: RingContext, values, scale: ScaleLike) -> CKKSPlaintext
     return CKKSPlaintext(ring, slots, Fraction(scale))
 
 
-def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device="cpu") -> RingElt:
+def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
     """slots ∈ ℂ^{N/2} → ring element on ``device``: conjugate-symmetrize
     through the ℤm* permutation, inverse FFT, ψ-twist, then exact
     big-integer quantization by the scale."""

@@ -166,7 +166,7 @@ def make_rns_ring(n: int, logqs: Sequence[int]) -> RingContext:
     return RingContext(n, nt.ntt_prime_chain(n, logqs))
 
 
-def zero(ring: RingContext, batch: Tuple[int, ...] = (), device="cpu") -> RingElt:
+def zero(ring: RingContext, batch: Tuple[int, ...] = (), *, device) -> RingElt:
     return RingElt(primal=torch.zeros(tuple(batch) + (ring.nlimbs, ring.n),
                                       dtype=torch.int64, device=device))
 

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels: the Montgomery product, the
 // bit-reversal index, the radix-2 DIT and DIF stage loops of the NTT over
-// one polynomial in shared memory, and the launch plumbing.
+// one polynomial in shared memory, the register-radix DIT stages with lazy
+// or fully reduced butterflies, and the launch plumbing.
 //
 // Residues are canonical 32-bit words in [0, p), p < 2^31, so a sum of two
 // fits a uint32. Twiddles are Montgomery-form uint32 tables with the stage of
@@ -72,6 +73,59 @@ __device__ __forceinline__ void dif_stages(uint32_t* s, const uint32_t* twl,
       s[k + h] = mont_mul(u >= v ? u - v : u + (p - v), twl[h + j], p, ninv);
     }
     __syncthreads();
+  }
+}
+
+// REDC(a*b) without the closing correction: in [0, 2p) for any 32-bit a when
+// b < p < 2^30 (the product plus m p stays under 2^63).
+__device__ __forceinline__ uint32_t redc_lazy(uint32_t a, uint32_t b,
+                                              uint32_t p, uint32_t ninv) {
+  const uint64_t x = static_cast<uint64_t>(a) * b;
+  const uint32_t m = static_cast<uint32_t>(x) * ninv;
+  return static_cast<uint32_t>((x + static_cast<uint64_t>(m) * p) >> 32);
+}
+
+// One DIT butterfly (x, y) <- (x + w y, x - w y), w in Montgomery form.
+// kLazy (p < 2^30): values stay in [0, 4p), one conditional subtraction and
+// no correction of the product (Harvey's butterfly); the caller reduces once
+// at the end. Otherwise every value is canonical in [0, p), p < 2^31.
+template <bool kLazy>
+__device__ __forceinline__ void dit_butterfly(uint32_t& x, uint32_t& y, uint32_t w,
+                                              uint32_t p, uint32_t ninv) {
+  if (kLazy) {
+    const uint32_t p2 = 2 * p;
+    const uint32_t t = redc_lazy(y, w, p, ninv);          // < 2p
+    const uint32_t u = x >= p2 ? x - p2 : x;              // < 2p
+    x = u + t;
+    y = u + p2 - t;
+  } else {
+    const uint32_t t = mont_mul(y, w, p, ninv);
+    const uint32_t u = x;
+    x = add_mod(u, t, p);
+    y = u >= t ? u - t : u + (p - t);
+  }
+}
+
+// K DIT stages on 2^K values held in registers. Element e sits at position
+// low + e 2^b0 (plus bits above the pass), so the stage of half-length
+// h = 2^(b0+s) pairs (e, e + 2^s) with the twiddle tw(h + low + (e mod 2^s)
+// 2^b0): 2^K - 1 twiddles a call. tw maps an offset of the limb's packed
+// stage-twiddle row to its value.
+template <int K, bool kLazy, typename Tw>
+__device__ __forceinline__ void radix_stages(uint32_t (&r)[1 << K], Tw tw, int low,
+                                             int b0, uint32_t p, uint32_t ninv) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int h = 1 << (b0 + s);
+#pragma unroll
+    for (int lo = 0; lo < (1 << s); ++lo) {
+      const uint32_t w = tw(h + low + (lo << b0));
+#pragma unroll
+      for (int hi = 0; hi < (1 << (K - 1 - s)); ++hi) {
+        const int e = (hi << (s + 1)) + lo;
+        dit_butterfly<kLazy>(r[e], r[e + (1 << s)], w, p, ninv);
+      }
+    }
   }
 }
 

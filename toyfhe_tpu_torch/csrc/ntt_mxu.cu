@@ -1,5 +1,5 @@
-// Forward four-step negacyclic NTT from int8 digit matrices, for Hopper
-// (sm_90a).
+// Forward four-step negacyclic NTT from int8 digit matrices on the int8
+// tensor cores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel K2, toyfhe_tpu/ops/ntt_mxu_pallas.py::
 // ntt_mxu_pallas (body _fwd_kernel). With N = 128 * n2 and the coefficient
@@ -12,36 +12,66 @@
 //
 // and C is stored in (k1, k2) order. As in the TPU kernel the two modular
 // matrix products are exact integer products of balanced base-256 digits
-// (int8): the data is split into 4 digit planes, the 16 digit x digit dots
-// are summed into 7 diagonal groups (d + e = s) with __dp4a (int8 x 4 ->
-// int32) on the CUDA cores, and the groups recombine to the residue by one
-// of two forms, chosen by the caller: the 7-term form (each group offset by
-// 2^23, seven 32 x 32 -> 64 products) or the paired form (adjacent groups
-// folded into int32 with weights 2^16t, offset by 2^31, two products and
-// two shifts), both followed by two Montgomery reductions of the 64-bit sum
-// and the subtraction of the offsets' sum. The (hi, lo) word pairs of the
-// TPU kernel are a native uint64 here. The result is the canonical residue,
-// equal to the plain twin and to the radix-2 transform bit for bit.
+// (int8): the data is split into 4 digit planes, the 16 digit x digit
+// products are summed into 7 diagonal groups (d + e = s), and the groups
+// recombine to the residue by one of two forms, chosen by the caller: the
+// 7-term form (each group offset by 2^23, seven 32 x 32 -> 64 products) or
+// the paired form (adjacent groups folded into int32 with weights 2^16t,
+// offset by 2^31, two products and two shifts), both followed by two
+// Montgomery reductions of the 64-bit sum and the subtraction of the offsets'
+// sum. The (hi, lo) word pairs of the TPU kernel are a native uint64 here.
+// The result is the canonical residue, equal to the plain twin and to the
+// radix-2 transform bit for bit.
 //
-// One thread block per (limb, row), grid (L, R). Shared memory holds two
-// sets of four digit planes and no 32-bit tile: the twisted input goes
-// straight to the stage-1 planes, transposed to [j2][j1] so that four
-// consecutive j1 form one dp4a word; stage 1 writes B's digits to the
-// stage-2 planes [k1][j2]. Rows are padded by 4 bytes so that the threads
-// of a warp, which walk consecutive rows, hit distinct banks. Both W
-// matrices are symmetric Vandermonde matrices, so a row of W holds the four
-// consecutive contraction indices a dp4a word needs; they are read from
-// global memory (every block of a limb reads the same 128 KB, which stays in
-// L2, and the threads of a warp read the same word). Each thread carries a
-// strip of 4 outputs x 7 groups in registers, so each data word is loaded
-// once for 64 dp4a. Stage 2 writes C as 32-bit words over the stage-1 planes
-// and a last pass stores it as int64, coalesced. At N = 2^14 that is 132 KB
-// of shared memory per block.
+// The digit products are mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32:
+// mma.sync and not wgmma, because the 7 diagonal groups of a 16 x 16 warp
+// tile are 56 accumulator registers a thread, which sixteen independent
+// warps hold without spilling, while a wgmma tile of 64 rows would need 7
+// accumulators of 64 x n for one warpgroup and the operands already sit in
+// shared memory in the K-contiguous form mma.sync reads with plain 32-bit
+// loads. Both stages are  D[k1, n] = sum_k A[k1, k] B[n, k]:
 //
-// What bounds it on this card: operations. One polynomial of N = 2^14 takes
-// 2 * 128^3 * 16 int8 multiply-adds = 16.8 M dp4a on the CUDA cores, against
-// 256 KB of input and output; the int8 tensor cores (mma / wgmma s8) are
-// where a redesign goes.
+//   stage 1: A = W1 (symmetric: row k1 holds its 128 j1 contiguous),
+//            B = the X digit planes stored [j2][j1], K = 128;
+//   stage 2: A = the B digit planes stored [k1][j2], B = W2 (row k2 holds
+//            its j2 contiguous), K = n2 zero-padded to a multiple of 32.
+//
+// An A fragment register is the 32-bit word of 4 consecutive k at (row g or
+// g + 8, k0 + 4 tig or + 16), a B fragment register the word at (row n = g,
+// k0 + 4 tig or + 16), with g = lane / 4 and tig = lane % 4; every row is
+// padded by 16 bytes so that the 8 rows x 4 words of one fragment load fall
+// into 32 different banks. A warp owns a 16 x 16 tile of D at a time: per
+// 32-deep step it loads the 4 B digit words of both 8-column halves once and
+// runs the 16 (d, e) products of each half into accumulator d + e, 32 mma
+// for 32 fragment loads. The accumulators of group s stay below 4 * 128 *
+// 2^14 = 2^23 in magnitude.
+//
+// One block of 16 warps per (limb, chunk of rows); it walks over the rows of
+// its chunk (the host sizes the chunks so that the blocks come near the 132
+// SMs). Shared memory holds three regions: W1's digit planes (72 KB, loaded
+// once a block with cp.async), the stage-1 data planes, and the stage-2 data
+// planes. W2's digit planes are copied with cp.async over the stage-1 data
+// planes once stage 1 has finished with them, once a row: at N = 2^14 the
+// four regions would need 288 KB, and W2 (at most 72 KB, resident in L2) is
+// the one whose reload is cheapest. At N = 2^14 that is 216 KB a block. The
+// padding of the K and N dimensions needs no zeroing of the data planes: W2
+// is stored zero-padded along K, and padded output columns are not stored.
+// The twist, the digit extraction, the omega^(k1 j2) twiddle and the
+// recombination run on the CUDA cores between the products, and nothing
+// goes to device memory between the stages; stage 2 stores int64 residues
+// 16 bytes a thread.
+//
+// What bounds it on this card: no longer the products. One polynomial of
+// N = 2^14 is 16,384 mma of 8,192 int8 operations, about 10 microseconds of
+// one SM's tensor cores, against 2 * 16,384 recombinations of some 60
+// 32-bit operations each on the CUDA cores and the shared-memory traffic
+// of the fragment loads, which take as long or longer. Measured
+// (chip_smoke.py phase 24, graph-replayed device time, NVIDIA H100 80GB HBM3,
+// 700 W): 128 polynomials of N = 2^14, one a block, take 44 to 47
+// microseconds in either recombination (the __dp4a kernel this replaces: 319
+// to 380 a launch), 124 / 126 registers a thread, no spills. The next step is
+// to overlap the products with the recombination (a warp-specialised split)
+// rather than a faster product.
 
 #include "common.cuh"
 
@@ -50,13 +80,14 @@ namespace {
 using toyfhe::add_mod;
 using toyfhe::mont_mul;
 
-constexpr int kN1 = 128;           // stage-1 edge
+constexpr int kN1 = 128;            // stage-1 edge
 constexpr int kDigits = 4;
 constexpr int kGroups = 2 * kDigits - 1;
-constexpr int kStrip = 4;          // outputs per thread strip
-constexpr int kStrideA = kN1 + 4;  // bytes per j2 row of a stage-1 plane
-constexpr int kWordsA = kStrideA / 4;
-constexpr int kScalars = 16;       // uint32 words per limb in the constant table
+constexpr int kRowPad = 16;         // bytes added to every operand row
+constexpr int kStrideW = kN1 + kRowPad;   // bytes per row of W1 and of a stage-1 plane
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kScalars = 16;        // uint32 words per limb in the constant table
 constexpr uint32_t kOffset = 1u << 23;
 
 struct LimbConsts {
@@ -70,19 +101,6 @@ __device__ __forceinline__ LimbConsts load_consts(const uint32_t* sc) {
   c.cs32 = sc[5]; c.cs48 = sc[6]; c.corr2 = sc[7];
   for (int s = 0; s < kGroups; ++s) c.cs[s] = sc[8 + s];
   return c;
-}
-
-// The four balanced base-256 digits of v < 2^30, one byte into each plane.
-__device__ __forceinline__ void store_digits(int8_t* planes, int plane_bytes,
-                                             int off, uint32_t v) {
-  int32_t cur = static_cast<int32_t>(v);
-#pragma unroll
-  for (int d = 0; d < kDigits; ++d) {
-    int32_t r = cur & 255;
-    r -= (r & 128) << 1;                      // [128, 255] -> [-128, -1]
-    planes[d * plane_bytes + off] = static_cast<int8_t>(r);
-    cur = (cur - r) >> 8;
-  }
 }
 
 // sum_s 2^(8s) g[s] mod p from the 7 diagonal groups.
@@ -112,117 +130,217 @@ __device__ __forceinline__ uint32_t combine(const int32_t* g, const LimbConsts& 
   return v >= corr ? v - corr : v + (c.p - corr);
 }
 
-// acc[t][d + e] += dot4(w[t][d], x[e]) for a strip of `strip` outputs.
-__device__ __forceinline__ void strip_dots(int32_t (&acc)[kStrip][kGroups],
-                                           const int32_t* w, int row0, int row_stride,
-                                           int plane_rows, int cw, int strip,
-                                           const int32_t (&xw)[kDigits]) {
+// The four balanced base-256 digits of v < 2^30, lowest first.
+__device__ __forceinline__ void digits_of(uint32_t v, int32_t (&dig)[kDigits]) {
+  int32_t cur = static_cast<int32_t>(v);
 #pragma unroll
-  for (int t = 0; t < kStrip; ++t) {
-    if (t < strip) {
+  for (int d = 0; d < kDigits; ++d) {
+    int32_t r = cur & 255;
+    r -= (r & 128) << 1;                      // [128, 255] -> [-128, -1]
+    dig[d] = r;
+    cur = (cur - r) >> 8;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+}
+
+// Start the copy of `bytes` (a multiple of 16) from device to shared memory.
+__device__ __forceinline__ void copy_async(unsigned char* dst, const unsigned char* src,
+                                           int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16) cp_async16(dst + i, src + i);
+  asm volatile("cp.async.commit_group;");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// D (16 x 8, s32) += A (16 x 32, s8, row) * B (32 x 8, s8, col).
+__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t word_at(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The 7 diagonal groups of the 16 x 16 tile (rows m0.., columns n0..) of
+// sum_k A[row, k] B[col, k] over ksteps steps of 32: acc[half][s][i] is
+// fragment register i of the 8-column half `half` of group s. a / b point at
+// digit plane 0; planes are plane_a / plane_b bytes apart, rows stride_a /
+// stride_b bytes.
+__device__ __forceinline__ void tile_groups(int32_t (&acc)[2][kGroups][4],
+                                            const unsigned char* a, int plane_a, int stride_a,
+                                            const unsigned char* b, int plane_b, int stride_b,
+                                            int m0, int n0, int ksteps) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int tig = threadIdx.x & 3;
+  __syncwarp();                               // mma.sync needs the whole warp
 #pragma unroll
-      for (int d = 0; d < kDigits; ++d) {
-        const int32_t ww = __ldg(&w[(static_cast<size_t>(d) * plane_rows + row0 + t) *
-                                      row_stride + cw]);
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < kDigits; ++e) {
-          acc[t][d + e] = __dp4a(ww, xw[e], acc[t][d + e]);
-        }
+    for (int s = 0; s < kGroups; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[h][s][i] = 0;
+  const unsigned char* arow = a + (m0 + g) * stride_a + 4 * tig;
+  const unsigned char* brow = b + (n0 + g) * stride_b + 4 * tig;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t bf[kDigits][2][2];
+#pragma unroll
+    for (int e = 0; e < kDigits; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned char* q = brow + e * plane_b + h * 8 * stride_b + ks * 32;
+        bf[e][h][0] = word_at(q);
+        bf[e][h][1] = word_at(q + 16);
       }
+#pragma unroll
+    for (int d = 0; d < kDigits; ++d) {
+      const unsigned char* q = arow + d * plane_a + ks * 32;
+      const uint32_t af[4] = {word_at(q), word_at(q + 8 * stride_a), word_at(q + 16),
+                              word_at(q + 8 * stride_a + 16)};
+#pragma unroll
+      for (int e = 0; e < kDigits; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) mma_s8(acc[h][d + e], af, bf[e][h]);
     }
   }
 }
 
 template <bool kPaired>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kThreads)
 ntt_mxu_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ psis,
-               int64_t* __restrict__ out, const int32_t* __restrict__ w1,
-               const int32_t* __restrict__ w2, const uint32_t* __restrict__ tw,
-               const uint32_t* __restrict__ sc, int rows, int n2, int k2pad) {
+               int64_t* __restrict__ out, const unsigned char* __restrict__ w1,
+               const unsigned char* __restrict__ w2, const uint32_t* __restrict__ tw,
+               const uint32_t* __restrict__ sc, int rows, int n2, int n2p, int k2pad,
+               int rows_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int l = blockIdx.x;
-  const int r = blockIdx.y;
   const int n = kN1 * n2;
-  const int plane_a = n2 * kStrideA;          // bytes, stage-1 plane [j2][j1]
-  const int stride_b = k2pad + 4;             // bytes per k1 row, stage-2 plane [k1][j2]
-  const int plane_b = kN1 * stride_b;
-  int8_t* pa = reinterpret_cast<int8_t*>(smem);
-  int8_t* pb = pa + kDigits * plane_a;
-  uint32_t* outs = reinterpret_cast<uint32_t*>(smem);   // over the stage-1 planes, in stage 2
+  const int plane_w1 = kN1 * kStrideW;        // bytes, W1 plane [k1][j1]
+  const int plane_a = n2p * kStrideW;         // stage-1 data plane [j2][j1]
+  const int stride_b = k2pad + kRowPad;       // bytes per row of a stage-2 operand
+  const int plane_b = kN1 * stride_b;         // stage-2 data plane [k1][j2]
+  const int plane_w2 = n2p * stride_b;        // W2 plane [k2][j2]
+  unsigned char* sw1 = smem;
+  unsigned char* pa = sw1 + kDigits * plane_w1;
+  unsigned char* pb = pa + kDigits * plane_a;
+  unsigned char* sw2 = pa;                    // over the stage-1 planes, after stage 1
 
   const LimbConsts c = load_consts(sc + l * kScalars);
-  const int64_t* xin = x + (static_cast<size_t>(l) * rows + r) * n;
-  int64_t* xout = out + (static_cast<size_t>(l) * rows + r) * n;
   const int64_t* psl = psis + static_cast<size_t>(l) * n;
   const uint32_t* twl = tw + static_cast<size_t>(l) * n;
+  const unsigned char* w2l = w2 + static_cast<size_t>(l) * kDigits * plane_w2;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int tig = threadIdx.x & 3;
+  const int ntiles = (kN1 / 16) * (n2p / 16);
 
-  if (k2pad != n2) {                          // zero the contraction padding of stage 2
-    for (int i = threadIdx.x; i < kDigits * plane_b; i += blockDim.x) pb[i] = 0;
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int j1 = i / n2;
-    const int j2 = i - j1 * n2;
-    const uint32_t v = mont_mul(static_cast<uint32_t>(xin[i]),
-                                static_cast<uint32_t>(psl[i]), c.p, c.ninv);
-    store_digits(pa, plane_a, j2 * kStrideA + j1, v);
-  }
-  __syncthreads();
+  copy_async(sw1, w1 + static_cast<size_t>(l) * kDigits * plane_w1, kDigits * plane_w1);
 
-  // stage 1: strips of 4 k1 for one j2; a warp walks consecutive j2
-  {
-    const int32_t* w1l = w1 + static_cast<size_t>(l) * kDigits * kN1 * (kN1 / 4);
-    const int32_t* pa32 = reinterpret_cast<const int32_t*>(pa);
-    const int plane_words = plane_a / 4;
-    for (int item = threadIdx.x; item < (kN1 / kStrip) * n2; item += blockDim.x) {
-      const int k1g = item / n2;
-      const int j2 = item - k1g * n2;
-      int32_t acc[kStrip][kGroups] = {};
-      for (int cw = 0; cw < kN1 / 4; ++cw) {
-        int32_t xw[kDigits];
+  const int r0 = blockIdx.y * rows_per_block;
+  const int r1 = r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  for (int r = r0; r < r1; ++r) {
+    const int64_t* xin = x + (static_cast<size_t>(l) * rows + r) * n;
+    int64_t* xout = out + (static_cast<size_t>(l) * rows + r) * n;
+
+    // twist and digits: a thread takes 4 consecutive j1 of one j2 and stores
+    // one 32-bit word a plane; a warp walks consecutive j2
+    for (int item = threadIdx.x; item < (kN1 / 4) * n2; item += blockDim.x) {
+      const int j1q = item / n2;
+      const int j2 = item - j1q * n2;
+      uint32_t word[kDigits] = {0, 0, 0, 0};
 #pragma unroll
-        for (int e = 0; e < kDigits; ++e) xw[e] = pa32[e * plane_words + j2 * kWordsA + cw];
-        strip_dots(acc, w1l, k1g * kStrip, kN1 / 4, kN1, cw, kStrip, xw);
+      for (int t = 0; t < 4; ++t) {
+        const int i = (4 * j1q + t) * n2 + j2;
+        const uint32_t v = mont_mul(static_cast<uint32_t>(xin[i]),
+                                    static_cast<uint32_t>(psl[i]), c.p, c.ninv);
+        int32_t dig[kDigits];
+        digits_of(v, dig);
+#pragma unroll
+        for (int d = 0; d < kDigits; ++d) word[d] |= static_cast<uint32_t>(dig[d] & 255) << (8 * t);
       }
 #pragma unroll
-      for (int t = 0; t < kStrip; ++t) {
-        const int k1 = k1g * kStrip + t;
-        const uint32_t a = combine<kPaired>(acc[t], c);
-        const uint32_t b = mont_mul(a, twl[k1 * n2 + j2], c.p, c.ninv);
-        store_digits(pb, plane_b, k1 * stride_b + j2, b);
-      }
-    }
-  }
-  __syncthreads();
-
-  // stage 2: strips of up to 4 k2 for one k1; a warp walks consecutive k1
-  {
-    const int strip = n2 < kStrip ? n2 : kStrip;
-    const int kw = k2pad / 4;
-    const int32_t* w2l = w2 + static_cast<size_t>(l) * kDigits * n2 * kw;
-    const int32_t* pb32 = reinterpret_cast<const int32_t*>(pb);
-    const int plane_words = plane_b / 4;
-    const int row_words = stride_b / 4;
-    for (int item = threadIdx.x; item < (n2 / strip) * kN1; item += blockDim.x) {
-      const int k2g = item / kN1;
-      const int k1 = item - k2g * kN1;
-      int32_t acc[kStrip][kGroups] = {};
-      for (int cw = 0; cw < kw; ++cw) {
-        int32_t bw[kDigits];
-#pragma unroll
-        for (int e = 0; e < kDigits; ++e) bw[e] = pb32[e * plane_words + k1 * row_words + cw];
-        strip_dots(acc, w2l, k2g * strip, kw, n2, cw, strip, bw);
-      }
-#pragma unroll
-      for (int t = 0; t < kStrip; ++t) {
-        if (t < strip) outs[k1 * n2 + k2g * strip + t] = combine<kPaired>(acc[t], c);
+      for (int d = 0; d < kDigits; ++d) {
+        *reinterpret_cast<uint32_t*>(pa + d * plane_a + j2 * kStrideW + 4 * j1q) = word[d];
       }
     }
-  }
-  __syncthreads();
+    copy_wait();                              // W1, at the block's first row
+    __syncthreads();
 
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xout[i] = static_cast<int64_t>(outs[i]);
+    // stage 1: D[k1, j2], then the twiddle and B's digits
+    for (int tile = warp; tile < ntiles; tile += kWarps) {
+      const int m0 = (tile & 7) * 16;
+      const int n0 = (tile >> 3) * 16;
+      int32_t acc[2][kGroups][4];
+      tile_groups(acc, sw1, plane_w1, kStrideW, pa, plane_a, kStrideW, m0, n0, kN1 / 32);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int k1 = m0 + g + (i >> 1) * 8;
+          const int j2 = n0 + h * 8 + 2 * tig + (i & 1);
+          if (j2 < n2) {
+            int32_t grp[kGroups];
+#pragma unroll
+            for (int s = 0; s < kGroups; ++s) grp[s] = acc[h][s][i];
+            const uint32_t a = combine<kPaired>(grp, c);
+            const uint32_t b = mont_mul(a, __ldg(twl + k1 * n2 + j2), c.p, c.ninv);
+            int32_t dig[kDigits];
+            digits_of(b, dig);
+#pragma unroll
+            for (int d = 0; d < kDigits; ++d) {
+              pb[d * plane_b + k1 * stride_b + j2] = static_cast<unsigned char>(dig[d] & 255);
+            }
+          }
+        }
+    }
+    __syncthreads();                          // every warp is done with the stage-1 planes
+
+    copy_async(sw2, w2l, kDigits * plane_w2);
+    copy_wait();
+    __syncthreads();
+
+    // stage 2: C[k1, k2], stored as int64, two neighbouring k2 a store
+    for (int tile = warp; tile < ntiles; tile += kWarps) {
+      const int m0 = (tile & 7) * 16;
+      const int n0 = (tile >> 3) * 16;
+      int32_t acc[2][kGroups][4];
+      tile_groups(acc, pb, plane_b, stride_b, sw2, plane_w2, stride_b, m0, n0, k2pad / 32);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int k1 = m0 + g + half * 8;
+          const int k2 = n0 + h * 8 + 2 * tig;
+          if (k2 < n2) {
+            int32_t grp[kGroups];
+#pragma unroll
+            for (int s = 0; s < kGroups; ++s) grp[s] = acc[h][s][2 * half];
+            const uint32_t v0 = combine<kPaired>(grp, c);
+            if (k2 + 1 < n2) {
+#pragma unroll
+              for (int s = 0; s < kGroups; ++s) grp[s] = acc[h][s][2 * half + 1];
+              const uint32_t v1 = combine<kPaired>(grp, c);
+              *reinterpret_cast<longlong2*>(xout + k1 * n2 + k2) =
+                  make_longlong2(static_cast<long long>(v0), static_cast<long long>(v1));
+            } else {
+              xout[k1 * n2 + k2] = static_cast<int64_t>(v0);
+            }
+          }
+        }
+    }
+    __syncthreads();                          // the next row overwrites all three planes
   }
+  copy_wait();
 }
 
 }  // namespace
@@ -230,32 +348,47 @@ ntt_mxu_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ psis,
 extern "C" {
 
 // x / out: int64 [nlimbs, rows, 128, n2]; psis: int64 [nlimbs, 128, n2]
-// (Montgomery form). w1: int8 [nlimbs, 4, 128, 128] and w2: int8
-// [nlimbs, 4, n2, k2pad] digit matrices, row = output index, the contraction
-// index contiguous and zero-padded to k2pad (a multiple of 4). tw: uint32
-// [nlimbs, 128, n2]. sc: uint32 [nlimbs, 16] = p, ninv, corr, r1_mont,
-// hi_mont, cs32, cs48, corr2, cs[0..7), 0. Returns cudaGetLastError() after
-// the launch.
+// (Montgomery form). w1: int8 [nlimbs, 4, 128, 144] and w2: int8
+// [nlimbs, 4, n2p, k2pad + 16] digit matrices, row = output index, the
+// contraction index contiguous and zero-padded; n2p = max(n2, 16) output
+// rows, k2pad = max(n2, 32). tw: uint32 [nlimbs, 128, n2]. sc: uint32
+// [nlimbs, 16] = p, ninv, corr, r1_mont, hi_mont, cs32, cs48, corr2,
+// cs[0..7), 0. A block takes rows_per_block rows of one limb. out must be
+// 16-byte aligned. Returns cudaGetLastError() after the launch.
 int toyfhe_ntt_mxu(const void* x, const void* psis, void* out, const void* w1,
                    const void* w2, const void* tw, const void* sc, int nlimbs,
-                   int rows, int n2, int k2pad, int paired, void* stream) {
+                   int rows, int n2, int n2p, int k2pad, int rows_per_block, int paired,
+                   void* stream) {
   if (nlimbs <= 0 || rows <= 0) return 0;
+  if (n2p % 16 || k2pad % 32 || n2p < n2 || k2pad < n2 || k2pad > kN1 || rows_per_block < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = static_cast<size_t>(kDigits) *
-                      (static_cast<size_t>(n2) * kStrideA +
-                       static_cast<size_t>(kN1) * (k2pad + 4));
-  void (*kern)(const int64_t*, const int64_t*, int64_t*, const int32_t*, const int32_t*,
-               const uint32_t*, const uint32_t*, int, int, int) =
+                      (static_cast<size_t>(kN1) * kStrideW + static_cast<size_t>(n2p) * kStrideW +
+                       static_cast<size_t>(kN1) * (k2pad + kRowPad));
+  void (*kern)(const int64_t*, const int64_t*, int64_t*, const unsigned char*,
+               const unsigned char*, const uint32_t*, const uint32_t*, int, int, int, int, int) =
       paired ? ntt_mxu_kernel<true> : ntt_mxu_kernel<false>;
   const cudaError_t e = toyfhe::allow_smem(kern, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int threads = 32 * n2;
-  threads = threads < 64 ? 64 : (threads > 512 ? 512 : threads);
-  kern<<<dim3(nlimbs, rows), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int chunks = (rows + rows_per_block - 1) / rows_per_block;
+  kern<<<dim3(nlimbs, chunks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(x), static_cast<const int64_t*>(psis),
-      static_cast<int64_t*>(out), static_cast<const int32_t*>(w1),
-      static_cast<const int32_t*>(w2), static_cast<const uint32_t*>(tw),
-      static_cast<const uint32_t*>(sc), rows, n2, k2pad);
+      static_cast<int64_t*>(out), static_cast<const unsigned char*>(w1),
+      static_cast<const unsigned char*>(w2), static_cast<const uint32_t*>(tw),
+      static_cast<const uint32_t*>(sc), rows, n2, n2p, k2pad, rows_per_block);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread of the kernel of one recombination, into attrs[0].
+int toyfhe_ntt_mxu_attrs(int paired, void* attrs) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = paired
+      ? cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(ntt_mxu_kernel<true>))
+      : cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(ntt_mxu_kernel<false>));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static_cast<int*>(attrs)[0] = fa.numRegs;
+  return 0;
 }
 
 }  // extern "C"

@@ -41,8 +41,7 @@ def discrete_gaussian(gen: torch.Generator, mp: modmath.MontParams, n: int,
     return modmath.from_signed(ints.expand(batch + (mp.nlimbs, n)), mp)
 
 
-def zero(mp: modmath.MontParams, n: int, batch: Tuple[int, ...] = (),
-         device="cpu"):
+def zero(mp: modmath.MontParams, n: int, batch: Tuple[int, ...] = (), *, device):
     return torch.zeros(batch + (mp.nlimbs, n), dtype=torch.int64, device=device)
 
 

@@ -4,7 +4,8 @@ A caller exports the reference package's objects as numpy arrays (residue
 tensors ``[..., L, N]`` of any integer dtype, e.g. ``np.asarray(x.dual)``)
 and builds the port's keys and ciphertexts from them here; the inverse
 direction gives ``uint32`` numpy arrays for comparison. Only numpy goes in
-and out: this module never imports the reference package.
+and out: this module never imports the reference package. Every function
+here takes the ``device`` its tensors go to, with no default.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..core.rlwe import (CipherText, EvalMultKey, GaloisKey, GaloisKeys, KeyComp
                          KeyPair, KeySwitchKey, PrivKey, PubKey, SchemeParams)
 
 
-def tensor(x, device="cpu") -> torch.Tensor:
+def tensor(x, device) -> torch.Tensor:
     """Residues as an int64 tensor on ``device``."""
     return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
 
@@ -31,7 +32,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
-def ring_elt(primal=None, dual=None, device="cpu") -> RingElt:
+def ring_elt(primal=None, dual=None, *, device) -> RingElt:
     return RingElt(primal=None if primal is None else tensor(primal, device),
                    dual=None if dual is None else tensor(dual, device))
 
@@ -42,19 +43,18 @@ def elt_to_numpy(ring: RingContext, x: RingElt, domain: str = "dual") -> np.ndar
     return to_numpy(x.dual if domain == "dual" else x.primal)
 
 
-def priv_key(params: SchemeParams, secret, domain: str = "primal",
-             device="cpu") -> PrivKey:
+def priv_key(params: SchemeParams, secret, domain: str = "primal", *, device) -> PrivKey:
     return PrivKey(params, ring_elt(**{domain: secret}, device=device))
 
 
-def pub_key(params: SchemeParams, mask, masked, domain: str = "primal",
-            device="cpu") -> PubKey:
+def pub_key(params: SchemeParams, mask, masked, domain: str = "primal", *,
+            device) -> PubKey:
     return PubKey(params, KeyComponent(mask=ring_elt(**{domain: mask}, device=device),
                                        masked=ring_elt(**{domain: masked}, device=device)))
 
 
-def key_switch_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
-                   device="cpu", ring: Optional[RingContext] = None) -> KeySwitchKey:
+def key_switch_key(params: SchemeParams, masks, maskeds, domain: str = "dual", *,
+                   device, ring: Optional[RingContext] = None) -> KeySwitchKey:
     """Key-switching key from the stacks ``masks``/``maskeds`` [ndig, L, N]
     over ``ring`` (default ``params.ring_key``: the full tower, special
     primes included, for the raising modifiers)."""
@@ -65,27 +65,28 @@ def key_switch_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
     return KeySwitchKey(params, comps, ring)
 
 
-def eval_mult_key(params: SchemeParams, masks, maskeds, domain: str = "dual",
-                  device="cpu", ring: Optional[RingContext] = None) -> EvalMultKey:
+def eval_mult_key(params: SchemeParams, masks, maskeds, domain: str = "dual", *,
+                  device, ring: Optional[RingContext] = None) -> EvalMultKey:
     """Relinearization key from the stacks ``masks``/``maskeds`` [ndig, L, N]."""
-    return EvalMultKey(key_switch_key(params, masks, maskeds, domain, device, ring))
+    return EvalMultKey(key_switch_key(params, masks, maskeds, domain, device=device,
+                                      ring=ring))
 
 
 def galois_key(params: SchemeParams, element: int, masks, maskeds,
-               domain: str = "dual", device="cpu",
+               domain: str = "dual", *, device,
                ring: Optional[RingContext] = None) -> GaloisKey:
     """Rotation key of Galois element ``element`` from its stacks."""
     return GaloisKey(int(element), key_switch_key(params, masks, maskeds, domain,
-                                                  device, ring))
+                                                  device=device, ring=ring))
 
 
 def galois_keys(params: SchemeParams, elements: Sequence[int], masks, maskeds,
-                domain: str = "dual", device="cpu",
+                domain: str = "dual", *, device,
                 ring: Optional[RingContext] = None) -> GaloisKeys:
     """A rotation key set from one Galois element and one pair of stacks
     [ndig, L, N] per key (``masks[i]`` / ``maskeds[i]`` belong to
     ``elements[i]``)."""
-    return GaloisKeys([galois_key(params, g, m, md, domain, device, ring)
+    return GaloisKeys([galois_key(params, g, m, md, domain, device=device, ring=ring)
                        for g, m, md in zip(elements, masks, maskeds)])
 
 
@@ -99,7 +100,7 @@ def mnist_params(model_params) -> dict:
 
 
 def fhe_setup_from_numpy(cfg, secret, pub_mask, pub_masked, ek_masks, ek_maskeds,
-                         gk_element: int, gk_masks, gk_maskeds, device="cpu"):
+                         gk_element: int, gk_masks, gk_maskeds, *, device):
     """The port's MNIST ``FHESetup`` from exported key material: the secret
     and public key primal over the key tower, the relinearization and Galois
     key stacks as duals."""
@@ -117,7 +118,7 @@ def fhe_setup_from_numpy(cfg, secret, pub_mask, pub_masked, ek_masks, ek_maskeds
 
 
 def ciphertext(params: SchemeParams, ring: RingContext, components: Sequence,
-               scale=None, domain: str = "dual", device="cpu") -> CipherText:
+               scale=None, domain: str = "dual", *, device) -> CipherText:
     """Ciphertext from its component residue arrays (each [..., L, N]) in
     ``domain``, tagged with a CKKS ``scale`` when one is given."""
     cs = tuple(ring_elt(**{domain: x}, device=device) for x in components)
