@@ -8,9 +8,12 @@ source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
 register-radix kernel and the one-block radix-2 kernel it replaced), the
 four-step digit transform on the int8 tensor cores (K2, ``ntt_mxu.cu``), the
 fused hybrid key switch (K3,
-``hybrid_ks.cu``), the fused polynomial product (K4, ``polymul.cu``), the
-bit-reversed DIF transform (K5, ``ntt_bitrev.cu``) and the fused windowed
-key switch (K6, ``keyswitch.cu``). Then, for each path:
+``hybrid_ks.cu``), the fused polynomial product (K4, ``polymul.cu``: a
+cluster-split register-radix kernel and the one-block radix-2 kernel it
+replaced), the bit-reversed DIF transform (K5, ``ntt_bitrev.cu``) and the
+fused windowed key switch (K6, ``keyswitch.cu``: a kernel that spreads the
+digits over a thread-block cluster and the one-block loop kernel it
+replaced). Then, for each path:
 
 * the per-limb RNS gadget step: K1 bit-equal to its plain radix-2 torch
   twin (the cluster kernel at every legal cluster size, with lazy and with
@@ -24,7 +27,9 @@ key switch (K6, ``keyswitch.cu``). Then, for each path:
   tower (bit-equal to each other and to the CPU, decoded against the
   squares), and at ``bench.py``'s hybrid fixture shape;
 * the windowed special-prime rotation: K5 and K6 bit-equal to their plain
-  twins over shape sweeps, then K5 + K6 + the special-prime rescale with a
+  twins over shape sweeps (K6 as dispatched, at every legal cluster size
+  with lazy and with fully reduced butterflies, and the loop kernel), then
+  K5 + K6 + the special-prime rescale with a
   real Galois key at the MNIST data width (N = 2^13, seven 28-bit limbs +
   one special, window 8), bit-equal to ``layers._modraise_keyswitch`` on the
   card and on the CPU and decoded against the rotated slots; the windowed
@@ -36,9 +41,11 @@ key switch (K6, ``keyswitch.cu``). Then, for each path:
 * the kernel A/B entry point ``toyfhe_tpu_torch.tools.bench_kernels`` at its
   full width (N = 2^14, eight 28-bit limbs, 16 rows): K2 in both
   recombinations and K4 bit-equal to their plain twins over shape sweeps
-  (K2 also to K1, K4 also to the unfused product through K1), then the
-  tool's rows at that width and at the serving transform shape (N = 2^13,
-  seven limbs, four rows), the radix-2 K1 beside the cluster kernel;
+  (K2 also to K1; K4 as dispatched, at every legal cluster size with lazy
+  and with fully reduced butterflies, and the radix-2 kernel, also to the
+  unfused product through K1), then the tool's rows at that width and at
+  the serving transform shape (N = 2^13, seven limbs, four rows), the
+  radix-2 K1 and K4 beside the cluster kernels;
 * the production serving configuration of encrypted MNIST: hoisted
   rotations (``rotate_many`` / ``rotate_sum``) with real keys on the card
   bit-equal to the CPU and decoded, then the same full-width pipeline with
@@ -47,8 +54,11 @@ key switch (K6, ``keyswitch.cu``). Then, for each path:
   grid, its key products, decompositions and K1 launches counted;
 * device time apart from wrapper time for K1 (both kernels, at the small
   and the large end of the MNIST launches, the timed shape and the A/B
-  batch) and K2: one launch between two events, 200 launches back to back,
-  one launch's share of a replayed CUDA graph, and the host's time a call.
+  batch), K2, K4 (both kernels, at the A/B batch and the serving transform
+  shape), K6 (both kernels, at the windowed rotation's shape), K3, K5 and
+  the whole windowed key switch fused against unfused: one launch between
+  two events, 200 launches back to back, one launch's share of a replayed
+  CUDA graph, and the host's time a call.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -559,7 +569,8 @@ def phase_hybrid_timing(dev, smi, mnist, bench):
         fks = hybrid_ks.FusedHybridKS(params, synthetic_eval_key(params, 3, dev), lt=lt)
         y = random_residues(params.ring_cipher.primes, (HYBRID_B,), HYBRID_N, gen, dev)
         row = {"kernel": cuda_ms(lambda: fks(y)),
-               "plain": cuda_ms(lambda: hybrid_ks.fused_hybrid_ks_plain(fks, y)), "fks": fks}
+               "plain": cuda_ms(lambda: hybrid_ks.fused_hybrid_ks_plain(fks, y)), "fks": fks,
+               "y": y}
         k3[name] = row
         log(f"K3 {name} (R={HYBRID_B}, T={fks.exp_ring.nlimbs}, dnum={fks.dnum_t}, "
             f"N={HYBRID_N}): kernel {row['kernel']:.4f} ms, plain {row['plain']:.4f} ms [{smi}]")
@@ -621,30 +632,51 @@ def synthetic_fused_keyswitch(n, tower, window, seed, device):
     return FusedKeyswitch(tables, keys[0], keys[1], window, kpl, lc)
 
 
-def phase_k6_vs_plain(dev):
-    from toyfhe_tpu_torch.ops import pallas_keyswitch
+K6_FULL_TOWER = (30, 29, 28, 28, 29)     # a prime above 2^30: fully reduced butterflies
 
-    log("== phase 14: K6 (fused windowed key switch) against its plain twin on the card")
+
+def phase_k6_vs_plain(dev):
+    from toyfhe_tpu_torch.ops import pallas_keyswitch, pallas_keyswitch_cuda as k6c
+
+    log("== phase 14: K6 (fused windowed key switch) against its plain twin on the card: the "
+        "cluster kernel as dispatched, at every legal cluster size with lazy and with fully "
+        "reduced butterflies, and the one-block loop kernel")
     gen = torch.Generator(device=dev).manual_seed(14)
-    err, ncase = 0, 0
-    cases = [(n, w, lead) for n in (256, 4096, 8192, 16384) for w in (8, 5)
-             for lead in ((), (2,))] + [(32768, 8, ())]
-    for n, window, lead in cases:
-        fk = synthetic_fused_keyswitch(n, K6_TOWER, window, n + window, dev)
+    err, ncase, nlaunch = 0, 0, 0
+    cases = [(n, K6_TOWER, w, lead) for n in (256, 4096, 8192, 16384) for w in (8, 5)
+             for lead in ((), (2,))] + [(32768, K6_TOWER, 8, ())] + \
+            [(n, K6_FULL_TOWER, 8, lead) for n, lead in ((256, (2,)), (8192, ()))]
+    for n, tower, window, lead in cases:
+        fk = synthetic_fused_keyswitch(n, tower, window, n + window, dev)
         primes = fk.pt.primes
         c2 = random_residues(primes[:-1], lead, n, gen, dev)
         c1e = random_residues(primes, lead, n, gen, dev)
-        got = fk(c2, c1e)
         want = pallas_keyswitch.fused_keyswitch_plain(fk, c2, c1e)
-        sync(dev)
-        for g, w in zip(got, want):
-            err = max(err, int((g - w).abs().max()))
-            if not torch.equal(g, w):
-                raise AssertionError(f"K6 != plain at N={n} window={window} lead={lead}")
+        pairs = (2 if lead else 1) * len(primes)
+        chosen, lazy_ok = k6c.choose_cluster(pairs, n, fk.ndig, primes)
+        variants = [("dispatched", lambda: fk(c2, c1e)),
+                    ("loop", lambda: k6c.launch(fk, c2, c1e, variant="loop"))]
+        legal = k6c.legal_clusters(n, fk.ndig)
+        for g in legal:
+            for lazy in ((False, True) if lazy_ok else (False,)):
+                variants.append((f"G={g} lazy={lazy}",
+                                 lambda g=g, lazy=lazy: k6c.launch(fk, c2, c1e, cluster=g,
+                                                                   lazy=lazy)))
+        for name, fn in variants:
+            got = fn()
+            sync(dev)
+            for g_, w_ in zip(got, want):
+                err = max(err, int((g_ - w_).abs().max()))
+                if not torch.equal(g_, w_):
+                    raise AssertionError(f"K6 {name} != plain at N={n} tower={tower} "
+                                         f"window={window} lead={lead}")
+            nlaunch += 1
         ncase += 1
-        log(f"N={n:5d} window={window} kpl={fk.kpl} ndig={fk.ndig} lead={lead}: bit-equal")
-    log(f"{ncase} cases: K6 == plain twin (accumulators in shared memory up to N=2^14, "
-        f"in global scratch at 2^15)")
+        log(f"N={n:5d} tower={len(tower)} limbs{' (full)' if not lazy_ok else ''} window={window} "
+            f"kpl={fk.kpl} ndig={fk.ndig} lead={lead}: dispatched G={chosen}, G in {legal} x "
+            f"{'lazy and full' if lazy_ok else 'full'}, and the loop kernel bit-equal")
+    log(f"{ncase} cases, {nlaunch} launches: every K6 variant == plain twin (partial rows in "
+        f"shared memory up to N=2^14, in device scratch at 2^15)")
     return err
 
 
@@ -941,36 +973,53 @@ def phase_k2_vs_plain(dev):
 def phase_k4_vs_plain(dev):
     from toyfhe_tpu_torch.ops import modmath
     from toyfhe_tpu_torch.ops import ntt as nttmod
-    from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda
+    from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda as k4c
     from toyfhe_tpu_torch.utils import numtheory as nt
 
-    log("== phase 20: K4 (fused polynomial product) against its plain twin on the card")
+    log("== phase 20: K4 (fused polynomial product) against its plain twin on the card: the "
+        "cluster kernel as dispatched, at every legal cluster size with lazy and with fully "
+        "reduced butterflies, and the one-block radix-2 kernel with and without the parked row")
     gen = torch.Generator(device=dev).manual_seed(20)
-    err, ncase = 0, 0
+    err, ncase, nlaunch = 0, 0, 0
     for n in (16, 256, 4096, 8192, 16384, 32768):
-        towers = PHASE3_TOWERS if n < 32768 else PHASE3_TOWERS[:1]
+        towers = PHASE3_TOWERS if n < 32768 else PHASE3_TOWERS[:2]
+        legal = k4c.legal_polymul_clusters(n)
         for tower in towers:
             tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
             pt = ntt_pallas.PallasNttTables(tables)
+            lazy_ok = max(tables.primes) < k4c.LAZY_PRIME_LIMIT
             for rows in (1, 4, 16):
                 a, b = (random_residues(tables.primes, (rows,), n, gen, dev)
                         .transpose(0, 1).contiguous() for _ in range(2))
-                got = ntt_pallas.polymul_pallas_raw(pt, a, b)
-                parked = ntt_pallas_cuda.launch_polymul(pt, a, b, park=True)
                 want = ntt_pallas.polymul_plain(pt, a, b)
                 at, bt = a.transpose(0, 1), b.transpose(0, 1)
                 k1 = nttmod.intt(tables, modmath.mul_mod(nttmod.ntt(tables, at),
                                                          nttmod.ntt(tables, bt), tables.mp))
+                outs = {"dispatched": ntt_pallas.polymul_pallas_raw(pt, a, b),
+                        "radix2 parked": k4c.launch_polymul(pt, a, b, park=True,
+                                                            variant="radix2")}
+                if n <= k4c.PARK_ABOVE:
+                    outs["radix2"] = k4c.launch_polymul(pt, a, b, variant="radix2")
+                for c in legal:
+                    for lazy in ((False, True) if lazy_ok else (False,)):
+                        outs[f"C={c} lazy={lazy}"] = k4c.launch_polymul(pt, a, b, cluster=c,
+                                                                        lazy=lazy)
                 sync(dev)
-                err = max(err, int((got - want).abs().max()), int((parked - want).abs().max()))
-                if not (torch.equal(got, want) and torch.equal(parked, want)
-                        and torch.equal(got.transpose(0, 1), k1)):
-                    raise AssertionError(f"K4 != plain at N={n} tower={tower} rows={rows}")
+                for name, got in outs.items():
+                    err = max(err, int((got - want).abs().max()))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"K4 {name} != plain at N={n} tower={tower} "
+                                             f"rows={rows}")
+                if not torch.equal(outs["dispatched"].transpose(0, 1), k1):
+                    raise AssertionError(f"K4 != K1 product at N={n} tower={tower} rows={rows}")
+                nlaunch += len(outs)
                 ncase += 1
-        log(f"N={n:5d}: {len(towers)} towers x rows (1, 4, 16): two rows in shared memory"
-            f"{'' if n <= 16384 else ' (not at this N)'} and the parked-row variant bit-equal "
-            f"to the plain twin and to K1-inverse(K1(a) * K1(b))")
-    log(f"{ncase} cases: K4 == plain twin == unfused product through K1")
+        log(f"N={n:5d}: {len(towers)} towers (lazy and full) x rows (1, 4, 16): dispatched, C in "
+            f"{legal} x lazy / full, radix-2 with the parked row"
+            f"{' and with two rows' if n <= k4c.PARK_ABOVE else ''} bit-equal to the plain twin; "
+            f"dispatched == K1-inverse(K1(a) * K1(b))")
+    log(f"{ncase} cases, {nlaunch} launches: every K4 variant == plain twin == unfused product "
+        f"through K1")
     return err
 
 
@@ -1124,6 +1173,94 @@ def phase_device_time(dev, smi):
         t, = four_times(lambda: mxp.ntt_mxu_pallas(mt, x, psis, paired))
         out[("k2", name)] = t
         log(f"  {name}: {fmt(t)} [{smi}]")
+    return out
+
+
+# (label, N, limbs, rows): the A/B batch and the serving transform shape
+K4_DEVICE_TIME_SHAPES = (("128 x 2^14", BENCH_N, BENCH_LIMBS, BENCH_ROWS),
+                         ("28 x 2^13",) + SERVING_AB)
+
+
+def phase_device_time_fused(dev, smi, kpath, k3row):
+    """Phase 24, continued: device time apart from wrapper time for the
+    fused kernels. K4 and K6 each beside the kernel it replaced, in turns;
+    K3 and K5 as they are; the whole windowed key switch fused against
+    unfused, in turns."""
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda as k4c
+    from toyfhe_tpu_torch.ops import pallas_keyswitch_cuda as k6c
+    from toyfhe_tpu_torch.parallel import layers as TL
+    from toyfhe_tpu_torch.tools.bench_kernels import graph_ms
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log(f"== phase 24, continued: device time and wrapper time of K4 and K6 (the cluster kernel "
+        f"and the kernel it replaced in turns: new, old, old, new), of K3 and K5, and of the "
+        f"whole windowed key switch (K5 + K6 + rescale against K1 + torch, in turns); the same "
+        f"four readings [{smi}]")
+    gen = torch.Generator(device=dev).manual_seed(241)
+    fmt = lambda t: (f"ms {t['ms']:.4f}, b2b {t['b2b_ms']:.4f}, device {t['device_ms']:.4f}, "
+                     f"host {t['host_ms']:.4f}, wrapper {t['ms'] - t['device_ms']:.4f}")
+    ratio = lambda new, old: f"device time old / new x{old['device_ms'] / new['device_ms']:.2f}"
+    out = {}
+    for label, n, limbs, rows in K4_DEVICE_TIME_SHAPES:
+        tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, (28,) * limbs))
+        pt = ntt_pallas.PallasNttTables(tables)
+        a, b = (random_residues(tables.primes, (rows,), n, gen, dev).transpose(0, 1).contiguous()
+                for _ in range(2))
+        c, lazy = k4c.choose_polymul_cluster(limbs * rows, n, tables.primes)
+        plan, shape = k4c.polymul_plan(pt.logn, c), k4c.polymul_block_shape(n, c)
+        log(f"K4 {label}: C={c}, lazy={lazy}, grid {limbs * rows * c} blocks x "
+            f"{shape['threads']} threads, {shape['smem']} B shared memory a block, load pass "
+            f"{plan['kl']} + DIF passes {plan['fwd']} + middle 3 | 3 + DIT passes {plan['bwd']} "
+            f"+ closing {plan['kf']} stages, {k4c.plan_barriers(plan)} barriers (radix-2: "
+            f"{3 * pt.logn + 3}); registers {k4c.polymul_attrs(c, lazy)['registers']}")
+        new, old = four_times(lambda: ntt_pallas.polymul_pallas_raw(pt, a, b),
+                              lambda: k4c.launch_polymul(pt, a, b, variant="radix2"))
+        sweep = {f"C={x}{'' if lz else ' full'}": graph_ms(
+            lambda: k4c.launch_polymul(pt, a, b, cluster=x, lazy=lz), 100)
+            for x in k4c.legal_polymul_clusters(n) for lz in (True, False)}
+        out[("k4", label)] = {"new": new, "old": old, "cluster": c, "sweep": sweep}
+        log(f"  cluster kernel: {fmt(new)} [{smi}]")
+        log(f"  one-block radix-2: {fmt(old)}; {ratio(new, old)} [{smi}]")
+        log("  device ms at each cluster size, lazy and fully reduced: " +
+            ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()) + f" [{smi}]")
+
+    fk, c2p, ka, c1p = (kpath[k] for k in ("fk", "c2p", "ka", "c1p"))
+    c1e = random_residues(fk.pt.primes, (), fk.n, gen, dev)
+    pairs = fk.Lc + 1
+    g, lazy = k6c.choose_cluster(pairs, fk.n, fk.ndig, fk.pt.primes)
+    plan, shape = k6c.keyswitch_plan(fk.logn, g), k6c.block_shape(fk.n)
+    log(f"K6 path (b) (Lc={fk.Lc}, {fk.ndig} digits, N={fk.n}): G={g}, lazy={lazy}, grid "
+        f"{pairs * g} blocks x {shape['threads']} threads, {shape['smem']} B shared memory a "
+        f"block, {-(-fk.ndig // g)} or {fk.ndig // g} digits a block, a digit: load pass "
+        f"{plan['kl']} + DIF passes {plan['fwd']} + last 3 with the key products "
+        f"({k6c.acc_items(fk.n)} item(s) of accumulators in registers); an inverse over "
+        f"{k6c.half(g)} blocks: DIT passes {plan['bwd']} + closing {plan['kf']}; registers "
+        f"{k6c.kernel_attrs(fk.n, lazy)['registers']}")
+    new, old = four_times(lambda: fk(c2p, c1e),
+                          lambda: k6c.launch(fk, c2p, c1e, variant="loop"))
+    sweep = {f"G={x}{'' if lz else ' full'}": graph_ms(
+        lambda: k6c.launch(fk, c2p, c1e, cluster=x, lazy=lz), 100)
+        for x in k6c.legal_clusters(fk.n, fk.ndig) for lz in (True, False)}
+    out["k6"] = {"new": new, "old": old, "cluster": g, "sweep": sweep}
+    log(f"  cluster kernel: {fmt(new)} [{smi}]")
+    log(f"  one-block loop kernel: {fmt(old)}; {ratio(new, old)} [{smi}]")
+    log("  device ms at each cluster size, lazy and fully reduced: " +
+        ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()) + f" [{smi}]")
+
+    fks, y = k3row["fks"], k3row["y"]
+    out["k3"], = four_times(lambda: fks(y))
+    log(f"K3 MNIST serving shape (R={HYBRID_B}, T={fks.exp_ring.nlimbs}, dnum={fks.dnum_t}, "
+        f"N={HYBRID_N}): {fmt(out['k3'])} [{smi}]")
+    a5 = random_residues(fk.pt.primes, (1,), fk.n, gen, dev).transpose(0, 1).contiguous()
+    out["k5"], = four_times(lambda: ntt_pallas.ntt_pallas_bitrev(fk.pt, a5))
+    log(f"K5 path (b) ({pairs} limbs x 1 row, N={fk.n}): {fmt(out['k5'])} [{smi}]")
+    fused, unfused = four_times(lambda: TL._modraise_keyswitch_fused(ka, fk, c1p, c2p),
+                                lambda: TL._modraise_keyswitch(ka, c1p, c2p))
+    out["keyswitch"] = {"fused": fused, "unfused": unfused}
+    log(f"whole windowed key switch at path (b), K5 + K6 + rescale: {fmt(fused)} [{smi}]")
+    log(f"  _modraise_keyswitch (K1 + torch): {fmt(unfused)}; device time unfused / fused "
+        f"x{unfused['device_ms'] / fused['device_ms']:.2f} [{smi}]")
     return out
 
 
@@ -1424,6 +1561,7 @@ def main() -> int:
     hoist = phase_hoisted_rotations(dev)
     bsgs = phase_bsgs_pipeline(dev, smi, pipe)
     dtime = phase_device_time(dev, smi)
+    dtime.update(phase_device_time_fused(dev, smi, kpath, k3_times["mnist"]))
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -1448,26 +1586,31 @@ def main() -> int:
         {"name": "k3_hybrid_ks", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/hybrid_ks.cu",
          "replaces": "toyfhe_tpu/ops/pallas_hybrid_ks.py:47",
          "launches": hybrid_launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_times["mnist"]["kernel"], "plain_ms": k3_times["mnist"]["plain"],
+         "ms": k3_times["mnist"]["kernel"], "device_ms": dtime["k3"]["device_ms"],
+         "plain_ms": k3_times["mnist"]["plain"],
          **bound_k3(k3_times["mnist"]["fks"], HYBRID_B), "library_ms": None})
     kernels.append(
         {"name": "k4_polymul", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/polymul.cu",
          "replaces": "toyfhe_tpu/ops/ntt_pallas.py:180",
          "launches": ab_launches["k4"], "max_abs_err": k4_err,
-         "ms": ab_rows["polymul_k4"]["ms"], "plain_ms": ab_rows["polymul_k4"]["plain_ms"],
+         "ms": ab_rows["polymul_k4"]["ms"],
+         "device_ms": dtime[("k4", "128 x 2^14")]["new"]["device_ms"],
+         "plain_ms": ab_rows["polymul_k4"]["plain_ms"],
          **bound_k4(BENCH_LIMBS, BENCH_ROWS, BENCH_N), "library_ms": None})
     k5_row = k56[("k5", "path (b): 8 limbs x 1 row")]
     kernels.append(
         {"name": "k5_ntt_bitrev", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_bitrev.cu",
          "replaces": "toyfhe_tpu/ops/ntt_pallas.py:246",
          "launches": kpath["launches"]["k5"], "max_abs_err": k5_err,
-         "ms": k5_row["kernel"], "plain_ms": k5_row["plain"],
+         "ms": k5_row["kernel"], "device_ms": dtime["k5"]["device_ms"],
+         "plain_ms": k5_row["plain"],
          **bound_transform(len(K6_TOWER), len(K6_TOWER), K6_N), "library_ms": None})
     kernels.append(
         {"name": "k6_fused_keyswitch", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "toyfhe_tpu/ops/pallas_keyswitch.py:40",
          "launches": kpath["launches"]["k6"], "max_abs_err": k6_err,
-         "ms": k56["k6"]["kernel"], "plain_ms": k56["k6"]["plain"],
+         "ms": k56["k6"]["kernel"], "device_ms": dtime["k6"]["new"]["device_ms"],
+         "plain_ms": k56["k6"]["plain"],
          **bound_k6(kpath["fk"]), "library_ms": None})
     log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch on the "
         f"iterated schedule (K1 {pipe['launches']['fwd']} + {pipe['launches']['inv']} launches, "

@@ -193,6 +193,64 @@ def test_k6_plain_matches_modraise_keyswitch(n, tower, window, lead):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def test_make_eval_key_with_key_params(ref, monkeypatch):
+    """``make_eval_key(gen, old, new, key_params=...)`` for a parameter pair
+    whose windows differ (the secret under window 0, the key under window
+    8): the key carries ``key_params``, has its number of components and is
+    built on its gadget factors, while the key ring, the ps-lift of the old
+    key and the noise stay those of ``new.params`` -- as in the reference.
+    With the masks and the noise forced to shared tensors every component is
+    bit-equal to the reference's."""
+    jax, jnp, F = ref
+    from toyfhe_tpu.core import ring as rr
+    from toyfhe_tpu.core import rlwe as ref_rlwe
+    from toyfhe_tpu_torch.core import rlwe as trlwe
+    n, tower = 32, (29, 28, 28, 29)
+    made = {}
+    for pkg in (F, T):
+        ring = pkg.make_rns_ring(n, tower)
+        made[pkg] = (pkg.ModulusRaised(pkg.CKKSParams(ring, 0, 3.2)),
+                     pkg.ModulusRaised(pkg.CKKSParams(ring, 8, 3.2)))
+    (params, kparams), (tparams, tkparams) = made[F], made[T]
+    assert params.relin_window != kparams.relin_window
+    kp = F.keygen(params, jax.random.PRNGKey(4))
+    secret = np.asarray(rr.ensure_primal(params.ring_key, kp.priv.secret).primal)
+    tpriv = I.priv_key(tparams, secret, device="cpu")
+
+    primes = params.ring_key.primes
+    ncomp = len(ref_rlwe.gadget_factors(kparams.ring_cipher, 8))
+    rng = np.random.default_rng(5)
+    masks = [np.stack([rng.integers(0, p, n) for p in primes]) for _ in range(ncomp)]
+    noises = [np.stack([e % p for p in primes]) for e in rng.integers(-8, 9, (ncomp, n))]
+    feeds = {name: iter(vals) for name, vals in (("rm", masks), ("tm", masks), ("rn", noises),
+                                                 ("tn", noises))}
+    monkeypatch.setattr(ref_rlwe.sampling, "uniform",
+                        lambda *a, **k: jnp.asarray(next(feeds["rm"]).astype(np.uint32)))
+    monkeypatch.setattr(trlwe.sampling, "uniform", lambda *a, **k: I.tensor(next(feeds["tm"]), "cpu"))
+    monkeypatch.setattr(params, "noise", lambda *a, **k: F.RingElt(
+        primal=jnp.asarray(next(feeds["rn"]).astype(np.uint32))), raising=False)
+    monkeypatch.setattr(tparams, "noise", lambda *a, **k: T.RingElt(
+        primal=I.tensor(next(feeds["tn"]), "cpu")), raising=False)
+
+    want = F.make_eval_key(jax.random.PRNGKey(6), kp.priv.secret, kp.priv, key_params=kparams)
+    got = T.make_eval_key(torch.Generator().manual_seed(6), tpriv.secret, tpriv,
+                          key_params=tkparams)
+    assert want.params is kparams and got.params is tkparams
+    assert got.ring is tparams.ring_key and got.ring.primes == want.ring.primes
+    assert len(got.key) == len(want.key) == ncomp == 3 * 4      # Lc limbs x ceil(29 / 8) digits
+    assert trlwe.gadget_factors(tkparams.ring_cipher, tkparams.relin_window) == \
+        ref_rlwe.gadget_factors(kparams.ring_cipher, kparams.relin_window)
+    for a, b in zip(got.key, want.key):
+        for name in ("mask", "masked"):
+            np.testing.assert_array_equal(
+                I.to_numpy(T.ringops.ensure_primal(got.ring, getattr(a, name)).primal),
+                np.asarray(rr.ensure_primal(want.ring, getattr(b, name)).primal))
+    # without key_params the key follows new.params: one component a limb
+    monkeypatch.undo()
+    own = T.make_eval_key(torch.Generator().manual_seed(6), tpriv.secret, tpriv)
+    assert own.params is tparams and len(own.key) == 3
+
+
 def test_k6_guards():
     tparams = T.ModulusRaised(T.CKKSParams(T.make_rns_ring(32, (30, 29, 29)), 8, 3.2))
     gen = torch.Generator().manual_seed(0)

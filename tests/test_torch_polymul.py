@@ -3,8 +3,10 @@
 K4's plain twin bit-equal to the reference's ``polymul_pallas`` in the
 Pallas interpreter at N = 256, to the O(N²) schoolbook product at small N,
 and to ``intt(mul_mod(ntt, ntt))`` of both packages; and, on a CUDA device,
-the hand-written kernel (both of its shared-memory variants) bit-equal to
-its twin.
+the hand-written kernels (the cluster kernel as dispatched and both
+shared-memory variants of the one-block radix-2 kernel) bit-equal to the
+twin. The cluster kernel's schedule twin is in
+tests/test_torch_k4_k6_schedule.py.
 
 The reference is imported inside the ``ref`` fixture, so the ``cuda`` tests
 run on a host that has torch but no jax (``pytest --noconftest -m cuda``).
@@ -127,13 +129,15 @@ def test_cuda_k4_matches_plain(n):
     want = tnp.polymul_plain(pt, a, b)
     before = ntt_pallas_cuda.polymul_launches["k4"]
     got = tnp.polymul_pallas_raw(pt, a, b)
-    parked = ntt_pallas_cuda.launch_polymul(pt, a, b, park=True)
+    parked = ntt_pallas_cuda.launch_polymul(pt, a, b, park=True, variant="radix2")
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(parked, want)
     assert torch.equal(got, unfused(t, a, b))
     assert ntt_pallas_cuda.polymul_launches["k4"] == before + 2
     if n > ntt_pallas_cuda.PARK_ABOVE:
         with pytest.raises(ValueError):
-            ntt_pallas_cuda.launch_polymul(pt, a, b, park=False)
+            ntt_pallas_cuda.launch_polymul(pt, a, b, park=False, variant="radix2")
+    with pytest.raises(ValueError):
+        ntt_pallas_cuda.launch_polymul(pt, a, b, park=True)       # park is the old kernel's
     with pytest.raises(ValueError):
         ntt_pallas_cuda.launch_polymul(pt, a.transpose(0, 1), b.transpose(0, 1))

@@ -157,12 +157,19 @@ def test_no_public_function_defaults_to_the_cpu():
                     if inspect.isfunction(fn) and (not mname.startswith("_") or mname == "__init__"):
                         yield f"{name}.{mname}", fn
 
-    seen, bad = 0, []
+    seen, bad, names = 0, [], set()
     for info in pkgutil.walk_packages(toyfhe_tpu_torch.__path__, "toyfhe_tpu_torch."):
         mod = importlib.import_module(info.name)
         for name, fn in functions(mod):
             seen += 1
+            names.add(f"{info.name.split('.')[-1]}.{name}")
             for pname, prm in inspect.signature(fn).parameters.items():
                 if pname == "device" and is_cpu(prm.default):
                     bad.append(f"{info.name}.{name}")
     assert seen > 200 and not bad, bad
+    # the walk reaches the cluster kernels' host side and the key_params entry point
+    assert {"ntt_pallas_cuda.launch_polymul", "ntt_pallas_cuda.polymul_schedule",
+            "ntt_pallas_cuda.choose_polymul_cluster", "ntt_pallas_cuda.polymul_plan",
+            "pallas_keyswitch_cuda.launch", "pallas_keyswitch_cuda.keyswitch_schedule",
+            "pallas_keyswitch_cuda.choose_cluster", "pallas_keyswitch_cuda.keyswitch_plan",
+            "rlwe.make_eval_key"} <= names

@@ -419,16 +419,23 @@ def gadget_decompose(ring: RingContext, target: RingContext, x: RingElt,
     return torch.stack(digs, dim=0)
 
 
-def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey) -> KeySwitchKey:
+def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey,
+                  key_params: Optional[SchemeParams] = None) -> KeySwitchKey:
     """Key-switching key old → new.secret; ``old`` is a ring element in
     new's key ring (e.g. s² or σ(s)). A modifier with a ``lift_old_key``
     hook (ModulusRaised: ps·old) applies it here; gadget factors are taken
     over the decomposition ring (the ciphertext tower when modulus-raised)
     and a ``hybrid_factors`` hook (HybridRaised) supplies one factor per
-    digit group."""
-    params = new.params
-    ring = params.ring_key
-    hook = getattr(params, "lift_old_key", None)
+    digit group.
+
+    ``key_params``, when given, supplies the window, the decomposition ring
+    and the ``hybrid_factors`` hook, and is what the returned key carries;
+    the key ring, ``lift_old_key`` and the noise stay those of
+    ``new.params``."""
+    params = key_params if key_params is not None else new.params
+    gen_params = new.params
+    ring = gen_params.ring_key
+    hook = getattr(gen_params, "lift_old_key", None)
     if hook is not None:
         old = hook(old)
     dec_ring = params.ring_cipher if _is_modraised(params) else ring
@@ -438,7 +445,7 @@ def make_eval_key(gen: torch.Generator, old: RingElt, new: PrivKey) -> KeySwitch
     comps: List[KeyComponent] = []
     for g in factors:
         mask = RingElt(primal=sampling.uniform(gen, ring.mp, ring.n))
-        e = params.noise(gen, ring)
+        e = gen_params.noise(gen, ring)
         ga = R.scalar_mul(ring, g % ring.modulus, old)
         masked = R.sub(ring, ga, R.add(ring, R.mul(ring, mask, new.secret), e))
         comps.append(KeyComponent(mask=mask, masked=masked))

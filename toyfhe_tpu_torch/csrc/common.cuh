@@ -1,7 +1,7 @@
 // Device helpers shared by the port's kernels: the Montgomery product, the
 // bit-reversal index, the radix-2 DIT and DIF stage loops of the NTT over
-// one polynomial in shared memory, the register-radix DIT stages with lazy
-// or fully reduced butterflies, and the launch plumbing.
+// one polynomial in shared memory, the register-radix DIT and DIF stages with
+// lazy or fully reduced butterflies, and the launch plumbing.
 //
 // Residues are canonical 32-bit words in [0, p), p < 2^31, so a sum of two
 // fits a uint32. Twiddles are Montgomery-form uint32 tables with the stage of
@@ -124,6 +124,72 @@ __device__ __forceinline__ void radix_stages(uint32_t (&r)[1 << K], Tw tw, int l
       for (int hi = 0; hi < (1 << (K - 1 - s)); ++hi) {
         const int e = (hi << (s + 1)) + lo;
         dit_butterfly<kLazy>(r[e], r[e + (1 << s)], w, p, ninv);
+      }
+    }
+  }
+}
+
+// One DIF (Gentleman-Sande) butterfly (x, y) <- (x + y, (x - y) w), w in
+// Montgomery form. kLazy (p < 2^30): values stay in [0, 2p), one conditional
+// subtraction on the sum and an uncorrected REDC of x - y + 2p < 4p < 2^32 on
+// the difference. Otherwise every value is canonical in [0, p), p < 2^31.
+template <bool kLazy>
+__device__ __forceinline__ void dif_butterfly(uint32_t& x, uint32_t& y, uint32_t w,
+                                              uint32_t p, uint32_t ninv) {
+  if (kLazy) {
+    const uint32_t p2 = 2 * p;
+    const uint32_t s = x + y;                             // < 4p
+    const uint32_t d = x + p2 - y;                        // in (0, 4p)
+    x = min(s, s - p2);                                   // s - 2p wraps above s when s < 2p
+    y = redc_lazy(d, w, p, ninv);
+  } else {
+    const uint32_t u = x, v = y;
+    x = add_mod(u, v, p);
+    y = mont_mul(u >= v ? u - v : u + (p - v), w, p, ninv);
+  }
+}
+
+// K DIF stages on 2^K values held in registers, the mirror of radix_stages:
+// element e sits at position low + e 2^b0 (plus bits above the pass), and the
+// stages run from the top of the pass downwards, s = K-1 .. 0. The stage of
+// half-length h = 2^(b0+s) pairs (e, e + 2^s) with the twiddle tw(h + low +
+// (e mod 2^s) 2^b0), the same offsets of the limb's packed forward row that
+// radix_stages reads of the inverse row: 2^K - 1 twiddles a call.
+template <int K, bool kLazy, typename Tw>
+__device__ __forceinline__ void radix_stages_dif(uint32_t (&r)[1 << K], Tw tw, int low,
+                                                 int b0, uint32_t p, uint32_t ninv) {
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    const int h = 1 << (b0 + s);
+#pragma unroll
+    for (int lo = 0; lo < (1 << s); ++lo) {
+      const uint32_t w = tw(h + low + (lo << b0));
+#pragma unroll
+      for (int hi = 0; hi < (1 << (K - 1 - s)); ++hi) {
+        const int e = (hi << (s + 1)) + lo;
+        dif_butterfly<kLazy>(r[e], r[e + (1 << s)], w, p, ninv);
+      }
+    }
+  }
+}
+
+// The same stages on two operands held at the same positions: each twiddle is
+// loaded once for two butterflies, and the two dependency chains interleave.
+template <int K, bool kLazy, typename Tw>
+__device__ __forceinline__ void radix_stages_dif2(uint32_t (&ra)[1 << K],
+                                                  uint32_t (&rb)[1 << K], Tw tw, int low,
+                                                  int b0, uint32_t p, uint32_t ninv) {
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    const int h = 1 << (b0 + s);
+#pragma unroll
+    for (int lo = 0; lo < (1 << s); ++lo) {
+      const uint32_t w = tw(h + low + (lo << b0));
+#pragma unroll
+      for (int hi = 0; hi < (1 << (K - 1 - s)); ++hi) {
+        const int e = (hi << (s + 1)) + lo;
+        dif_butterfly<kLazy>(ra[e], ra[e + (1 << s)], w, p, ninv);
+        dif_butterfly<kLazy>(rb[e], rb[e + (1 << s)], w, p, ninv);
       }
     }
   }
