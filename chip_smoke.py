@@ -8,9 +8,13 @@ source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
 register-radix kernel and the one-block radix-2 kernel it replaced), the
 four-step digit transform on the int8 tensor cores (K2, ``ntt_mxu.cu``), the
 fused hybrid key switch (K3,
-``hybrid_ks.cu``), the fused polynomial product (K4, ``polymul.cu``: a
+``hybrid_ks.cu``: a register-radix kernel that spends a thread-block cluster
+on the digits or on the polynomial, and the one-block radix-2 loop kernel it
+replaced), the fused polynomial product (K4, ``polymul.cu``: a
 cluster-split register-radix kernel and the one-block radix-2 kernel it
-replaced), the bit-reversed DIF transform (K5, ``ntt_bitrev.cu``) and the
+replaced), the bit-reversed DIF transform (K5, ``ntt_bitrev.cu``: a
+register-radix kernel over 1, 2 or 4 independent blocks a polynomial, and the
+one-block radix-2 kernel it replaced) and the
 fused windowed key switch (K6, ``keyswitch.cu``: a kernel that spreads the
 digits over a thread-block cluster and the one-block loop kernel it
 replaced). Then, for each path:
@@ -21,14 +25,17 @@ replaced). Then, for each path:
   shape (bit-equal to the same step on the CPU) and with real keys at the
   encrypted-MNIST tower width (decoded against the expected squares);
 * the dnum-grouped hybrid gadget step, the encrypted-MNIST serving key
-  switch: K3 bit-equal to its plain twin over 36 shapes, the three step
+  switch: K3 bit-equal to its plain twin over 40 cases (as dispatched, the
+  digits and the polynomial over every legal cluster size with lazy and with
+  fully reduced arithmetic, and the loop kernel), the three step
   flavours (v1, ``fused=True`` through K3, the fused schedule) with real
   keys at the MNIST serving shape on the full and the one-limb-shorter
   tower (bit-equal to each other and to the CPU, decoded against the
   squares), and at ``bench.py``'s hybrid fixture shape;
 * the windowed special-prime rotation: K5 and K6 bit-equal to their plain
-  twins over shape sweeps (K6 as dispatched, at every legal cluster size
-  with lazy and with fully reduced butterflies, and the loop kernel), then
+  twins over shape sweeps (each as dispatched, at every legal cluster size
+  or block count with lazy and with fully reduced butterflies, and the
+  kernel it replaced; K5 limb-major and row-major), then
   K5 + K6 + the special-prime rescale with a
   real Galois key at the MNIST data width (N = 2^13, seven 28-bit limbs +
   one special, window 8), bit-equal to ``layers._modraise_keyswitch`` on the
@@ -55,7 +62,10 @@ replaced). Then, for each path:
 * device time apart from wrapper time for K1 (both kernels, at the small
   and the large end of the MNIST launches, the timed shape and the A/B
   batch), K2, K4 (both kernels, at the A/B batch and the serving transform
-  shape), K6 (both kernels, at the windowed rotation's shape), K3, K5 and
+  shape), K6 (both kernels, at the windowed rotation's shape), K3 (both
+  kernels, at the serving gadget with 4 and 16 rows and at ``bench.py``'s
+  fixture), K5 (both kernels, at the windowed rotation's shape, the serving
+  transform shape and the A/B batch), every variant of each, and
   the whole windowed key switch fused against unfused: one launch between
   two events, 200 launches back to back, one launch's share of a replayed
   CUDA graph, and the host's time a call.
@@ -411,30 +421,60 @@ def read_launches() -> dict:
             **pallas_keyswitch_cuda.launches}
 
 
-def phase_k3_vs_plain(dev):
-    from toyfhe_tpu_torch.ops import hybrid_ks
+# a gadget with a raising prime in [2^30, 2^31): fully reduced arithmetic
+HYBRID_FULL_CONFIG = ("full", (28,) * 4 + (30, 29), 2, 2, 4)
 
-    log("== phase 8: K3 (fused hybrid key switch) against its plain twin on the card")
+
+def phase_k3_vs_plain(dev):
+    from toyfhe_tpu_torch.ops import hybrid_ks, hybrid_ks_cuda as k3c
+
+    log("== phase 8: K3 (fused hybrid key switch) against its plain twin on the card: the "
+        "cluster kernel as dispatched, the digits over every legal cluster size and the "
+        "polynomial over every legal one, with lazy and with fully reduced arithmetic, and "
+        "the one-block loop kernel")
     gen = torch.Generator(device=dev).manual_seed(8)
-    err, ncase = 0, 0
-    for n in (256, 4096, 8192, 16384):
-        for name, tower, dnum, k, lt in HYBRID_CONFIGS:
+    err, ncase, nlaunch = 0, 0, 0
+    cases = [(n, cfg, lead) for n in (256, 4096, 8192, 16384) for cfg in HYBRID_CONFIGS
+             for lead in ((), (4,), (16,))]
+    cases += [(n, HYBRID_FULL_CONFIG, lead) for n, lead in ((256, (4,)), (8192, ()))]
+    cases += [(32768, HYBRID_CONFIGS[0], ()), (32768, HYBRID_CONFIGS[2], (2,))]
+    made = {}
+    for n, cfg, lead in cases:
+        name, tower, dnum, k, lt = cfg
+        if (n, name) not in made:
             params = hybrid_params(n, tower, dnum, k)
-            fks = hybrid_ks.FusedHybridKS(params, synthetic_eval_key(params, n + lt, dev), lt=lt)
-            primes = params.ring_cipher.primes[:lt]
-            for lead in ((), (4,), (16,)):
-                y = random_residues(primes, lead, n, gen, dev)
-                got = fks(y)
-                want = hybrid_ks.fused_hybrid_ks_plain(fks, y)
-                sync(dev)
-                for g, w in zip(got, want):
-                    err = max(err, int((g - w).abs().max()))
-                    if not torch.equal(g, w):
-                        raise AssertionError(f"K3 != plain at N={n} {name} lead={lead}")
-                ncase += 1
-            log(f"N={n:5d} {name}: T={fks.exp_ring.nlimbs} dnum_t={fks.dnum_t} "
-                f"alpha={fks.alpha}, 3 leads bit-equal")
-    log(f"{ncase} cases: K3 == plain twin")
+            made[(n, name)] = params, hybrid_ks.FusedHybridKS(
+                params, synthetic_eval_key(params, n + lt, dev), lt=lt)
+        params, fks = made[(n, name)]
+        y = random_residues(params.ring_cipher.primes[:lt], lead, n, gen, dev)
+        want = hybrid_ks.fused_hybrid_ks_plain(fks, y)
+        rows = y.numel() // (lt * n)
+        chosen = k3c.choose_cluster(rows * fks.exp_ring.nlimbs, n, fks.dnum_t,
+                                    fks.exp_ring.primes)
+        variants = [("dispatched", lambda: fks(y)),
+                    ("loop", lambda: k3c.launch(fks, y, variant="loop"))]
+        for scheme in k3c.SCHEMES:
+            for g in k3c.legal_clusters(n, fks.dnum_t, scheme):
+                for lazy in ((False, True) if chosen[2] else (False,)):
+                    variants.append((f"{scheme} {g} lazy={lazy}",
+                                     lambda scheme=scheme, g=g, lazy=lazy: k3c.launch(
+                                         fks, y, cluster=g, scheme=scheme, lazy=lazy)))
+        for vname, fn in variants:
+            got = fn()
+            sync(dev)
+            for g_, w_ in zip(got, want):
+                err = max(err, int((g_ - w_).abs().max()))
+                if not torch.equal(g_, w_):
+                    raise AssertionError(f"K3 {vname} != plain at N={n} {name} lead={lead}")
+            nlaunch += 1
+        ncase += 1
+        log(f"N={n:5d} {name} lead={lead}: T={fks.exp_ring.nlimbs} dnum_t={fks.dnum_t} "
+            f"alpha={fks.alpha}{'' if chosen[2] else ' (full)'}, dispatched {chosen[0]} "
+            f"{chosen[1]}; digits over {k3c.legal_clusters(n, fks.dnum_t)}, polynomial over "
+            f"{k3c.legal_clusters(n, fks.dnum_t, 'poly')}, and the loop kernel bit-equal")
+    log(f"{ncase} cases, {nlaunch} launches: every K3 variant == plain twin (accumulators in "
+        f"registers up to 2^13 residues a block, partial rows in shared memory at N=2^14, in "
+        f"device scratch at 2^15)")
     return err
 
 
@@ -588,30 +628,44 @@ K6_N, K6_TOWER, K6_WINDOW, K6_STEPS = 1 << 13, (28,) * 7 + (29,), 8, 64
 
 def phase_k5_vs_plain(dev):
     from toyfhe_tpu_torch.ops import ntt as nttmod
-    from toyfhe_tpu_torch.ops import ntt_pallas
+    from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda as k5c
     from toyfhe_tpu_torch.utils import numtheory as nt
 
-    log("== phase 13: K5 (bit-reversed DIF transform) against its plain twin on the card")
+    log("== phase 13: K5 (bit-reversed DIF transform) against its plain twin on the card: the "
+        "register-radix kernel as dispatched, limb-major and row-major, at every legal block "
+        "count a polynomial with lazy and with fully reduced butterflies, and the one-block "
+        "radix-2 kernel")
     gen = torch.Generator(device=dev).manual_seed(13)
-    err, ncase = 0, 0
-    for n in (256, 1024, 4096, 8192, 16384):
-        for tower in PHASE3_TOWERS:
+    err, ncase, nlaunch = 0, 0, 0
+    for n in (256, 1024, 4096, 8192, 16384, 32768):
+        towers = PHASE3_TOWERS if n < 32768 else PHASE3_TOWERS[:2]   # one full, one lazy
+        for tower in towers:
             tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
             pt = ntt_pallas.PallasNttTables(tables)
             brev = torch.as_tensor(tables.bitrev, device=dev)
+            lazy_ok = max(tables.primes) < k5c.LAZY_PRIME_LIMIT
             for rows in (1, 4, 16):
-                a = random_residues(tables.primes, (rows,), n, gen, dev).transpose(0, 1).contiguous()
-                got = ntt_pallas.ntt_pallas_bitrev(pt, a)
+                rm = random_residues(tables.primes, (rows,), n, gen, dev)      # [R, L, N]
+                a = rm.transpose(0, 1).contiguous()
                 want = ntt_pallas.ntt_bitrev_plain(pt, a)
-                nat = nttmod.ntt(tables, a.transpose(0, 1)).transpose(0, 1)[..., brev]
+                nat = nttmod.ntt(tables, rm).transpose(0, 1)[..., brev]
+                outs = [ntt_pallas.ntt_pallas_bitrev(pt, a),
+                        ntt_pallas.ntt_bitrev_rows(pt, rm).transpose(0, 1),
+                        k5c.launch(pt, a, variant="radix2")]
+                for c in k5c.legal_bitrev_clusters(n):
+                    for lazy in ((False, True) if lazy_ok else (False,)):
+                        outs.append(k5c.launch(pt, a, cluster=c, lazy=lazy))
                 sync(dev)
-                err = max(err, int((got - want).abs().max()))
-                if not (torch.equal(got, want) and torch.equal(got, nat)):
-                    raise AssertionError(f"K5 != plain at N={n} tower={tower} rows={rows}")
+                for got in outs:
+                    err = max(err, int((got - want).abs().max()))
+                    if not (torch.equal(got, want) and torch.equal(got, nat)):
+                        raise AssertionError(f"K5 != plain at N={n} tower={tower} rows={rows}")
+                nlaunch += len(outs)
                 ncase += 1
-        log(f"N={n:5d}: 3 towers x rows (1, 4, 16) bit-equal to the plain twin and to K1 "
-            f"read bit-reversed")
-    log(f"{ncase} cases: K5 == plain twin == bit-reversed K1")
+        log(f"N={n:5d}: {len(towers)} towers x rows (1, 4, 16): dispatched (limb-major and "
+            f"row-major), C in {k5c.legal_bitrev_clusters(n)} lazy and full, and the radix-2 "
+            f"kernel bit-equal to the plain twin and to K1 read bit-reversed")
+    log(f"{ncase} cases, {nlaunch} launches: every K5 variant == plain twin == bit-reversed K1")
     return err
 
 
@@ -1183,9 +1237,10 @@ K4_DEVICE_TIME_SHAPES = (("128 x 2^14", BENCH_N, BENCH_LIMBS, BENCH_ROWS),
 
 def phase_device_time_fused(dev, smi, kpath, k3row):
     """Phase 24, continued: device time apart from wrapper time for the
-    fused kernels. K4 and K6 each beside the kernel it replaced, in turns;
-    K3 and K5 as they are; the whole windowed key switch fused against
-    unfused, in turns."""
+    fused kernels. K4, K6, K3 and K5 each beside the kernel it replaced, in
+    turns, with the device time of every variant; the whole windowed key
+    switch fused against unfused, in turns."""
+    from toyfhe_tpu_torch.ops import hybrid_ks, hybrid_ks_cuda as k3c, modmath
     from toyfhe_tpu_torch.ops import ntt as nttmod
     from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda as k4c
     from toyfhe_tpu_torch.ops import pallas_keyswitch_cuda as k6c
@@ -1193,10 +1248,10 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
     from toyfhe_tpu_torch.tools.bench_kernels import graph_ms
     from toyfhe_tpu_torch.utils import numtheory as nt
 
-    log(f"== phase 24, continued: device time and wrapper time of K4 and K6 (the cluster kernel "
-        f"and the kernel it replaced in turns: new, old, old, new), of K3 and K5, and of the "
-        f"whole windowed key switch (K5 + K6 + rescale against K1 + torch, in turns); the same "
-        f"four readings [{smi}]")
+    log(f"== phase 24, continued: device time and wrapper time of K4, K6, K3 and K5 (the new "
+        f"kernel and the kernel it replaced in turns: new, old, old, new), and of the whole "
+        f"windowed key switch (K5 + K6 + rescale against K1 + torch, in turns); the same four "
+        f"readings [{smi}]")
     gen = torch.Generator(device=dev).manual_seed(241)
     fmt = lambda t: (f"ms {t['ms']:.4f}, b2b {t['b2b_ms']:.4f}, device {t['device_ms']:.4f}, "
                      f"host {t['host_ms']:.4f}, wrapper {t['ms'] - t['device_ms']:.4f}")
@@ -1248,19 +1303,97 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
     log("  device ms at each cluster size, lazy and fully reduced: " +
         ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()) + f" [{smi}]")
 
-    fks, y = k3row["fks"], k3row["y"]
-    out["k3"], = four_times(lambda: fks(y))
-    log(f"K3 MNIST serving shape (R={HYBRID_B}, T={fks.exp_ring.nlimbs}, dnum={fks.dnum_t}, "
-        f"N={HYBRID_N}): {fmt(out['k3'])} [{smi}]")
-    a5 = random_residues(fk.pt.primes, (1,), fk.n, gen, dev).transpose(0, 1).contiguous()
-    out["k5"], = four_times(lambda: ntt_pallas.ntt_pallas_bitrev(fk.pt, a5))
-    log(f"K5 path (b) ({pairs} limbs x 1 row, N={fk.n}): {fmt(out['k5'])} [{smi}]")
-    fused, unfused = four_times(lambda: TL._modraise_keyswitch_fused(ka, fk, c1p, c2p),
-                                lambda: TL._modraise_keyswitch(ka, c1p, c2p))
+    # K3: the serving gadget (R = 4 and R = 16) and bench.py's fixture
+    out["k3"] = {}
+    for label, cfg, rows in (("MNIST serving shape", HYBRID_CONFIGS[0], HYBRID_B),
+                             ("bench.py's fixture", HYBRID_CONFIGS[2], HYBRID_B),
+                             ("MNIST gadget, R=16", HYBRID_CONFIGS[0], 16)):
+        if label == "MNIST serving shape":
+            fks, y = k3row["fks"], k3row["y"]
+        else:
+            _, tower, dnum, k, lt = cfg
+            params = hybrid_params(HYBRID_N, tower, dnum, k)
+            fks = hybrid_ks.FusedHybridKS(params, synthetic_eval_key(params, 3, dev), lt=lt)
+            y = random_residues(params.ring_cipher.primes[:lt], (rows,), HYBRID_N, gen, dev)
+        T_, n, dn = fks.exp_ring.nlimbs, fks.exp_ring.n, fks.dnum_t
+        scheme, g, lazy = k3c.choose_cluster(rows * T_, n, dn, fks.exp_ring.primes)
+        plan = k3c.hybrid_ks_plan(n.bit_length() - 1, g, scheme)
+        shape = k3c.block_shape(n, g, scheme)
+        mangled = f"hybrid_ks_cluster_kernelILi{plan['kf']}ELb{int(lazy)}EE"
+        log(f"K3 {label} (R={rows}, T={T_}, dnum={dn}, N={n}): {scheme} over {g}, lazy={lazy}, "
+            f"grid {rows * T_ * g} blocks x {shape['threads']} threads, {shape['smem']} B shared "
+            f"memory a block, {-(-dn // g) if scheme == 'digits' else dn} digit(s) a block, a "
+            f"digit: load pass + DIT passes {plan['local']} + closing {plan['kf']} with the key "
+            f"products, {shape['barriers']} barriers (loop kernel: {n.bit_length() + 1}); "
+            f"registers {k3c.kernel_attrs(plan['kf'], lazy)['registers']}, spill stores "
+            f"{k3c.LIB.spill_bytes(mangled)} B; bound {bound_k3(fks, rows)['bound_ms']:.5f} ms")
+        new, old = four_times(lambda: fks(y), lambda: k3c.launch(fks, y, variant="loop"))
+        sweep = {f"{sc} {x}{'' if lz else ' full'}": graph_ms(
+            lambda: k3c.launch(fks, y, cluster=x, scheme=sc, lazy=lz), 100)
+            for sc in k3c.SCHEMES for x in k3c.legal_clusters(n, dn, sc) for lz in (True, False)}
+        out["k3"][label] = {"new": new, "old": old, "cluster": (scheme, g), "sweep": sweep}
+        log(f"  cluster kernel: {fmt(new)} [{smi}]")
+        log(f"  one-block loop kernel: {fmt(old)}; {ratio(new, old)} [{smi}]")
+        log("  device ms, the digits or the polynomial over each cluster size, lazy and fully "
+            "reduced: " + ", ".join(f"{k_} {v:.4f}" for k_, v in sweep.items()) + f" [{smi}]")
+
+    # K5: path (b), the serving transform shape and the A/B batch
+    out["k5"] = {}
+    for label, n, limbs, rows in (("path (b), 8 x 2^13", fk.n, pairs, 1),
+                                  ("28 x 2^13",) + SERVING_AB,
+                                  ("128 x 2^14", BENCH_N, BENCH_LIMBS, BENCH_ROWS)):
+        if label.startswith("path"):
+            pt = fk.pt
+        else:
+            pt = ntt_pallas.PallasNttTables(
+                nttmod.NttTables(n, nt.ntt_prime_chain(n, (28,) * limbs)))
+        a5 = random_residues(pt.primes, (rows,), n, gen, dev).transpose(0, 1).contiguous()
+        c, lazy = k4c.choose_bitrev_cluster(limbs * rows, n, pt.primes)
+        plan, shape = k4c.bitrev_plan(pt.logn, c), k4c.bitrev_block_shape(n, c)
+        mangled = f"ntt_bitrev_radix_kernelILi{c.bit_length() - 1}ELb{int(lazy)}EE"
+        log(f"K5 {label}: C={c}, lazy={lazy}, grid {limbs * rows * c} independent blocks x "
+            f"{shape['threads']} threads, {shape['smem']} B shared memory a block, load pass "
+            f"{plan['kl']} (+ {c.bit_length() - 1} cross-block) + DIF passes {plan['fwd']} + last "
+            f"3 stages, {shape['barriers']} barriers (radix-2: {pt.logn + 1}); registers "
+            f"{k4c.bitrev_attrs(c, lazy)['registers']}, spill stores "
+            f"{k4c.LIB.spill_bytes(mangled)} B; bound "
+            f"{bound_transform(limbs * rows, limbs, n)['bound_ms']:.5f} ms")
+        new, old = four_times(lambda: ntt_pallas.ntt_pallas_bitrev(pt, a5),
+                              lambda: k4c.launch(pt, a5, variant="radix2"))
+        sweep = {f"C={x}{'' if lz else ' full'}": graph_ms(
+            lambda: k4c.launch(pt, a5, cluster=x, lazy=lz), 100)
+            for x in k4c.legal_bitrev_clusters(n) for lz in (True, False)}
+        out["k5"][label] = {"new": new, "old": old, "cluster": c, "sweep": sweep}
+        log(f"  register-radix kernel: {fmt(new)} [{smi}]")
+        log(f"  one-block radix-2: {fmt(old)}; {ratio(new, old)} [{smi}]")
+        log("  device ms at each block count a polynomial, lazy and fully reduced: " +
+            ", ".join(f"{k_} {v:.4f}" for k_, v in sweep.items()) + f" [{smi}]")
+
+    fused_fn = lambda: TL._modraise_keyswitch_fused(ka, fk, c1p, c2p)
+
+    def with_copies():
+        """The fused key switch as it was glued before K5 took row-major
+        batches: a limb-major copy in, a transposed view out."""
+        c1x = torch.cat([modmath.mul_mod(c1p, ka.ps_res, ka.ct_ring.mp),
+                         TL._special_zeros(c1p, ka)], -2)
+        rows = c1x.reshape((-1,) + c1x.shape[-2:]).transpose(0, 1)
+        c1e = ntt_pallas.ntt_pallas_bitrev(fk.pt, rows.contiguous()).transpose(0, 1)
+        rescale = TL._ps_rescale(ka)
+        return tuple(rescale(o) for o in fk(c2p, c1e.reshape(c1x.shape)))
+
+    if not all(torch.equal(a, b) for a, b in zip(fused_fn(), with_copies())):
+        raise AssertionError("the fused key switch differs from its limb-major gluing")
+    fused, unfused = four_times(fused_fn, lambda: TL._modraise_keyswitch(ka, c1p, c2p))
     out["keyswitch"] = {"fused": fused, "unfused": unfused}
     log(f"whole windowed key switch at path (b), K5 + K6 + rescale: {fmt(fused)} [{smi}]")
     log(f"  _modraise_keyswitch (K1 + torch): {fmt(unfused)}; device time unfused / fused "
         f"x{unfused['device_ms'] / fused['device_ms']:.2f} [{smi}]")
+    after, before = four_times(fused_fn, with_copies)
+    out["keyswitch"].update(after=after, before=before)
+    log(f"  K5 on the row-major batch as it lies (now) against a limb-major copy in and a "
+        f"transposed result out (before), in turns: host ms a call {after['host_ms']:.4f} now, "
+        f"{before['host_ms']:.4f} before; device ms {after['device_ms']:.4f} now, "
+        f"{before['device_ms']:.4f} before [{smi}]")
     return out
 
 
@@ -1586,7 +1719,8 @@ def main() -> int:
         {"name": "k3_hybrid_ks", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/hybrid_ks.cu",
          "replaces": "toyfhe_tpu/ops/pallas_hybrid_ks.py:47",
          "launches": hybrid_launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_times["mnist"]["kernel"], "device_ms": dtime["k3"]["device_ms"],
+         "ms": k3_times["mnist"]["kernel"],
+         "device_ms": dtime["k3"]["MNIST serving shape"]["new"]["device_ms"],
          "plain_ms": k3_times["mnist"]["plain"],
          **bound_k3(k3_times["mnist"]["fks"], HYBRID_B), "library_ms": None})
     kernels.append(
@@ -1602,7 +1736,8 @@ def main() -> int:
         {"name": "k5_ntt_bitrev", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_bitrev.cu",
          "replaces": "toyfhe_tpu/ops/ntt_pallas.py:246",
          "launches": kpath["launches"]["k5"], "max_abs_err": k5_err,
-         "ms": k5_row["kernel"], "device_ms": dtime["k5"]["device_ms"],
+         "ms": k5_row["kernel"],
+         "device_ms": dtime["k5"]["path (b), 8 x 2^13"]["new"]["device_ms"],
          "plain_ms": k5_row["plain"],
          **bound_transform(len(K6_TOWER), len(K6_TOWER), K6_N), "library_ms": None})
     kernels.append(

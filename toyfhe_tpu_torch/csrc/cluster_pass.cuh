@@ -1,11 +1,13 @@
-// Passes shared by the fused kernels that run register-radix transforms over
-// a row in shared memory (K4, csrc/polymul.cu; K6, csrc/keyswitch.cu): the
-// in-place DIF and DIT passes, the twiddle lookup, the closing DIT pass of a
-// polynomial that is split over the blocks of a thread-block cluster, and the
-// cluster launch. Position q of a row lives at word q. A thread that holds 8
-// neighbouring words moves them as two 16-byte accesses (load8 / store8); a
-// row padded by one word in 32, conflict-free for word accesses, ran no
-// faster and at N = 2^14 slower.
+// Passes shared by the kernels that run register-radix transforms over a row
+// in shared memory (K3, csrc/hybrid_ks.cu; K4, csrc/polymul.cu; K5,
+// csrc/ntt_bitrev.cu; K6, csrc/keyswitch.cu): the in-place DIF and DIT
+// passes, the twiddle lookup, the cross-block DIF stages of a polynomial that
+// is split over several blocks, the closing DIT pass of one that is split over
+// the blocks of a thread-block cluster, and the cluster launch. Position q of
+// a row lives at word q, or at XorSwizzle's word where the row is filled by a
+// bit-reversed scatter (K3). A thread that holds 8 neighbouring words moves
+// them as two 16-byte accesses (load8 / store8); a row padded by one word in
+// 32, conflict-free for word accesses, ran no faster and at N = 2^14 slower.
 
 #pragma once
 
@@ -67,6 +69,51 @@ struct RowTw {
   __device__ __forceinline__ uint32_t operator()(int i) const { return __ldg(twl + i); }
 };
 
+// Word of a row that position q lives at. Rows that are filled in natural
+// order keep position q at word q.
+struct NoSwizzle {
+  __device__ __forceinline__ int operator()(int q) const { return q; }
+};
+
+// Rows that are filled by a bit-reversed scatter: neighbouring threads differ
+// in the top position bits, which would all fall into one bank, so five of
+// those bits (m-6 .. m-2 of a row of 2^m words) are XORed into the bank bits
+// and a warp's 32 stores hit 32 banks. Rows below 2^10 words stay unswizzled.
+struct XorSwizzle {
+  int shift;
+  __device__ __forceinline__ explicit XorSwizzle(int m)
+      : shift(m < 10 ? 31 : (m - 6 > 5 ? m - 6 : 5)) {}
+  __device__ __forceinline__ int operator()(int q) const { return q ^ ((q >> shift) & 31); }
+};
+
+// The top kLogC DIF stages of a polynomial that is split over 2^kLogC blocks,
+// for position q of block `rank` (which keeps positions [rank 2^m,
+// (rank + 1) 2^m) from there on): v holds the twisted residues q + e 2^m,
+// e < 2^kLogC, and output `rank` of their radix-2^kLogC butterfly comes back.
+// The stage of half-length h = 2^(m+s) pairs (e, e + 2^s) with the twiddle
+// tw(h + q + e 2^m), e < 2^s, and bit s of rank says which half of the pair
+// lives on: 2^kLogC - 1 half butterflies.
+template <int kLogC, bool kLazy, typename Tw>
+__device__ __forceinline__ uint32_t cross_stages(uint32_t (&v)[1 << kLogC], Tw tw, int q, int m,
+                                                 int rank, uint32_t p, uint32_t ninv) {
+#pragma unroll
+  for (int s = kLogC - 1; s >= 0; --s) {
+    const bool odd = (rank >> s) & 1;
+#pragma unroll
+    for (int e = 0; e < (1 << s); ++e) {
+      const uint32_t x = v[e], y = v[e + (1 << s)];
+      if (odd) {
+        const uint32_t w = tw((1 << (m + s)) + q + (e << m));
+        v[e] = kLazy ? redc_lazy(x + 2 * p - y, w, p, ninv)
+                     : mont_mul(x >= y ? x - y : x + (p - y), w, p, ninv);
+      } else {
+        v[e] = add_w<kLazy>(x, y, p);
+      }
+    }
+  }
+  return v[0];
+}
+
 // One in-place radix-2^K DIF pass over the 2^m residues of s: stage bits
 // [b0, b0 + K).
 template <int K, bool kLazy, typename Tw>
@@ -85,37 +132,43 @@ __device__ __forceinline__ void dif_pass(uint32_t* s, Tw tw, int m, int b0, uint
 }
 
 // One in-place radix-2^K DIT pass over the 2^m residues of s: stage bits
-// [b0, b0 + K).
-template <int K, bool kLazy, typename Tw>
-__device__ __forceinline__ void dit_pass(uint32_t* s, Tw tw, int m, int b0, uint32_t p,
+// [b0, b0 + K). Position q lives at word sw(q).
+template <int K, bool kLazy, typename Sw, typename Tw>
+__device__ __forceinline__ void dit_pass(uint32_t* s, Sw sw, Tw tw, int m, int b0, uint32_t p,
                                          uint32_t ninv) {
   for (int t = threadIdx.x; t < (1 << (m - K)); t += blockDim.x) {
     const int low = t & ((1 << b0) - 1);
     const int pos0 = low + ((t >> b0) << (b0 + K));
     uint32_t r[1 << K];
 #pragma unroll
-    for (int e = 0; e < (1 << K); ++e) r[e] = s[pos0 + (e << b0)];
+    for (int e = 0; e < (1 << K); ++e) r[e] = s[sw(pos0 + (e << b0))];
     radix_stages<K, kLazy>(r, tw, low, b0, p, ninv);
 #pragma unroll
-    for (int e = 0; e < (1 << K); ++e) s[pos0 + (e << b0)] = r[e];
+    for (int e = 0; e < (1 << K); ++e) s[sw(pos0 + (e << b0))] = r[e];
   }
 }
 
 // The in-place DIT passes of `plan` (stage bits as base-4 digits, lowest pass
 // first, ended by 0) from stage bit b0 on, a block barrier after each but the
 // last. Returns the stage bit the plan ends at.
-template <bool kLazy, typename Tw>
-__device__ __forceinline__ int dit_passes(uint32_t* s, Tw tw, int m, int b0, int plan,
+template <bool kLazy, typename Sw, typename Tw>
+__device__ __forceinline__ int dit_passes(uint32_t* s, Sw sw, Tw tw, int m, int b0, int plan,
                                           uint32_t p, uint32_t ninv) {
   for (int pl = plan; pl; pl >>= 2) {
     const int k = pl & 3;
-    if (k == 3) dit_pass<3, kLazy>(s, tw, m, b0, p, ninv);
-    else if (k == 2) dit_pass<2, kLazy>(s, tw, m, b0, p, ninv);
-    else dit_pass<1, kLazy>(s, tw, m, b0, p, ninv);
+    if (k == 3) dit_pass<3, kLazy>(s, sw, tw, m, b0, p, ninv);
+    else if (k == 2) dit_pass<2, kLazy>(s, sw, tw, m, b0, p, ninv);
+    else dit_pass<1, kLazy>(s, sw, tw, m, b0, p, ninv);
     b0 += k;
     if (pl >> 2) __syncthreads();
   }
   return b0;
+}
+
+template <bool kLazy, typename Tw>
+__device__ __forceinline__ int dit_passes(uint32_t* s, Tw tw, int m, int b0, int plan,
+                                          uint32_t p, uint32_t ninv) {
+  return dit_passes<kLazy>(s, NoSwizzle{}, tw, m, b0, plan, p, ninv);
 }
 
 // The closing DIT pass of one polynomial of 2^logn residues held by the

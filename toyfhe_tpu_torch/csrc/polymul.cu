@@ -148,10 +148,9 @@ using toyfhe::radix_stages_dif2;
 namespace cg = cooperative_groups;
 
 // Position q of block `rank` after the psi-twist and the top kLogC DIF
-// stages: the residues q + e 2^m, e < 2^kLogC, of one operand, and output
-// `rank` of their radix-2^kLogC butterfly. The stage of half-length
-// h = 2^(m+s) pairs (e, e + 2^s) with the twiddle tw(h + q + e 2^m), e < 2^s,
-// and bit s of rank says which half of the pair lives on.
+// stages: the residues q + e 2^m, e < 2^kLogC, of one operand, twisted, and
+// output `rank` of their radix-2^kLogC butterfly (cross_stages,
+// cluster_pass.cuh).
 template <int kLogC, bool kLazy, typename Tw>
 __device__ __forceinline__ uint32_t cross_load(const int64_t* __restrict__ xin,
                                                const uint32_t* __restrict__ twistl, Tw tw,
@@ -163,22 +162,7 @@ __device__ __forceinline__ uint32_t cross_load(const int64_t* __restrict__ xin,
     const int i = q + (e << m);
     v[e] = mul_w<kLazy>(static_cast<uint32_t>(xin[i]), __ldg(twistl + i), p, ninv);
   }
-#pragma unroll
-  for (int s = kLogC - 1; s >= 0; --s) {
-    const bool odd = (rank >> s) & 1;
-#pragma unroll
-    for (int e = 0; e < (1 << s); ++e) {
-      const uint32_t x = v[e], y = v[e + (1 << s)];
-      if (odd) {
-        const uint32_t w = tw((1 << (m + s)) + q + (e << m));
-        v[e] = kLazy ? toyfhe::redc_lazy(x + 2 * p - y, w, p, ninv)
-                     : mont_mul(x >= y ? x - y : x + (p - y), w, p, ninv);
-      } else {
-        v[e] = toyfhe::add_w<kLazy>(x, y, p);
-      }
-    }
-  }
-  return v[0];
+  return toyfhe::cross_stages<kLogC, kLazy>(v, tw, q, m, rank, p, ninv);
 }
 
 // The load pass: twist, cross stages and the stage bits [m - K, m) of both

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
 
 VP, CI = ctypes.c_void_p, ctypes.c_int
 
@@ -41,10 +41,13 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One ``csrc/<stem>.cu`` source and the functions it exports, each
-    given as ``name: (argtypes, restype)``."""
+    given as ``name: (argtypes, restype)``. ``source`` names another file to
+    compile under that stem (an experiment's variant of a kernel, which
+    includes the ``csrc`` headers like the original)."""
 
-    def __init__(self, stem: str, functions: Dict[str, Tuple[Sequence, object]]):
-        self.source = CSRC / f"{stem}.cu"
+    def __init__(self, stem: str, functions: Dict[str, Tuple[Sequence, object]],
+                 source: Path = None):
+        self.source = CSRC / f"{stem}.cu" if source is None else Path(source)
         self.library = BUILD_DIR / f"libtoyfhe_{stem}.so"
         self.functions = dict(functions)
         self.functions["toyfhe_cuda_error_string"] = ([CI], ctypes.c_char_p)
@@ -86,6 +89,19 @@ class CudaLibrary:
                 fn.restype = restype
             self._lib = lib
         return self._lib
+
+    def spill_bytes(self, needle: str):
+        """Bytes of register spill stores ``ptxas -v`` reported for the
+        kernel whose mangled name contains ``needle``, from this process's
+        build log; ``None`` when the library was not built by this process
+        or holds no such kernel."""
+        lines = self.build_info.get("log", "").splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and needle in line:
+                for follow in lines[i + 1:i + 4]:
+                    if "spill stores" in follow:
+                        return int(follow.split("bytes stack frame,")[1].split("bytes spill")[0])
+        return None
 
     def check(self, err: int, what: str) -> None:
         """Raise on a non-zero ``cudaError_t`` returned by a launcher."""

@@ -18,7 +18,9 @@ are plain torch twins of the reference's ``_dif_stages`` / ``_dit_stages``
 :func:`ntt_pallas_bitrev` (K5) dispatches on the tensor's device: a CUDA
 tensor goes to the hand-written kernel (:mod:`.ntt_pallas_cuda`,
 ``csrc/ntt_bitrev.cu``), which raises rather than fall back; a CPU tensor
-goes to :func:`ntt_bitrev_plain`. :func:`polymul_pallas` /
+goes to :func:`ntt_bitrev_plain`. :func:`ntt_bitrev_rows` is the same
+transform of a row-major [..., L, N] batch, as the windowed key switch holds
+it. :func:`polymul_pallas` /
 :func:`polymul_pallas_raw` (K4, ``csrc/polymul.cu``) dispatch the same way,
 with :func:`polymul_plain` as the twin. All return canonical residues and
 agree bit for bit. The reference's ``rows_per_block`` is a TPU tiling
@@ -153,6 +155,22 @@ def ntt_pallas_bitrev(pt: PallasNttTables, a: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cpu":
         raise ValueError(f"no bit-reversed NTT for tensors on {a.device}")
     return ntt_bitrev_plain(pt, a)
+
+
+def ntt_bitrev_rows(pt: PallasNttTables, x: torch.Tensor) -> torch.Tensor:
+    """:func:`ntt_pallas_bitrev` of a row-major int64 [..., L, N] tensor,
+    result in the same layout: the CUDA kernel transforms each polynomial
+    where it lies, with no limb-major copy on the way in or out; a CPU tensor
+    goes through the plain twin."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no bit-reversed NTT for tensors on {x.device}")
+    rows = x.reshape((-1,) + x.shape[-2:])
+    if x.device.type == "cuda":
+        from . import ntt_pallas_cuda
+        out = ntt_pallas_cuda.launch(pt, rows.contiguous(), row_major=True)
+    else:
+        out = ntt_bitrev_plain(pt, rows.transpose(0, 1)).transpose(0, 1)
+    return out.reshape(x.shape)
 
 
 def polymul_plain(pt: PallasNttTables, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,16 @@
 (K4, body ``_polymul_kernel``); its plain twin is
 :func:`.ntt_pallas.polymul_plain`. Each equals its twin bit for bit.
 
+Two K5 kernels live in the source. :func:`launch` takes the register-radix
+kernel: one polynomial over C independent blocks
+(:func:`choose_bitrev_cluster`), the first DIF pass straight from device
+memory with the cross-block stages in it, radix-8 passes in registers
+(:func:`forward_plan`), lazy butterflies when every prime is below 2^30, a
+last pass that stores canonical residues 16 bytes at a time.
+``variant="radix2"`` takes the one-block radix-2 kernel it replaced, kept so
+that one run can time both. :func:`bitrev_schedule` is the new kernel's
+schedule in plain torch for the CPU tests.
+
 Two K4 kernels live in the source. :func:`launch_polymul` takes the
 cluster-split register-radix kernel: one thread-block cluster of C blocks
 per polynomial pair (:func:`choose_polymul_cluster`), both operands through
@@ -34,11 +44,16 @@ import torch
 
 from .cuda_lib import CI, VP, CudaLibrary
 from .ntt_cuda import (BLOCK_CAP, LAZY_PRIME_LIMIT, _Arith, _stages, check_n, host_tables,
-                       kernel_tables, pack_plan, u32_table)
+                       kernel_tables, pack_plan, swizzle, u32_table)
 from .ntt_pallas import _check_lrn
 
-LIB = CudaLibrary("ntt_bitrev", {"toyfhe_ntt_bitrev": ([VP] * 5 + [CI] * 3 + [VP], CI)})
+LIB = CudaLibrary("ntt_bitrev", {
+    "toyfhe_ntt_bitrev": ([VP] * 5 + [CI] * 3 + [VP], CI),
+    "toyfhe_ntt_bitrev_radix": ([VP] * 5 + [CI] * 8 + [VP], CI),
+    "toyfhe_ntt_bitrev_radix_attrs": ([CI] * 2 + [VP], CI),
+})
 launches = {"k5": 0}
+BITREV_CLUSTERS = (1, 2, 4)      # blocks per polynomial the K5 register-radix kernel takes
 LIB_POLYMUL = CudaLibrary("polymul", {
     "toyfhe_polymul": ([VP] * 9 + [CI] * 4 + [VP], CI),
     "toyfhe_polymul_cluster": ([VP] * 9 + [CI] * 9 + [VP], CI),
@@ -127,6 +142,48 @@ def choose_polymul_cluster(polys: int, n: int, primes: Sequence[int]) -> Tuple[i
     return max(fits + [floor]), lazy
 
 
+def legal_bitrev_clusters(n: int) -> Tuple[int, ...]:
+    """The block counts per polynomial the K5 register-radix kernel takes at
+    ring degree ``n``: a block keeps at least ``MIN_BLOCK_N`` residues (one
+    row of any N the port supports fits a block's shared memory)."""
+    return tuple(c for c in BITREV_CLUSTERS if n // c >= MIN_BLOCK_N)
+
+
+def choose_bitrev_cluster(polys: int, n: int, primes: Sequence[int]) -> Tuple[int, bool]:
+    """``(C, lazy)`` for one K5 launch of ``polys`` polynomials of degree
+    ``n``: the largest legal C that keeps ``polys * C`` within ``BLOCK_CAP``
+    blocks and ``MIN_CHOSEN_BLOCK_N`` residues in a block, so that a small
+    launch spreads over the card; one block a polynomial otherwise (each of
+    the C blocks reads every residue of its polynomial, so a launch that
+    fills the card by itself gains nothing from a split). ``lazy`` needs every
+    prime below 2^30."""
+    lazy = max(int(p) for p in primes) < LAZY_PRIME_LIMIT
+    fits = [c for c in legal_bitrev_clusters(n)
+            if polys * c <= BLOCK_CAP and n // c >= MIN_CHOSEN_BLOCK_N]
+    return max(fits + [1]), lazy
+
+
+def bitrev_plan(logn: int, cluster: int) -> dict:
+    """The K5 register-radix kernel's passes at N = 2^logn with ``cluster``
+    blocks a polynomial, m = logn - log2 cluster: the top log2 cluster stages
+    in the load across the blocks, ``kl`` and ``fwd`` the DIF passes over stage
+    bits [3, m) (:func:`forward_plan`), and the last pass over [0, 3)."""
+    logc = cluster.bit_length() - 1
+    if cluster not in BITREV_CLUSTERS or logn < 4 or logn - logc < MIDDLE:
+        raise ValueError(f"no K5 plan for {cluster} blocks a polynomial at N = 2^{logn}")
+    kl, fwd = forward_plan(logn - logc)
+    return {"kl": kl, "fwd": fwd}
+
+
+def bitrev_block_shape(n: int, cluster: int) -> dict:
+    """Threads, dynamic shared-memory bytes and barriers of one block of the
+    K5 register-radix kernel, as the C launcher sets them."""
+    per_block = n // cluster
+    plan = bitrev_plan(n.bit_length() - 1, cluster)
+    return {"threads": min(512, max(32, per_block // 8)), "smem": 4 * per_block,
+            "barriers": 1 + len(plan["fwd"])}
+
+
 # ---------------------------------------------------------------------------
 # the schedule twins' arithmetic and passes (plain torch, CPU tests)
 # ---------------------------------------------------------------------------
@@ -189,12 +246,14 @@ def dif_local_passes(ar, rows, tw, m: int, top: int, local: Sequence[int]) -> in
     return b0
 
 
-def dit_local_passes(ar, row, tw, m: int, b0: int, local: Sequence[int]) -> int:
+def dit_local_passes(ar, row, tw, m: int, b0: int, local: Sequence[int],
+                     swizzled: bool = False) -> int:
     """The in-place DIT passes ``local`` (lowest first) from stage bit ``b0``
-    on the rows ``row`` [..., 2^m]. Returns the stage bit reached."""
+    on the rows ``row`` [..., 2^m], position q at word q or, ``swizzled``, at
+    :func:`.ntt_cuda.swizzle`'s word. Returns the stage bit reached."""
     for k in local:
         low, pos = _pass_positions(m, b0, k)
-        where = torch.as_tensor(pos)
+        where = torch.as_tensor(swizzle(pos, m) if swizzled else pos)
         row[..., where] = _stages(ar, row[..., where], tw, b0, k, low)
         b0 += k
     return b0
@@ -231,6 +290,60 @@ def _lazy_flag(tables, lazy: Optional[bool]) -> bool:
     return bool(lazy)
 
 
+def _cross_load(ar, x, twist, tw, pos, m: int, logc: int, r: int):
+    """Block ``r``'s values at positions ``pos`` [T, E] of its row after the
+    twist and the top ``logc`` DIF stages: the residues pos + e 2^m of ``x``
+    [R, L, N], twisted, and output ``r`` of their radix-2^logc butterfly."""
+    v = []
+    for e in range(1 << logc):
+        i = torch.as_tensor(pos + (e << m))
+        v.append(ar.see(ar.mul(x[..., i], twist[:, i][None])))
+    for s in reversed(range(logc)):
+        for e in range(1 << s):
+            w = tw[:, torch.as_tensor((1 << (m + s)) + pos + (e << m))][None]
+            x0, y0 = v[e], v[e + (1 << s)]
+            v[e] = ar.see(ar.sub_mul(x0, y0, w) if (r >> s) & 1 else ar.add(x0, y0))
+    return v[0]
+
+
+def bitrev_schedule(pt, a: torch.Tensor, cluster: int, lazy: Optional[bool] = None):
+    """The K5 register-radix kernel's schedule on a CPU tensor int64
+    [L, R, N]: returns ``(transform, largest intermediate value)``.
+
+    Follows ``csrc/ntt_bitrev.cu`` index for index: block r of the ``cluster``
+    that share a polynomial reads, for each of its positions q, the residues
+    q + e N/C, twists them and keeps output r of their radix-C DIF butterfly;
+    runs the load pass's stages and the DIF passes of :func:`bitrev_plan` on
+    its row; the last pass over stage bits [0, 3) reduces to canonical and
+    stores the row as positions [r N/C, (r+1) N/C) of the bit-reversed
+    output. ``lazy`` as the kernel's flag: ``None`` takes it whenever every
+    prime is below 2^30."""
+    _check_lrn(pt, a)
+    tables, logn = pt.tables, pt.logn
+    lazy = _lazy_flag(tables, lazy)
+    if cluster not in legal_bitrev_clusters(pt.n):
+        raise ValueError(f"{cluster} blocks a polynomial is not legal for K5 at N = {pt.n}")
+    plan = bitrev_plan(logn, cluster)
+    logc = cluster.bit_length() - 1
+    m, kl = logn - logc, plan["kl"]
+    (twist, tw), _ = _int64_tables(tables)
+    ar = _DifArith(tables, lazy)
+    x = a.transpose(0, 1)                                         # [R, L, N]
+    row = torch.zeros(x.shape[:2] + (cluster, 1 << m), dtype=torch.int64)
+    low, pos = _pass_positions(m, m - kl, kl)                     # low = t
+    for r in range(cluster):
+        regs = _cross_load(ar, x, twist, tw, pos, m, logc, r)
+        row[:, :, r, torch.as_tensor(pos)] = _stages_dif(
+            ar, regs[:, :, None], tw, m - kl, kl, low)[:, :, 0]
+    assert dif_local_passes(ar, [row], tw, m, m - kl, plan["fwd"]) == MIDDLE
+    low, pos = _pass_positions(m, 0, MIDDLE)
+    where = torch.as_tensor(pos)
+    last = _stages_dif(ar, row[..., where], tw, 0, MIDDLE, low)
+    row[..., where] = ar.canonical(last, 2) if lazy else last
+    out = row.reshape(x.shape)                                    # block r: [r N/C, (r+1) N/C)
+    return out.transpose(0, 1).contiguous(), ar.max_seen
+
+
 def polymul_schedule(pt, a: torch.Tensor, b: torch.Tensor, cluster: int,
                      lazy: Optional[bool] = None):
     """The K4 cluster kernel's schedule on CPU tensors int64 [L, R, N]:
@@ -263,16 +376,8 @@ def polymul_schedule(pt, a: torch.Tensor, b: torch.Tensor, cluster: int,
     low, pos = _pass_positions(m, m - kl, kl)                     # low = t
     for r in range(cluster):
         for x, row in zip(ops, rows):
-            v = []
-            for e in range(cluster):
-                i = torch.as_tensor(pos + (e << m))
-                v.append(ar.see(ar.mul(x[..., i], twist[:, i][None])))
-            for s in reversed(range(logc)):
-                for e in range(1 << s):
-                    w = tw[:, torch.as_tensor((1 << (m + s)) + pos + (e << m))][None]
-                    x0, y0 = v[e], v[e + (1 << s)]
-                    v[e] = ar.see(ar.sub_mul(x0, y0, w) if (r >> s) & 1 else ar.add(x0, y0))
-            regs = _stages_dif(ar, v[0][:, :, None], tw, m - kl, kl, low)
+            regs = _cross_load(ar, x, twist, tw, pos, m, logc, r)
+            regs = _stages_dif(ar, regs[:, :, None], tw, m - kl, kl, low)
             row[:, :, r, torch.as_tensor(pos)] = regs[:, :, 0]
     b0 = dif_local_passes(ar, rows, tw, m, m - kl, plan["fwd"])
     assert b0 == MIDDLE
@@ -295,31 +400,84 @@ def polymul_schedule(pt, a: torch.Tensor, b: torch.Tensor, cluster: int,
 # launches
 # ---------------------------------------------------------------------------
 
-def launch(pt, a: torch.Tensor) -> torch.Tensor:
+def bitrev_args(pt, polys: int, cluster: Optional[int] = None,
+                lazy: Optional[bool] = None) -> tuple:
+    """The C launcher's arguments after the layout flag for one launch of the
+    K5 register-radix kernel: (cluster, lazy, kl, packed DIF passes).
+    ``cluster`` / ``lazy`` override :func:`choose_bitrev_cluster`."""
+    c, lz = choose_bitrev_cluster(polys, pt.n, pt.primes)
+    cluster = c if cluster is None else int(cluster)
+    lazy = lz if lazy is None else bool(lazy)
+    if cluster not in legal_bitrev_clusters(pt.n):
+        raise ValueError(f"{cluster} blocks a polynomial is not legal for K5 at N = {pt.n}")
+    if lazy and not lz:
+        raise ValueError("lazy butterflies need every prime below 2^30")
+    plan = bitrev_plan(pt.logn, cluster)
+    return cluster, int(lazy), plan["kl"], pack_plan(plan["fwd"])
+
+
+def launch(pt, a: torch.Tensor, variant: Optional[str] = None, cluster: Optional[int] = None,
+           lazy: Optional[bool] = None, row_major: bool = False) -> torch.Tensor:
     """Bit-reversed forward NTT of a contiguous int64 [L, R, N] CUDA tensor
     (limb axis first) through the kernel. Raises on anything the kernel
-    does not take."""
+    does not take.
+
+    ``variant=None`` is the register-radix kernel; ``cluster`` / ``lazy``
+    override :func:`choose_bitrev_cluster` (any legal block count;
+    ``lazy=False`` is legal for every tower, ``lazy=True`` only below 2^30),
+    and ``row_major=True`` hands it the batch as [R, L, N] instead, each
+    polynomial transformed where it lies. ``variant="radix2"`` is the
+    one-block radix-2 kernel, limb-major only."""
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA bit-reversed NTT takes CUDA tensors, got {a.device}")
-    _check_lrn(pt, a)
+    if row_major:
+        if a.dim() != 3 or a.shape[1] != pt.L or a.shape[-1] != pt.n:
+            raise ValueError(f"expected [R, {pt.L}, {pt.n}], got {tuple(a.shape)}")
+        if a.dtype != torch.int64:
+            raise TypeError(f"residues must be int64, got {a.dtype}")
+    else:
+        _check_lrn(pt, a)
     check_n(pt.n)
     if not a.is_contiguous():
         raise ValueError("the CUDA bit-reversed NTT needs a contiguous tensor")
-    rows = a.shape[1]
-    if pt.L * rows >= 1 << 31:
+    rows = a.shape[0 if row_major else 1]
+    if pt.L * rows * max(BITREV_CLUSTERS) >= 1 << 31:
         raise ValueError(f"{pt.L * rows} polynomials exceed one launch grid")
+    if variant is None:
+        entry = "toyfhe_ntt_bitrev_radix"
+        tail = (int(row_major),) + pt.tables.cached(
+            ("k5_args", rows, cluster, lazy), lambda: bitrev_args(pt, pt.L * rows, cluster, lazy))
+        if a.data_ptr() % 16:
+            a = a.clone()                  # the kernel loads 16 bytes a thread
+    elif variant == "radix2":
+        if cluster is not None or lazy is not None or row_major:
+            raise ValueError("cluster, lazy and row_major belong to the register-radix kernel")
+        entry, tail = "toyfhe_ntt_bitrev", ()
+    else:
+        raise ValueError(f"unknown bit-reversed NTT kernel variant {variant!r}")
     lib = LIB.load()
     kt = kernel_tables(pt.tables, a.device)
     twist, tw = kt["fwd"]
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.toyfhe_ntt_bitrev(a.data_ptr(), out.data_ptr(), twist.data_ptr(),
-                                    tw.data_ptr(), kt["pn"].data_ptr(), pt.L, rows,
-                                    pt.logn, stream)
+        err = getattr(lib, entry)(a.data_ptr(), out.data_ptr(), twist.data_ptr(),
+                                  tw.data_ptr(), kt["pn"].data_ptr(), pt.L, rows,
+                                  pt.logn, *tail, stream)
     LIB.check(err, "CUDA bit-reversed NTT")
     launches["k5"] += 1
     return out
+
+
+def bitrev_attrs(cluster: int, lazy: bool) -> dict:
+    """Registers a thread and static shared memory of one instantiation of
+    the K5 register-radix kernel, as the CUDA runtime reports them (builds
+    the library)."""
+    import ctypes
+    buf = (ctypes.c_int * 2)()
+    LIB.check(LIB.load().toyfhe_ntt_bitrev_radix_attrs(
+        int(cluster), int(lazy), ctypes.addressof(buf)), "K5 attributes")
+    return {"registers": buf[0], "static_smem": buf[1]}
 
 
 def polymul_args(pt, polys: int, cluster: Optional[int] = None,

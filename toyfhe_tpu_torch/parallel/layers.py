@@ -298,13 +298,11 @@ def _modraise_keyswitch_fused(ka: ModRaiseKeyArrays, fk, c1p, c2p):
     K5, the digits, key products and inverse transforms by K6 (``fk``, from
     :func:`build_fused_keyswitch`), then the special-prime rescale. No layer
     calls it, as in the reference."""
-    from ..ops.ntt_pallas import ntt_pallas_bitrev
+    from ..ops.ntt_pallas import ntt_bitrev_rows
 
     c1x = torch.cat([modmath.mul_mod(c1p, ka.ps_res, ka.ct_ring.mp),
                      _special_zeros(c1p, ka)], -2)                   # [..., Le, N]
-    rows = c1x.reshape((-1,) + c1x.shape[-2:]).transpose(0, 1)      # [Le, R, N]
-    c1e = ntt_pallas_bitrev(fk.pt, rows.contiguous()).transpose(0, 1).reshape(c1x.shape)
-    out1, out2 = fk(c2p, c1e)
+    out1, out2 = fk(c2p, ntt_bitrev_rows(fk.pt, c1x))
     rescale = _ps_rescale(ka)
     return rescale(out1), rescale(out2)
 
