@@ -68,7 +68,17 @@ replaced). Then, for each path:
   transform shape and the A/B batch), every variant of each, and
   the whole windowed key switch fused against unfused: one launch between
   two events, 200 launches back to back, one launch's share of a replayed
-  CUDA graph, and the host's time a call.
+  CUDA graph, and the host's time a call;
+* CKKS bootstrapping: a small refresh (N = 2^10 on the production 55-limb
+  tower) on the card bit-equal to the CPU stage by stage (ModRaise, CoeffToSlot, EvalMod,
+  SlotToCoeff, the whole); one refresh at the full width of the
+  bootstrapped MNIST configuration (N = 2^13, 55 limbs, the hybrid gadget
+  with dnum = 9, 26 rotation keys), cold and warm with each phase's time,
+  levels regained and error, and the batch of two bit-equal to the singles;
+  then the bootstrapped encrypted-MNIST pipeline at ``MNISTConfig()`` on a
+  depth-46 tower (conv → square → dense 1 → square → exhaust → refresh →
+  dense 2), its logits held against the plaintext pass, its K1 launches
+  counted and its stages timed (every transform of these paths is K1).
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -171,55 +181,84 @@ def phase_build():
 
 
 K1_SWEEP_TOWERS = ((30, 29, 29, 28), (28,) * 7, (28,) * 8, (30, 30))
+K1_SWEEP_LEADS = ((), (4,), (4, 7), (16,))
+# The bootstrapped path's own K1 shapes at N = 2^13 on the production tower
+# (``bootstrap.make_boot_ring(8192, 46, 7)``: 2 x 29-bit base, 46 balanced
+# 26-bit levels, 7 x 29-bit raising primes): the raised 55-limb tower with
+# its 9 digits alone and for 4 stacked ciphertexts, and the 48-limb
+# ciphertext tower as the refresh's batch of 2 x 2 x 4 chains and the
+# encryptor's 49 x 3 polynomials hold it.
+K1_BOOT_CASES = ((55, ((9,), (4, 9))), (48, ((2, 2, 4), (49, 3))))
+
+
+def k1_sweep_cases():
+    """(N, tower label, primes, leads) of phase 3: the small towers at every
+    size, then the production bootstrap tower at the main path's shapes."""
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    cases = [(n, tower, nt.ntt_prime_chain(n, tower), K1_SWEEP_LEADS)
+             for n in (256, 4096, 8192, 16384) for tower in K1_SWEEP_TOWERS]
+    boot = B.make_boot_ring(8192, 46, 7).primes
+    cases += [(8192, f"boot[:{limbs}]", boot[:limbs], leads)
+              for limbs, leads in K1_BOOT_CASES]
+    return cases
 
 
 def phase_kernel_vs_plain(dev):
     """K1 against its plain twin: the kernel every caller gets, the cluster
     kernel at every legal cluster size with lazy and with fully reduced
     butterflies (a tower with a prime in [2^30, 2^31) takes only the latter),
-    and the one-block radix-2 kernel."""
+    and the one-block radix-2 kernel; on small towers and on the production
+    bootstrap tower at the bootstrapped path's own polynomial counts."""
     from toyfhe_tpu_torch.ops import ntt as nttmod
     from toyfhe_tpu_torch.ops import ntt_cuda
-    from toyfhe_tpu_torch.utils import numtheory as nt
 
     log("== phase 3: K1 against plain radix-2 on the card: the cluster kernel at every legal "
         "cluster size, lazy and fully reduced, and the one-block radix-2 kernel")
     gen = torch.Generator(device=dev).manual_seed(3)
     err = {"fwd": 0, "inv": 0}
     ncase = nlaunch = 0
-    for n in (256, 4096, 8192, 16384):
-        for tower in K1_SWEEP_TOWERS:
-            tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, tower))
-            can_lazy = max(tables.primes) < ntt_cuda.LAZY_PRIME_LIMIT
-            variants = [(c, lz) for c in ntt_cuda.legal_clusters(n)
-                        for lz in ((True, False) if can_lazy else (False,))]
-            for lead in ((), (4,), (4, 7), (16,)):
-                x = random_residues(tables.primes, lead, n, gen, dev)
-                polys = x.numel() // n
-                for which, inverse, plain in (("fwd", False, nttmod.ntt_plain),
-                                              ("inv", True, nttmod.intt_plain)):
-                    want = plain(tables, x)
-                    got = [nttmod.intt(tables, x) if inverse else nttmod.ntt(tables, x),
-                           ntt_cuda.launch(tables, x, inverse, variant="radix2")]
-                    got += [ntt_cuda.launch_cluster(tables, x, inverse, c, lz)
-                            for c, lz in variants]
+    for n, tower, primes, leads in k1_sweep_cases():
+        tables = nttmod.NttTables(n, primes)
+        can_lazy = max(tables.primes) < ntt_cuda.LAZY_PRIME_LIMIT
+        variants = [(c, lz) for c in ntt_cuda.legal_clusters(n)
+                    for lz in ((True, False) if can_lazy else (False,))]
+        picks = []
+        for lead in leads:
+            x = random_residues(tables.primes, lead, n, gen, dev)
+            polys = x.numel() // n
+            picks.append(f"C={ntt_cuda.choose_cluster(polys, n, tables.primes)[0]} "
+                         f"for {polys}")
+            for which, inverse, plain in (("fwd", False, nttmod.ntt_plain),
+                                          ("inv", True, nttmod.intt_plain)):
+                want = plain(tables, x)
+                names = ["default", "radix2"] + [f"C={c} lazy={lz}" for c, lz in variants]
+                for i, what in enumerate(names):
+                    if i == 0:
+                        g = nttmod.intt(tables, x) if inverse else nttmod.ntt(tables, x)
+                    elif i == 1:
+                        g = ntt_cuda.launch(tables, x, inverse, variant="radix2")
+                    else:
+                        g = ntt_cuda.launch_cluster(tables, x, inverse, *variants[i - 2])
                     torch.cuda.synchronize()
-                    nlaunch += len(got)
-                    for i, g in enumerate(got):
-                        err[which] = max(err[which], int((g - want).abs().max()))
-                        if not torch.equal(g, want):
-                            what = (["default", "radix2"] + [f"C={c} lazy={lz}"
-                                                             for c, lz in variants])[i]
-                            raise AssertionError(f"K1 {what} != plain at N={n} tower={tower} "
-                                                 f"lead={lead} {which}")
-                back = nttmod.intt(tables, nttmod.ntt(tables, x))
-                if not torch.equal(back, x):
-                    raise AssertionError(f"round trip at N={n} tower={tower} lead={lead}")
-                ncase += 1
-            log(f"N={n:5d} tower={tower}: 4 leads, clusters {ntt_cuda.legal_clusters(n)} x "
-                f"{'lazy and full' if can_lazy else 'full (a prime >= 2^30)'} + radix-2 + the "
-                f"chooser's pick (here C={ntt_cuda.choose_cluster(polys, n, tables.primes)[0]} "
-                f"for {polys} polynomials): bit-equal, round trip exact")
+                    nlaunch += 1
+                    err[which] = max(err[which], int((g - want).abs().max()))
+                    if not torch.equal(g, want):
+                        raise AssertionError(f"K1 {what} != plain at N={n} tower={tower} "
+                                             f"lead={lead} {which}")
+                    del g
+                del want
+            back = nttmod.intt(tables, nttmod.ntt(tables, x))
+            if not torch.equal(back, x):
+                raise AssertionError(f"round trip at N={n} tower={tower} lead={lead}")
+            del x, back
+            ncase += 1
+        log(f"N={n:5d} tower={tower} ({len(primes)} limbs, "
+            f"{min(primes).bit_length()}-{max(primes).bit_length()} bit): leads {list(leads)}, "
+            f"clusters {ntt_cuda.legal_clusters(n)} x "
+            f"{'lazy and full' if can_lazy else 'full (a prime >= 2^30)'} + radix-2 + the "
+            f"chooser's pick ({', '.join(picks)} polynomials): bit-equal, round trip exact")
     log(f"{ncase} cases, {nlaunch} launches: every K1 variant == plain, intt(ntt(x)) == x")
     return err
 
@@ -379,19 +418,6 @@ def synthetic_eval_key(params, seed, device):
                            device=device)
 
 
-def eval_key_to(ek, device):
-    """An EvalMultKey or GaloisKey with its components moved to ``device``."""
-    import toyfhe_tpu_torch as T
-    mv = lambda x: T.RingElt(primal=None if x.primal is None else x.primal.to(device),
-                             dual=None if x.dual is None else x.dual.to(device))
-    ksk = ek.key
-    comps = [T.KeyComponent(mask=mv(c.mask), masked=mv(c.masked)) for c in ksk.key]
-    moved = T.KeySwitchKey(ksk.params, comps, ksk.ring)
-    if isinstance(ek, T.GaloisKey):
-        return T.GaloisKey(ek.galois_element, moved)
-    return T.EvalMultKey(moved)
-
-
 def flavour_steps(params, ek, ct_ring):
     """The three single-device hybrid steps on the key's device."""
     from toyfhe_tpu_torch.parallel import ops as pops
@@ -506,12 +532,13 @@ def phase_hybrid_mnist(dev):
     """The three flavours with real keys at the MNIST serving shape, on the
     7-limb tower (square 1 of a fresh ciphertext) and the 6-limb tower
     (``ring1``, ``models/mnist.py``'s first square layer)."""
+    from toyfhe_tpu_torch.utils.interop import to_device
     import toyfhe_tpu_torch as T
 
     log(f"== phase 9: hybrid steps with real keys at the MNIST serving shape "
         f"(N={HYBRID_N}, {HYBRID_CONFIGS[0][1]}, dnum=2, k=4, batch {HYBRID_B})")
     params, kp, ek, batch7, vals, scale = _mnist_fixture(dev)
-    ek_cpu = eval_key_to(ek, "cpu")
+    ek_cpu = to_device(ek, "cpu")
     full = params.ring_cipher
     out = {}
     main_launches = None
@@ -561,6 +588,7 @@ def phase_hybrid_mnist(dev):
 def phase_hybrid_bench(dev):
     """The three flavours at ``bench.py``'s hybrid fixture shape (synthetic
     keys and ciphertexts from numpy seeds 1 and 2)."""
+    from toyfhe_tpu_torch.utils.interop import to_device
     from toyfhe_tpu_torch.utils import interop as I
 
     name, tower, dnum, k, lt = HYBRID_CONFIGS[2]
@@ -580,7 +608,7 @@ def phase_hybrid_bench(dev):
         log(f"{fl}: one step launched {got}; {census(HYBRID_B)}")
         if got != FLAVOUR_LAUNCHES[fl]:
             raise AssertionError(f"{fl}: launches {got}, expected {FLAVOUR_LAUNCHES[fl]}")
-    cpu = flavour_steps(params, eval_key_to(ek, "cpu"), params.ring_cipher)["v1"](batch.cpu())
+    cpu = flavour_steps(params, to_device(ek, "cpu"), params.ring_cipher)["v1"](batch.cpu())
     for fl, r in results.items():
         if not torch.equal(r, cpu):
             raise AssertionError(f"{fl} at the bench shape differs from v1 on the CPU")
@@ -743,6 +771,7 @@ def phase_k6_path(dev):
     """K5 + K6 + the special-prime rescale with a real Galois key at the
     MNIST data width, against ``layers._modraise_keyswitch`` on the card and
     on the CPU and against the engine's ``rotate``, decoded."""
+    from toyfhe_tpu_torch.utils.interop import to_device
     import toyfhe_tpu_torch as T
     from toyfhe_tpu_torch.parallel import layers as TL
 
@@ -782,7 +811,7 @@ def phase_k6_path(dev):
     log("three calls: three K6 launches, one per call")
 
     unfused = TL._modraise_keyswitch(ka, c1p, c2p)
-    ka_cpu = TL.build_modraise_key_arrays(params, eval_key_to(gk, "cpu").key)
+    ka_cpu = TL.build_modraise_key_arrays(params, to_device(gk, "cpu").key)
     cpu = TL._modraise_keyswitch(ka_cpu, c1p.cpu(), c2p.cpu())
     eng = T.rotate(gk, c)
     eng_p = [T.ringops.ensure_primal(eng.ring, x).primal for x in eng.cs]
@@ -803,13 +832,14 @@ def phase_k6_path(dev):
 
 
 def _layers_card_vs_cpu(label, params, gk, ek, rot_ring, sq_ring, d, gen):
+    from toyfhe_tpu_torch.utils.interop import to_device
     from toyfhe_tpu_torch.parallel import layers as TL
 
     dev = gen.device
     rot = {dv: TL.RotateMatmulLayer(params, k, gk.galois_element, d, rot_ring)
-           for dv, k in ((dev, gk), ("cpu", eval_key_to(gk, "cpu")))}
+           for dv, k in ((dev, gk), ("cpu", to_device(gk, "cpu")))}
     sq = {dv: TL.SquareRelinLayer(params, k, sq_ring)
-          for dv, k in ((dev, ek), ("cpu", eval_key_to(ek, "cpu")))}
+          for dv, k in ((dev, ek), ("cpu", to_device(ek, "cpu")))}
     x = [random_residues(rot_ring.primes, (), rot_ring.n, gen, dev) for _ in range(2)]
     diag = random_residues(rot_ring.primes, (d,), rot_ring.n, gen, dev)
     y = [random_residues(sq_ring.primes, (2,), sq_ring.n, gen, dev) for _ in range(2)]
@@ -1404,21 +1434,10 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
 HOIST_STEPS = (64, 128, 512)      # two baby steps and a giant step of the MNIST dense layers
 
 
-def galois_keys_to(gks, device):
-    import toyfhe_tpu_torch as T
-    return T.GaloisKeys([eval_key_to(k, device) for k in gks.keys])
-
-
-def ciphertext_to(c, device):
-    import toyfhe_tpu_torch as T
-    mv = lambda x: T.RingElt(primal=None if x.primal is None else x.primal.to(device),
-                             dual=None if x.dual is None else x.dual.to(device))
-    return T.CipherText(c.params, tuple(mv(x) for x in c.cs), c.ring, enc=c.enc)
-
-
 def phase_hoisted_rotations(dev):
     """``rotate_many`` / ``rotate_sum`` with real keys under the serving
     gadget: the card against the CPU bit for bit, and the decoded slots."""
+    from toyfhe_tpu_torch.utils.interop import to_device
     import toyfhe_tpu_torch as T
     from toyfhe_tpu_torch.core import rlwe
 
@@ -1436,7 +1455,7 @@ def phase_hoisted_rotations(dev):
     sync(dev)
     log(f"keygen + {len(gks.keys)} Galois keys + encryption: {time.perf_counter() - t0:.2f} s "
         f"(host clock)")
-    gks_cpu, c_cpu = galois_keys_to(gks, "cpu"), ciphertext_to(c, "cpu")
+    gks_cpu, c_cpu = to_device(gks, "cpu"), to_device(c, "cpu")
     terms = lambda ct: [(None, ct)] + [(g, ct) for g in els]
 
     for key in rlwe.hoist_counts:
@@ -1578,6 +1597,314 @@ def phase_bsgs_pipeline(dev, smi, base):
 
 
 # ---------------------------------------------------------------------------
+# CKKS bootstrapping and the bootstrapped encrypted-MNIST pipeline
+# ---------------------------------------------------------------------------
+
+BOOT_SCALE = Fraction(2) ** 52            # the composite base scale (two 26-bit levels)
+BOOT_SMALL_LOGN = 10                      # phase 25: N = 2^10 on the production tower
+BOOT_REPS = 3
+
+
+def boot_recipe():
+    """``mnist.BOOTSTRAPPED_RECIPE``: the production composite recipe."""
+    from toyfhe_tpu_torch.models import mnist as M
+    return dict(M.BOOTSTRAPPED_RECIPE)
+
+
+def boot_vals(h, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-1, 1, h) + 1j * rng.uniform(-1, 1, h)) * 0.7
+
+
+def boot_exhausted(setup_params, kp, vals, gen):
+    """An encryption of ``vals`` at the composite base scale, exhausted to
+    the two base limbs."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import ckks_encoding as CE
+    c = T.encrypt(kp, T.make_plaintext(setup_params.ring_cipher, vals, BOOT_SCALE), gen)
+    return CE.ct_drop_to(c, 2)
+
+
+def same_ct(a, b) -> bool:
+    """Same tower, scale tag and residues (compared on the CPU)."""
+    import toyfhe_tpu_torch as T
+    if a.ring is not b.ring or a.enc != b.enc or len(a.cs) != len(b.cs):
+        return False
+    return all(torch.equal(T.ringops.ensure_dual(a.ring, x).dual.cpu(),
+                           T.ringops.ensure_dual(b.ring, y).dual.cpu())
+               for x, y in zip(a.cs, b.cs))
+
+
+def non_k1_launches(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k not in ("fwd", "inv") and v}
+
+
+def key_bytes(*keys) -> int:
+    """Device bytes of key-switching keys (every held domain)."""
+    total = 0
+    for k in keys:
+        for gk in getattr(k, "keys", [k]):
+            for c in gk.key.key:
+                for e in (c.mask, c.masked):
+                    total += sum(t.numel() * t.element_size() for t in (e.primal, e.dual)
+                                 if t is not None)
+    return total
+
+
+def cache_bytes(ctx) -> int:
+    return sum(t.numel() * t.element_size() for e in ctx.plain_cache.values()
+               for t in (e.primal, e.dual) if t is not None)
+
+
+def refresh_phases(ctx, c, dev):
+    """One refresh through its three phases; (out, (ms of each phase))."""
+    from toyfhe_tpu_torch.core import bootstrap as B
+    marks = [time.perf_counter()]
+
+    def mark():
+        sync(dev)
+        marks.append(time.perf_counter())
+
+    lo, hi = B.bootstrap_phase1(ctx, c)
+    mark()
+    ev = B.bootstrap_phase2(ctx, lo, hi)
+    mark()
+    out = B.bootstrap_phase3(ctx, ev, *B._phase3_statics(ctx, c))
+    mark()
+    return out, tuple((b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+
+
+def phase_boot_card_vs_cpu(dev, smi):
+    """A small refresh (N = 2^10, 24 level limbs) on the card, stage by stage
+    bit-equal to the same refresh on the CPU."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.core import ckks_encoding as CE
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.ops import ntt_cuda
+    from toyfhe_tpu_torch.utils import interop as I
+
+    logn, recipe = BOOT_SMALL_LOGN, boot_recipe()
+    depth, hw = recipe.pop("depth"), recipe.pop("hamming_weight")
+    params, _ = M.make_bootstrapped_params(M.MNISTConfig(ring_logn=logn), depth,
+                                           hamming_weight=hw, scale_limbs=recipe["scale_limbs"])
+    log(f"== phase 25: CKKS refresh on the card against the CPU (N=2^{logn}, "
+        f"{params.params.ring_cipher.nlimbs} limbs: 2 base + {depth} levels + "
+        f"{params.num_special} raising, HybridRaised dnum={params.dnum}, {recipe})")
+    gen = torch.Generator().manual_seed(25)
+    t0 = time.perf_counter()
+    kp = T.keygen(params, gen)
+    ctx = B.setup_bootstrap(gen, kp.priv, **recipe)
+    vals = boot_vals(1 << (logn - 1), 25)
+    c = boot_exhausted(params, kp, vals, gen)
+    log(f"keys on the CPU ({len(ctx.gks.keys)} rotation keys): "
+        f"{time.perf_counter() - t0:.2f} s (host clock)")
+    ctx_d, c_d = I.to_device(ctx, dev), I.to_device(c, dev)
+
+    def stages(cx, ct, d):
+        t = time.perf_counter()
+        mr = B.mod_raise(ct)
+        lo, hi = B.bootstrap_phase1(cx, ct)
+        ev = B.bootstrap_phase2(cx, lo, hi)
+        out = B.bootstrap_phase3(cx, ev, *B._phase3_statics(cx, ct))
+        sync(d)
+        return (mr, lo, hi, ev, out), (time.perf_counter() - t) * 1e3
+
+    cpu, cpu_ms = stages(ctx, c, "cpu")
+    card, card_cold = stages(ctx_d, c_d, dev)
+    names = ("mod_raise", "C2S lo", "C2S hi", "EvalMod", "S2C")
+    bad = [nm for nm, a, b in zip(names, cpu, card) if not same_ct(a, b)]
+    if bad:
+        raise AssertionError(f"refresh stages on the card differ from the CPU: {bad}")
+    reset_launches()
+    whole = B.bootstrap(ctx_d, c_d)                                       # the refresh path
+    sync(dev)
+    launches = read_launches()
+    transforms = dict(ntt_cuda.transforms)
+    if not (launches["fwd"] and launches["inv"]) or non_k1_launches(launches):
+        raise AssertionError(f"the refresh launched {launches}")
+    if not same_ct(whole, cpu[-1]):
+        raise AssertionError("the whole refresh on the card differs from the CPU")
+    warm = []
+    for _ in range(BOOT_REPS):
+        t = time.perf_counter()
+        B.bootstrap(ctx_d, c_d)
+        sync(dev)
+        warm.append((time.perf_counter() - t) * 1e3)
+    err = float(np.max(np.abs(T.decrypt(kp, cpu[-1]) - vals)))
+    log(f"mod_raise, C2S (lo, hi), EvalMod, S2C and the whole refresh on the card == on the "
+        f"CPU; {cpu[-1].ring.nlimbs} limbs out, max abs error {err:.3e}; K1 launches per "
+        f"refresh {launches['fwd']} forward + {launches['inv']} inverse over "
+        f"{transforms['fwd']} + {transforms['inv']} limb polynomials, "
+        f"no other kernel")
+    log(f"refresh ms: CPU {cpu_ms:.1f}; card cold {card_cold:.1f}, warm "
+        f"{float(np.median(warm)):.1f} (median of {BOOT_REPS}: "
+        f"{', '.join(f'{w:.1f}' for w in warm)}) [{smi}]")
+    if not err < 1e-3:
+        raise AssertionError(f"small refresh error {err}")
+    return dict(launches=launches, err=err, cpu_ms=cpu_ms, warm_ms=float(np.median(warm)))
+
+
+def phase_boot_full(dev, smi, cfg=None):
+    """One refresh at the full width of the bootstrapped MNIST configuration
+    (N = 2^13, 55 limbs), cold and warm, each phase timed; the batch of 2.
+    ``cfg`` (default ``MNISTConfig()``) sets the ring."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.ops import ntt_cuda
+
+    cfg = M.MNISTConfig() if cfg is None else cfg
+    log(f"== phase 26: one CKKS refresh at full width (N=2^{cfg.ring_logn}, {boot_recipe()})")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    t0 = time.perf_counter()
+    setup, ctx = M.fhe_setup_bootstrapped(cfg, gen, **boot_recipe())
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    params = setup.params
+    kb = key_bytes(setup.ek, setup.gk, ctx.ek, ctx.gks, ctx.gk_conj)
+    log(f"fhe_setup_bootstrapped: {params.params.ring_cipher.nlimbs} limbs "
+        f"({params.ring_cipher.nlimbs} ciphertext + {params.num_special} raising), "
+        f"HybridRaised dnum={params.dnum} alpha={params.alpha}, {len(ctx.gks.keys)} rotation "
+        f"keys + conjugation + 2 relinearization + 1 dense Galois key = "
+        f"{kb / 2 ** 20:.1f} MiB on the card; {setup_s:.2f} s (host clock)")
+    vals = boot_vals(1 << (cfg.ring_logn - 1), 26)
+    c = boot_exhausted(params, setup.kp, vals, gen)
+
+    t0 = time.perf_counter()
+    cold = B.bootstrap(ctx, c)
+    sync(dev)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    log(f"cold refresh (encodes {len(ctx.plain_cache)} transform diagonals and EvalMod "
+        f"constants, {cache_bytes(ctx) / 2 ** 20:.1f} MiB kept on the card): {cold_ms:.1f} ms")
+    runs = []
+    for _ in range(BOOT_REPS):
+        out, ph = refresh_phases(ctx, c, dev)
+        if not same_ct(out, cold):
+            raise AssertionError("a warm refresh differs from the cold one")
+        runs.append(ph)
+    tot = [sum(r) for r in runs]
+    med = {nm: float(np.median([r[i] for r in runs]))
+           for i, nm in enumerate(("modraise_c2s", "evalmod", "s2c"))}
+    warm_ms = float(np.median(tot))
+    reset_launches()
+    B.bootstrap(ctx, c)                                                   # the refresh path
+    sync(dev)
+    launches = read_launches()
+    transforms = dict(ntt_cuda.transforms)
+    if not (launches["fwd"] and launches["inv"]) or non_k1_launches(launches):
+        raise AssertionError(f"the refresh launched {launches}")
+    err = float(np.max(np.abs(T.decrypt(setup.kp, cold) - vals)))
+    levels = cold.ring.nlimbs
+    log(f"warm refresh: {warm_ms:.1f} ms (median of {BOOT_REPS}: "
+        f"{', '.join(f'{t:.1f}' for t in tot)}); phases (median ms, share): " +
+        ", ".join(f"{k} {v:.1f} ({100 * v / sum(med.values()):.0f}%)" for k, v in med.items())
+        + f" [{smi}]")
+    log(f"{levels} limbs regained (limit >= 13), max abs error {err:.3e} against the input "
+        f"(limit 1e-3; the reference's TPU figure, 6.9e-5, is of the h=8, degree-59 sine recipe "
+        f"of tools.bench_bootstrap 13 16 8 5 1 1.5 2); K1 launches per refresh "
+        f"{launches['fwd']} forward + {launches['inv']} inverse over {transforms['fwd']} + "
+        f"{transforms['inv']} limb polynomials, no other kernel")
+    if not (levels >= 13 and err < 1e-3):
+        raise AssertionError(f"full-width refresh: {levels} limbs, error {err}")
+
+    vals2 = boot_vals(1 << (cfg.ring_logn - 1), 126)
+    c2 = boot_exhausted(params, setup.kp, vals2, gen)
+    single2 = B.bootstrap(ctx, c2)
+    both = T.ct_stack([c, c2])
+    batch_ms = []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        outb = B.bootstrap_batched(ctx, both)
+        sync(dev)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    if not (same_ct(T.ct_index(outb, 0), cold) and same_ct(T.ct_index(outb, 1), single2)):
+        raise AssertionError("the batched refresh differs from the single refreshes")
+    log(f"bootstrap_batched on 2 ciphertexts == the two single refreshes; "
+        f"{min(batch_ms) / 2:.1f} ms per refresh (best of 2 batches: "
+        f"{', '.join(f'{t:.1f}' for t in batch_ms)} ms) [{smi}]")
+    return dict(setup=setup, ctx=ctx, setup_s=setup_s, key_bytes=kb, cold_ms=cold_ms,
+                warm_ms=warm_ms, phases=med, launches=launches, transforms=transforms,
+                err=err, levels=levels, batch_ms=min(batch_ms) / 2, gen=gen)
+
+
+def phase_boot_mnist(dev, smi, boot):
+    """The bootstrapped encrypted-MNIST pipeline at the full reference shape,
+    on the keys and context of phase 26."""
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.ops import ntt_cuda
+
+    setup, ctx, gen = boot["setup"], boot["ctx"], boot["gen"]
+    cfg = setup.cfg
+    log(f"== phase 27: bootstrapped encrypted MNIST at MNISTConfig() (N=2^{cfg.ring_logn}, "
+        f"{cfg.batch} images, {cfg.grid}x{cfg.grid} grid, {cfg.channels} channels, "
+        f"{(cfg.channels + 1) * (cfg.positions - 1)} rotations on the depth-"
+        f"{M.BOOTSTRAPPED_RECIPE['depth']} tower, prescale {M.BOOTSTRAPPED_PRESCALE})")
+    weights = M.init_params(cfg, 27)
+    imgs = np.random.default_rng(27).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
+    plain = M.model_forward(cfg, weights, imgs)
+    mem = lambda: torch.cuda.memory_allocated(dev) if torch.device(dev).type == "cuda" else 0
+    mem0 = mem()
+    t0 = time.perf_counter()
+    run = M.build_bootstrapped_pipeline(setup, ctx, weights, prescale=M.BOOTSTRAPPED_PRESCALE)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run(imgs, gen)
+    sync(dev)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    built = mem() - mem0
+    log(f"build (layers, {cfg.channels * cfg.positions} dense-1 diagonals at "
+        f"{setup.params.ring_cipher.nlimbs - 2} limbs): {build_s:.2f} s; cold first batch (dense 2 "
+        f"built at the regained tower): {cold_ms:.1f} ms; {built / 2 ** 20:.1f} MiB of layer "
+        f"constants on the card (host clock)")
+
+    reset_launches()
+    logits, depth_out = run(imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED))
+    sync(dev)                                                             # the main path
+    launches = read_launches()
+    transforms = dict(ntt_cuda.transforms)
+    if not (launches["fwd"] and launches["inv"]) or non_k1_launches(launches):
+        raise AssertionError(f"the bootstrapped pipeline launched {launches}")
+    logits = logits.T
+    if logits.shape != (cfg.batch, cfg.classes) or not np.all(np.isfinite(logits)):
+        raise AssertionError(f"bad logits: shape {logits.shape} or non-finite values")
+    err = float(np.max(np.abs(logits - plain)))
+    top2 = np.sort(plain, axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * err
+    agree = np.argmax(logits, -1) == np.argmax(plain, -1)
+    log(f"one batch launched {launches} (K1 over {transforms['fwd']} + {transforms['inv']} limb "
+        f"polynomials; the refresh's share {boot['launches']['fwd']} + "
+        f"{boot['launches']['inv']}); depth_out {depth_out} (limit >= 13); logits vs "
+        f"model_forward: max abs error {err:.3e} (limit 5e-2; the reference's compiled TPU run: "
+        f"2.1e-2); labels agree on {int(agree.sum())}/{cfg.batch}, on {int(agree[clear].sum())} "
+        f"of the {int(clear.sum())} with a plaintext top-two margin > 2x error")
+    if not (depth_out >= 13 and err < 5e-2):
+        raise AssertionError(f"bootstrapped MNIST: depth_out {depth_out}, error {err}")
+    if not agree[clear].all():
+        raise AssertionError("a label differs on an image with a clear plaintext margin")
+
+    walls, per_stage = [], []
+    for _ in range(BOOT_REPS):
+        lt = {}
+        sync(dev)
+        t0 = time.perf_counter()
+        run(imgs, gen, layer_times=lt)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_stage.append(lt)
+    stages = {k: float(np.median([lt[k] for lt in per_stage])) for k in per_stage[0]}
+    ms = float(np.median(walls))
+    log(f"warm batch: {ms:.1f} ms/batch (median of {BOOT_REPS}: "
+        f"{', '.join(f'{w:.1f}' for w in walls)}), {cfg.batch * 1e3 / ms:.1f} images/s [{smi}]")
+    log("per stage (median ms, synchronised between stages): " +
+        ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f" [{smi}]")
+    return dict(launches=launches, transforms=transforms, err=err, depth_out=depth_out,
+                ms=ms, cold_ms=cold_ms, build_s=build_s, stages=stages, built=built,
+                agree=int(agree.sum()), clear=int(clear.sum()))
+
+
+# ---------------------------------------------------------------------------
 # the least time the card could take (the kernels line's bound_ms)
 # ---------------------------------------------------------------------------
 
@@ -1695,6 +2022,9 @@ def main() -> int:
     bsgs = phase_bsgs_pipeline(dev, smi, pipe)
     dtime = phase_device_time(dev, smi)
     dtime.update(phase_device_time_fused(dev, smi, kpath, k3_times["mnist"]))
+    boot_small = phase_boot_card_vs_cpu(dev, smi)
+    boot = phase_boot_full(dev, smi)
+    bmn = phase_boot_mnist(dev, smi, boot)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -1702,7 +2032,13 @@ def main() -> int:
     kernels = [
         {"name": f"k1_ntt_{k}", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt.cu",
          "replaces": f"toyfhe_tpu/ops/ntt_mxu_pallas.py:{line}",
-         "launches": pipe["launches"][k], "max_abs_err": err[k],
+         "launches": bmn["launches"][k],
+         "launches_by_path": {"mnist_iterated": pipe["launches"][k],
+                              "mnist_bsgs_dual_flow": bsgs["launches"][k],
+                              "refresh_n2^10": boot_small["launches"][k],
+                              "refresh_n2^13": boot["launches"][k],
+                              "mnist_bootstrapped": bmn["launches"][k]},
+         "max_abs_err": err[k],
          "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],
          **bound_transform(28, 7, 1 << 13), "library_ms": None}
@@ -1753,7 +2089,12 @@ def main() -> int:
         f"{bsgs['launches']['fwd']} + {bsgs['launches']['inv']} launches, "
         f"{bsgs['counts']['key_products']} key products, {bsgs['counts']['decompositions']} "
         f"decompositions, logit error {bsgs['err']:.3e}); rotation decode error "
-        f"{kpath['decode_err']:.3e}, hoisted {hoist['decode_err']:.3e}")
+        f"{kpath['decode_err']:.3e}, hoisted {hoist['decode_err']:.3e}; refresh at N=2^13 "
+        f"{boot['warm_ms']:.1f} ms warm ({boot['cold_ms']:.1f} cold, {boot['batch_ms']:.1f} per "
+        f"refresh in a batch of 2), {boot['levels']} limbs out at error {boot['err']:.3e}; "
+        f"bootstrapped MNIST {bmn['ms']:.1f} ms per batch, depth_out {bmn['depth_out']}, logit "
+        f"error {bmn['err']:.3e}, K1 {bmn['launches']['fwd']} + {bmn['launches']['inv']} "
+        f"launches")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -118,8 +118,13 @@ def test_port_import_leaves_jax_out():
             "toyfhe_tpu_torch.parallel.layers, toyfhe_tpu_torch.models.mnist, "
             "toyfhe_tpu_torch.ops.ntt_mxu, toyfhe_tpu_torch.ops.ntt_mxu_pallas, "
             "toyfhe_tpu_torch.ops.ntt_mxu_pallas_cuda, toyfhe_tpu_torch.core.bootstrap, "
+            "toyfhe_tpu_torch.core.sfft, toyfhe_tpu_torch.core.ckks_encoding, "
+            "toyfhe_tpu_torch.utils.interop, toyfhe_tpu_torch.utils.numtheory, "
             "toyfhe_tpu_torch.tools.bench_kernels, toyfhe_tpu_torch.tools.profile_mnist, "
-            "chip_smoke; "
+            "toyfhe_tpu_torch.tools.bench_bootstrap, chip_smoke; "
+            "from toyfhe_tpu_torch.core import bootstrap as B; "
+            "from toyfhe_tpu_torch.models import mnist as M; "
+            "assert callable(B.bootstrap_batched) and callable(M.build_bootstrapped_pipeline); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

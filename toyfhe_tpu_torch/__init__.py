@@ -7,9 +7,11 @@ RLWE / CKKS engine with real keys, rotations (one key, key sets, the
 hoisted ``rotate_many`` / ``rotate_sum`` schedules), the special-prime
 (``core/modraise.py``) and dnum-grouped hybrid (``core/hybrid.py``) key
 switches, the single-device square → relinearize → rescale steps, the
-compiled encrypted layers (``parallel/layers.py``) and the encrypted-MNIST
-serving pipeline (``models/mnist.py``: the iterated schedule and the BSGS +
-dual-flow serving configuration). The fused kernels beside the plain
+compiled encrypted layers (``parallel/layers.py``), CKKS bootstrapping
+(``core/bootstrap.py`` on the special-FFT factorization of ``core/sfft.py``)
+and encrypted MNIST (``models/mnist.py``: the serving pipeline on the
+iterated schedule and the BSGS + dual-flow serving configuration, the eager
+pass, and the bootstrapped pipeline). The fused kernels beside the plain
 paths: the four-step digit transform K2 (``csrc/ntt_mxu.cu``), the hybrid
 key switch K3 (``csrc/hybrid_ks.cu``), the fused polynomial product K4
 (``csrc/polymul.cu``), the bit-reversed DIF transform K5
@@ -29,7 +31,8 @@ from .core import ring as ringops
 from .core.rlwe import (SchemeParams, PassthroughParams, PrivKey, PubKey,
                         KeyComponent, KeyPair, KeySwitchKey, EvalMultKey,
                         GaloisKey, GaloisKeys, CipherText, UsageError, keygen, encrypt,
-                        encrypt_zero, decrypt, decrypt_raw, ct_add, ct_mul,
+                        encrypt_zero, decrypt, decrypt_raw, ct_add, ct_sub, ct_add_ring,
+                        ct_mul, ct_stack, ct_index, modswitch,
                         keyswitch, make_eval_key, keygen_eval_mult, ct_rescale,
                         ct_modswitch_drop, galois_element_for_steps,
                         keygen_galois, keygen_galois_set, apply_galois_ct, rotate,
@@ -39,7 +42,8 @@ from .core.hybrid import HybridRaised
 from .core.modraise import ModulusRaised
 from .core.ckks_encoding import (CKKSPlaintext, CKKSTag, make_plaintext,
                                  ckks_encode, ckks_decode, mul_plain_vector,
-                                 mul_plain_vector_at)
+                                 mul_plain_vector_at, mul_plain_vectors, mul_plain_scalar,
+                                 mul_plain_scalar_at, add_plain)
 from .utils import interop
 
 __version__ = "0.1.0"

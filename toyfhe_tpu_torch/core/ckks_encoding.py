@@ -7,19 +7,30 @@ circular shift. Encode and decode run on the host in float64 with exact
 big-integer quantization (as in the reference); the encoded residues are
 then placed on the requested device, and decode reads them back through
 the exact Python CRT path.
+
+The plaintext operations keep the reference's exact scale algebra: every
+scale tag is a ``Fraction``, and :func:`ct_to` / :func:`mul_plain_scalar_at`
+align ciphertexts on different paths to one exact (tower, scale). Inside
+:func:`encode_cache` the encodes that are given a key are made once and
+kept on the device (the bootstrap's transform diagonals and EvalMod
+constants), so a repeated evaluation encodes nothing on the host.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import math
 from fractions import Fraction
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from ..utils import numtheory as nt
 from . import ring as R
+from . import rlwe
 from .ring import RingContext, RingElt
 from .rlwe import CipherText
 
@@ -138,6 +149,39 @@ def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# encoded plaintexts kept on the device
+# ---------------------------------------------------------------------------
+
+# the store of the innermost active encode_cache block (per thread / task)
+_store: contextvars.ContextVar = contextvars.ContextVar("encode_store", default=None)
+
+
+@contextlib.contextmanager
+def encode_cache(store: dict):
+    """Inside the block, every encode made with a key (the ``key`` argument
+    of :func:`mul_plain_vector_at` / :func:`mul_plain_vectors`, and
+    :func:`add_plain` of a scalar) is looked up in ``store`` and made, on
+    the ciphertext's device, only when missing. The key is the caller's,
+    extended by the ring, the device and the exact scale of the encode."""
+    token = _store.set(store)
+    try:
+        yield store
+    finally:
+        _store.reset(token)
+
+
+def _encoded(key, make) -> RingElt:
+    """``make()`` through the active store when ``key`` is given."""
+    store = _store.get()
+    if store is None or key is None:
+        return make()
+    hit = store.get(key)
+    if hit is None:
+        hit = store[key] = make()
+    return hit
+
+
+# ---------------------------------------------------------------------------
 # homomorphic plaintext operations (scale-tracked)
 # ---------------------------------------------------------------------------
 
@@ -147,21 +191,133 @@ def _ct_scale(c: CipherText) -> Fraction:
     return c.enc.scale
 
 
-def _mul_plain_at(c: CipherText, vec, at_scale: Fraction) -> CipherText:
+def _mul_plain_at(c: CipherText, vec, at_scale: Fraction, key=None) -> CipherText:
     scale = _ct_scale(c)
-    pe = R.ensure_dual(c.ring, ckks_encode(c.ring, np.asarray(vec, dtype=np.complex128),
-                                           at_scale, c.cs[0].device))
+    dev = c.cs[0].device
+    pe = _encoded(None if key is None else (key, c.ring, dev, at_scale),
+                  lambda: RingElt(dual=R.ensure_dual(c.ring, ckks_encode(
+                      c.ring, np.asarray(vec, dtype=np.complex128), at_scale, dev)).dual))
     cs = tuple(R.mul(c.ring, x_, pe) for x_ in c.cs)
     return CipherText(c.params, cs, c.ring, enc=CKKSTag(scale * at_scale))
 
 
-def mul_plain_vector(c: CipherText, vec) -> CipherText:
+def mul_plain_vector(c: CipherText, vec, key=None) -> CipherText:
     """c ·ₚ slot vector, encoded at the ciphertext's scale on its device;
     the result's scale squares."""
-    return _mul_plain_at(c, vec, _ct_scale(c))
+    return _mul_plain_at(c, vec, _ct_scale(c), key)
 
 
-def mul_plain_vector_at(c: CipherText, vec, at_scale: ScaleLike) -> CipherText:
+def mul_plain_vector_at(c: CipherText, vec, at_scale: ScaleLike, key=None) -> CipherText:
     """c ·ₚ slot vector quantized at an explicit scale; result scale =
     ct_scale · at_scale."""
-    return _mul_plain_at(c, vec, Fraction(at_scale))
+    return _mul_plain_at(c, vec, Fraction(at_scale), key)
+
+
+def mul_plain_vectors(c: CipherText, vecs, at_scale: Optional[ScaleLike] = None,
+                      key=None) -> CipherText:
+    """Batched slot-vector multiply: ``vecs[B, d]`` aligns with a batch-B
+    ciphertext's leading axis (one plaintext per batch element; further
+    leading axes of the ciphertext broadcast). Encoded at the ciphertext's
+    scale, or at ``at_scale`` when given — the hook that pins transform
+    levels to a target scale instead of letting s → s²/q drift compound."""
+    scale = _ct_scale(c)
+    at = scale if at_scale is None else Fraction(at_scale)
+    dev = c.cs[0].device
+
+    def make():
+        vs = np.asarray(vecs, dtype=np.complex128)
+        pes = torch.stack([ckks_encode(c.ring, v, at, dev).primal for v in vs], 0)
+        return RingElt(dual=R.ensure_dual(c.ring, RingElt(primal=pes)).dual)
+
+    pe = _encoded(None if key is None else (key, c.ring, dev, at), make)
+    cs = tuple(R.mul(c.ring, x_, pe) for x_ in c.cs)
+    return CipherText(c.params, cs, c.ring, enc=CKKSTag(scale * at))
+
+
+def mul_plain_scalar(c: CipherText, x: float) -> CipherText:
+    """c ·ₚ scalar quantized at the ciphertext's scale; the result's scale
+    squares."""
+    return mul_plain_scalar_at(c, x, _ct_scale(c))
+
+
+def mul_plain_scalar_at(c: CipherText, x, at_scale: ScaleLike) -> CipherText:
+    """c ·ₚ scalar quantized at an explicit scale: the result's scale is
+    exactly ``ct_scale · at_scale`` (quantization error ≤ 1/(2·at_scale)
+    relative, absorbed into the noise). The exact-scale primitive behind
+    :func:`ct_to` and the Paterson–Stockmeyer evaluator's term alignment."""
+    scale = _ct_scale(c)
+    at_scale = Fraction(at_scale)
+    if at_scale <= 0:
+        raise ValueError("at_scale must be positive")
+    v = Fraction(x) * at_scale
+    m = (2 * v.numerator + v.denominator) // (2 * v.denominator)   # round half up
+    s = c.ring.scalar_residues(m % c.ring.modulus)
+    cs = tuple(R.scalar_mul(c.ring, s, x_) for x_ in c.cs)
+    return CipherText(c.params, cs, c.ring, enc=CKKSTag(scale * at_scale))
+
+
+def retag(c: CipherText, scale: ScaleLike) -> CipherText:
+    """Reinterpret the ciphertext at another exact scale — free and
+    noiseless; the decoded value is divided by new/current. The bootstrap
+    divides by q₀ this way."""
+    return CipherText(c.params, c.cs, c.ring, enc=CKKSTag(Fraction(scale)))
+
+
+def mul_int(c: CipherText, k: int) -> CipherText:
+    """Exact small-integer multiply: scales the value by k, scale tag
+    unchanged (the 2·T_a·T_b of the Chebyshev recurrences)."""
+    s = c.ring.scalar_residues(int(k) % c.ring.modulus)
+    cs = tuple(R.scalar_mul(c.ring, s, x_) for x_ in c.cs)
+    return CipherText(c.params, cs, c.ring, enc=c.enc)
+
+
+def ct_drop_to(c: CipherText, nlimbs: int) -> CipherText:
+    """Drop limbs (no rescale) until the tower has ``nlimbs`` limbs."""
+    while c.ring.nlimbs > nlimbs:
+        c = rlwe.ct_modswitch_drop(c)
+    if c.ring.nlimbs != nlimbs:
+        raise ValueError(f"cannot raise tower: at {c.ring.nlimbs}, want {nlimbs}")
+    return c
+
+
+def ct_to(c: CipherText, nlimbs: int, scale: ScaleLike) -> CipherText:
+    """Bring a CKKS ciphertext to an exact (tower length, scale) target
+    using spare levels: limb drops plus, when the scale differs, one scalar
+    multiply at the correcting scale r = scale·(∏ dropped p)/cur followed by
+    rescales. Uses as many spare levels as it takes to make the ratio
+    comfortably quantizable (r ≥ 2^8 when the levels allow, ≥ 2 at least)."""
+    scale = Fraction(scale)
+    cur = _ct_scale(c)
+    if cur == scale:
+        return ct_drop_to(c, nlimbs)
+    avail = c.ring.nlimbs - nlimbs
+    if avail <= 0:
+        raise ValueError(
+            f"no spare level for scale alignment: at {c.ring.nlimbs} limbs, "
+            f"target {nlimbs} with scale {float(scale):g} != {float(cur):g}")
+    r = Fraction(0)
+    for j in range(1, avail + 1):
+        cj = ct_drop_to(c, nlimbs + j)
+        r = scale * math.prod(cj.ring.primes[-j:]) / cur
+        if r >= (1 << 8) or (j == avail and r >= 2):
+            c = mul_plain_scalar_at(cj, 1.0, r)
+            for _ in range(j):
+                c = rlwe.ct_rescale(c)
+            return c
+    raise ValueError(f"alignment ratio {float(r):g} too small to quantize "
+                     f"({avail} spare levels)")
+
+
+def add_plain(c: CipherText, vals) -> CipherText:
+    """c +ₚ scalar or slot vector (broadcast), encoded at the ciphertext's
+    scale. A scalar's encode is kept in the active :func:`encode_cache`."""
+    scale = _ct_scale(c)
+    dev = c.cs[0].device
+
+    def make():
+        slots = np.zeros(c.ring.n // 2, dtype=np.complex128)
+        slots[:] = vals
+        return R.ensure_dual(c.ring, ckks_encode(c.ring, slots, scale, dev))
+
+    key = ("add_plain", c.ring, dev, scale, complex(vals)) if np.isscalar(vals) else None
+    return rlwe.ct_add_ring(c, _encoded(key, make))

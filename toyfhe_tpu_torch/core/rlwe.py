@@ -1,17 +1,16 @@
-"""Scheme-generic RLWE engine (layer L3) — the subset the CKKS
-square → relinearize → rescale step and the rotation schedules need.
+"""Scheme-generic RLWE engine (layer L3) — the subset CKKS needs.
 
 Port of ``toyfhe_tpu/core/rlwe.py``: keygen, encrypt / decrypt, ciphertext
-add and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
+add, subtract and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
 digits; ``relin_window = w > 0``: base-2^w digits of each residue), eval-key
 and Galois-key generation, the plain key switch with the special-prime
 expand / contract hooks (:mod:`.modraise`) and its dispatch to the
 dnum-grouped hybrid key switch (:mod:`.hybrid`), rotations with one key or
 a key set, the hoisted rotation schedules (:func:`rotate_many`: one gadget
 decomposition shared by several rotations; :func:`rotate_sum`: one
-contraction for a sum of rotations), limb drops and the CKKS rescale. A
-scheme is a
-:class:`SchemeParams` subclass supplying the encoder π⁻¹, decoder π, noise
+contraction for a sum of rotations), limb drops, the CKKS rescale, and
+batched ciphertexts (:func:`ct_stack` / :func:`ct_index`: leading axes run
+through every operation). A scheme is a :class:`SchemeParams` subclass supplying the encoder π⁻¹, decoder π, noise
 sampler 𝒩 and secret sampler 𝒢; :class:`PassthroughParams` wraps one to
 override selected hooks.
 
@@ -327,6 +326,14 @@ def decrypt(key, c: CipherText):
 # ---------------------------------------------------------------------------
 
 def ct_add(c1: CipherText, c2: CipherText) -> CipherText:
+    return _ct_addsub(c1, c2, R.add)
+
+
+def ct_sub(c1: CipherText, c2: CipherText) -> CipherText:
+    return _ct_addsub(c1, c2, R.sub)
+
+
+def _ct_addsub(c1: CipherText, c2: CipherText, op) -> CipherText:
     if c1.params is not c2.params:
         raise UsageError("Attempting to add ciphertexts with differing parameters")
     ring = c1.ring
@@ -338,11 +345,17 @@ def ct_add(c1: CipherText, c2: CipherText) -> CipherText:
         elif i >= n2:
             cs.append(c1.cs[i])
         else:
-            cs.append(R.add(ring, c1.cs[i], c2.cs[i]))
+            cs.append(op(ring, c1.cs[i], c2.cs[i]))
     enc = c1.enc if c1.enc is not None else c2.enc
     if c1.enc is not None and c2.enc is not None:
         enc = c1.enc.combine_add(c2.enc)
     return CipherText(c1.params, tuple(cs), ring, enc=enc)
+
+
+def ct_add_ring(c: CipherText, b: RingElt) -> CipherText:
+    """c + plaintext ring element."""
+    cs = (R.add(c.ring, c.cs[0], b),) + c.cs[1:]
+    return CipherText(c.params, cs, c.ring, enc=c.enc)
 
 
 def enc_mul(c1: CipherText, c2: CipherText) -> Tuple[RingContext, Tuple[RingElt, ...]]:
@@ -840,6 +853,7 @@ def bgv_plain_modulus(params):
                                   "(ring.rescale_adapted) is missing")
     return None
 
+
 def ct_rescale(c: CipherText) -> CipherText:
     """CKKS rescale by the last prime: exact divide-and-round of every
     component and division of the scale tag. The tower shrinks to L-1."""
@@ -852,3 +866,44 @@ def ct_rescale(c: CipherText) -> CipherText:
     enc = (c.enc.rescale_by(ring.primes[-1])
            if c.enc is not None and hasattr(c.enc, "rescale_by") else c.enc)
     return CipherText(c.params, tuple(cs), sub, enc=enc)
+
+
+def modswitch(c: CipherText, new_modulus=None) -> CipherText:
+    """Generic modulus switch. With no target it is the rescale;
+    arbitrary-target switching is not implemented (the reference raises
+    too)."""
+    if new_modulus is not None:
+        raise NotImplementedError("modswitch to an arbitrary modulus")
+    return ct_rescale(c)
+
+
+# ---------------------------------------------------------------------------
+# Ciphertext batching (leading axes broadcast through the whole engine)
+# ---------------------------------------------------------------------------
+
+def ct_stack(cts) -> CipherText:
+    """Stack ciphertexts with identical params, tower and encoding into one
+    batched ciphertext (dual domain). Every engine op — add, mul, key switch,
+    rotate, rescale — broadcasts over leading axes. The new axis is the one
+    just before the tower [L, N]: axis 0 for unbatched ciphertexts, and
+    inside any batch axes the inputs already carry (as a ``vmap`` over them
+    would place it)."""
+    c0 = cts[0]
+    for c in cts[1:]:
+        if c.params is not c0.params or c.ring is not c0.ring:
+            raise UsageError("ct_stack requires identical params and tower")
+        if len(c.cs) != len(c0.cs):
+            raise UsageError("ct_stack requires equal component counts")
+    cs = []
+    for i in range(len(c0.cs)):
+        duals = [R.ensure_dual(c0.ring, c.cs[i]).dual for c in cts]
+        cs.append(RingElt(dual=torch.stack(duals, dim=-3)))
+    return CipherText(c0.params, tuple(cs), c0.ring, enc=c0.enc)
+
+
+def ct_index(c: CipherText, i: int) -> CipherText:
+    """Element i of the stack axis :func:`ct_stack` made (the axis just
+    before the tower)."""
+    cs = tuple(RingElt(primal=None if x.primal is None else x.primal[..., i, :, :],
+                       dual=None if x.dual is None else x.dual[..., i, :, :]) for x in c.cs)
+    return CipherText(c.params, cs, c.ring, enc=c.enc)

@@ -21,6 +21,14 @@ dual-domain ciphertexts, conv and bias rescale in the dual domain and both
 squares run the fused transform schedule
 (``parallel.ops.make_hybrid_fused_step``), bit-identical to the primal flow.
 
+Beside the serving pipeline: the eager forward pass on engine ciphertexts
+(:func:`encrypted_inference`, the cross-check of the compiled one), and the
+depth-unlimited bootstrapped pipeline — conv → square → dense 1 → square →
+exhaust → bootstrap → dense 2 — eager (:func:`encrypted_inference_bootstrapped`)
+and on the compiled layers at each tower level
+(:func:`build_bootstrapped_pipeline`), with the keys and the
+``core.bootstrap.BootstrapContext`` of :func:`fhe_setup_bootstrapped`.
+
 Weights are drawn from a numpy seed (``init_params``; training is not
 ported) or carried across from the reference (``utils.interop.mnist_params``).
 ``model_forward`` is the plaintext pass in numpy, the check of the
@@ -41,13 +49,15 @@ import torch
 from ..core import ring as R
 from ..core.ckks import CKKSParams
 from ..core import bootstrap as B
+from ..core import ckks_encoding as CE
 from ..core import rlwe
-from ..core.ckks_encoding import CKKSTag, ckks_encode, mul_plain_vector
+from ..core.ckks_encoding import CKKSTag, ckks_encode, make_plaintext, mul_plain_vector
 from ..core.hybrid import HybridRaised
 from ..core.modraise import ModulusRaised
 from ..core.ring import RingElt, make_rns_ring
 from ..core.rlwe import (CipherText, EvalMultKey, GaloisKey, KeyPair, UsageError, ct_add,
-                         decrypt, keygen, keygen_eval_mult, keygen_galois, rotate)
+                         ct_mul, ct_rescale, decrypt, encrypt, keygen, keygen_eval_mult,
+                         keygen_galois, keyswitch, rotate)
 from ..ops import modmath
 from ..parallel import layers as JL
 from ..parallel import ops as pops
@@ -219,6 +229,12 @@ def _rep_inner(vec, inner):
     return np.repeat(np.asarray(vec), inner)
 
 
+def _encode_dual(ring, slots, scale, device) -> torch.Tensor:
+    """A slot vector encoded at ``scale`` on ``device``, in the dual domain."""
+    return R.ensure_dual(ring, ckks_encode(ring, np.asarray(slots, dtype=complex),
+                                           scale, device)).dual
+
+
 # ---------------------------------------------------------------------------
 # eager dense layers on engine ciphertexts
 # ---------------------------------------------------------------------------
@@ -321,6 +337,87 @@ def _merge_bsgs_terms(term_lists):
         for el, ct in terms:
             by_el[el] = ct if el not in by_el else ct_add(by_el[el], ct)
     return list(by_el.items())
+
+
+def naive_rectangular_matmul(setup: FHESetup, weights: np.ndarray, x: CipherText) -> CipherText:
+    """Zero-pad a short-fat matrix to square, then the diagonal matmul."""
+    r, c = weights.shape
+    if r > c:
+        raise ValueError(f"expected rows <= columns, got {weights.shape}")
+    if r < c:
+        weights = np.vstack([weights, np.zeros((c - r, c))])
+    return encrypted_matmul(setup, weights, x)
+
+
+def _eager_to_square2(setup: FHESetup, model_params, batch: np.ndarray,
+                      gen: torch.Generator, gks_bsgs=None) -> CipherText:
+    """The eager pass up to the second square: encrypt the k×k grid (one
+    ciphertext after another from ``gen``), conv + bias + rescale, square +
+    relinearize + rescale, dense 1 (iterated, or BSGS with ``gks_bsgs``, the
+    channels' giant steps merged into one lazy ModDown) + bias + rescale,
+    square."""
+    cfg = setup.cfg
+    ring = setup.params.ring_cipher
+    I = public_preprocess(cfg, batch)
+    C = {(i, j): encrypt(setup.kp, make_plaintext(ring, I[i, j], setup.scale), gen)
+         for i in range(cfg.kernel) for j in range(cfg.kernel)}
+
+    w = np.asarray(model_params["conv_w"])
+    bconv = np.asarray(model_params["conv_b"])
+    conved = []
+    for c in range(cfg.channels):
+        acc = None
+        for i in range(cfg.kernel):
+            for j in range(cfg.kernel):
+                term = CE.mul_plain_scalar(C[(i, j)], float(w[i, j, c]))
+                acc = term if acc is None else ct_add(acc, term)
+        conved.append(ct_rescale(CE.add_plain(acc, float(bconv[c]))))
+
+    sqed1 = [ct_rescale(keyswitch(setup.ek, ct_mul(x, x))) for x in conved]
+
+    w1 = np.asarray(model_params["w1"])
+    d = cfg.positions
+    blocks = [w1[:, ci * d:(ci + 1) * d] for ci in range(cfg.channels)]
+    if gks_bsgs is not None:
+        fq1 = rlwe.rotate_sum(gks_bsgs, _merge_bsgs_terms(
+            [_bsgs_matmul_terms(setup, gks_bsgs, blk, x) for blk, x in zip(blocks, sqed1)]))
+    else:
+        fq1 = None
+        for blk, x in zip(blocks, sqed1):
+            part = encrypted_matmul(setup, blk, x)
+            fq1 = part if fq1 is None else ct_add(fq1, part)
+    fq1 = ct_rescale(CE.add_plain(fq1, _rep_inner(np.asarray(model_params["b1"]), cfg.batch)))
+    return ct_rescale(keyswitch(setup.ek, ct_mul(fq1, fq1)))
+
+
+def _decrypt_logits(setup: FHESetup, out: CipherText) -> np.ndarray:
+    cfg = setup.cfg
+    dec = decrypt(setup.kp, out).real
+    # rows = positions (the class index in the first ``classes``), cols = images
+    return dec.reshape(cfg.positions, cfg.batch)[:cfg.classes, :]
+
+
+def _bias2(cfg: MNISTConfig, model_params) -> np.ndarray:
+    b2pad = np.concatenate([np.asarray(model_params["b2"]),
+                            np.zeros(cfg.positions - cfg.classes)])
+    return _rep_inner(b2pad, cfg.batch)
+
+
+def encrypted_inference(setup: FHESetup, model_params, batch: np.ndarray,
+                        gen: torch.Generator, gks_bsgs=None) -> np.ndarray:
+    """The whole encrypted forward pass, eager on engine ciphertexts: the
+    decrypted logits [classes, B]. With ``gks_bsgs`` (from
+    :func:`keygen_matmul_bsgs`) the dense layers run the hoisted BSGS
+    schedule. The cross-check of :func:`build_inference_pipeline`."""
+    sqed2 = _eager_to_square2(setup, model_params, batch, gen, gks_bsgs)
+    w2 = np.asarray(model_params["w2"])
+    if gks_bsgs is not None:
+        d = setup.cfg.positions
+        wpad = np.vstack([w2, np.zeros((d - w2.shape[0], d))])
+        out = encrypted_matmul_bsgs(setup, gks_bsgs, wpad, sqed2)
+    else:
+        out = naive_rectangular_matmul(setup, w2, sqed2)
+    return _decrypt_logits(setup, CE.add_plain(out, _bias2(setup.cfg, model_params)))
 
 
 class _BsgsDense:
@@ -452,9 +549,7 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     n = ring0.n
     s0 = setup.scale
 
-    def encode_dual(ring, slots, scale):
-        return R.ensure_dual(ring, ckks_encode(ring, np.asarray(slots, dtype=complex),
-                                               scale, device)).dual
+    encode_dual = lambda ring, slots, scale: _encode_dual(ring, slots, scale, device)
 
     enc = JL.BatchEncryptor(params, setup.kp.pub, sigma=3.2)
 
@@ -594,3 +689,230 @@ def encrypted_inference_fast(setup: FHESetup, model_params, batch: np.ndarray,
         setup._pipeline = pipe
         setup._pipeline_key = (model_params, gks_bsgs, dual_flow, mesh)
     return pipe(batch, gen)
+
+
+# ---------------------------------------------------------------------------
+# the bootstrapped (depth-unlimited) pipeline
+# ---------------------------------------------------------------------------
+
+# The production bootstrapped configuration: a depth-46 composite tower
+# (2 × 29-bit base, balanced 26-bit level pairs, 7 raising primes; 55 limbs
+# at N = 2^13), the factored radix-16 transforms, a degree-24 cosine seed
+# with two double-angle squarings and the arcsine correction, a sparse
+# secret of weight 4; the message divided by 32 before the refresh.
+BOOTSTRAPPED_RECIPE = dict(depth=46, K=5.0, deg=24, scale_limbs=2, radix=16, arcsin=True,
+                           double_angle=2, hamming_weight=4)
+BOOTSTRAPPED_PRESCALE = 32.0
+
+
+def make_bootstrapped_params(cfg: MNISTConfig, depth: int = 12, limb_bits: int = 28,
+                             hamming_weight: int = 4, scale_limbs: int = 1):
+    """(params, scale log2) of :func:`fhe_setup_bootstrapped` over a fresh
+    ring, with a sparse ternary secret of ``hamming_weight``.
+
+    ``scale_limbs`` = 2, the composite recipe: ``bootstrap.make_boot_ring``
+    (2 × 29-bit base, ``depth`` balanced 26-bit level limbs, k 29-bit
+    raising primes) under ``HybridRaised`` with dnum = ⌊(depth+2)/5⌋ and
+    k = ⌈(depth+2)/dnum⌉ + 1; the pipeline runs at scale 2^26 a level and
+    the refresh at 2^52 across limb pairs. Otherwise ``depth`` limbs of
+    ``limb_bits`` under ``ModulusRaised``."""
+    if scale_limbs == 2:
+        dnum = max(1, (depth + 2) // 5)
+        k = -(-(depth + 2) // dnum) + 1
+        ring = B.make_boot_ring(1 << cfg.ring_logn, L=depth, num_special=k)
+        return HybridRaised(CKKSParams(ring, 0, 3.2, secret="sparse",
+                                       hamming_weight=hamming_weight), dnum, k), 26
+    ring = make_rns_ring(1 << cfg.ring_logn, (limb_bits,) * depth)
+    return ModulusRaised(CKKSParams(ring, 0, 3.2, secret="sparse",
+                                    hamming_weight=hamming_weight)), None
+
+
+def fhe_setup_bootstrapped(cfg: MNISTConfig, gen: torch.Generator, depth: int = 12,
+                           limb_bits: int = 28, scale_log2: int = 28,
+                           hamming_weight: int = 4, **boot_kwargs):
+    """Keys for depth-unlimited inference, on the generator's device: a deep
+    tower (:func:`make_bootstrapped_params`), the key pair, relinearization
+    key and Galois key of a ``batch``-slot rotation, and the
+    ``BootstrapContext`` of ``bootstrap.setup_bootstrap(**boot_kwargs)`` for
+    the same secret. Returns (setup, boot_ctx)."""
+    params, composite_log2 = make_bootstrapped_params(
+        cfg, depth, limb_bits, hamming_weight, int(boot_kwargs.get("scale_limbs", 1)))
+    if composite_log2 is not None:
+        scale_log2 = composite_log2
+    kp = keygen(params, gen)
+    ek = keygen_eval_mult(gen, kp.priv)
+    gk = keygen_galois(gen, kp.priv, steps=cfg.batch)
+    setup = FHESetup(cfg, params, kp, ek, gk, Fraction(2) ** scale_log2)
+    return setup, B.setup_bootstrap(gen, kp.priv, **boot_kwargs)
+
+
+def _exhaust(boot_ctx, ct: CipherText, prescale: float) -> CipherText:
+    """Divide by ``prescale`` (EvalMod wants |m| ≲ 1; the factor is folded
+    back into dense 2) and drop to the refresh's base tower: under composite
+    scaling aligned exactly to (scale_limbs limbs, the context's base scale,
+    2^(26·scale_limbs) when it has none)."""
+    sl = boot_ctx.scale_limbs
+    ex = ct_rescale(CE.mul_plain_scalar(ct, 1.0 / prescale))
+    if sl > 1:
+        comp = (Fraction(boot_ctx.base_scale) if boot_ctx.base_scale is not None
+                else Fraction(2) ** (26 * sl))
+        return CE.ct_to(ex, sl, comp)
+    return CE.ct_drop_to(ex, sl)
+
+
+def encrypted_inference_bootstrapped(setup: FHESetup, boot_ctx, model_params,
+                                     batch: np.ndarray, gen: torch.Generator,
+                                     prescale: float = 4.0):
+    """The depth-unlimited forward pass, eager:
+
+        conv → square → dense 1 → square → exhaust → bootstrap → dense 2
+
+    After the second square the ciphertext is divided by ``prescale`` and
+    exhausted to the base tower, refreshed without the secret key
+    (``bootstrap.bootstrap``), and dense 2 runs at the regained depth with
+    ``prescale`` folded into its weights. Returns the decrypted logits
+    [classes, B] and the refreshed tower's depth."""
+    cfg = setup.cfg
+    exhausted = _exhaust(boot_ctx, _eager_to_square2(setup, model_params, batch, gen),
+                         prescale)
+    refreshed = B.bootstrap(boot_ctx, exhausted)
+    out = naive_rectangular_matmul(setup, np.asarray(model_params["w2"]) * prescale, refreshed)
+    out = CE.add_plain(out, _bias2(cfg, model_params))
+    return _decrypt_logits(setup, out), refreshed.ring.nlimbs
+
+
+def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
+                                prescale: float = 4.0):
+    """The bootstrapped pipeline on the compiled layers, each at its tower
+    level — conv → square → dense 1 → square → exhaust → bootstrap → dense 2 —
+    built once (layers, weights and the dense-1 diagonals encoded on the
+    keys' device). The dense layers iterate rotations with the setup's one
+    Galois key: at deep towers a BSGS key set would cost gigabytes. Dense 2
+    is built lazily at the refreshed tower and scale, which the first refresh
+    makes known; the refresh is ``bootstrap.bootstrap``'s three phases.
+
+    Returns ``run(batch, gen, layer_times=None) -> (logits [classes, B],
+    depth_out)``; ``layer_times`` (a dict) collects each stage's milliseconds
+    on the host clock, the device synchronised between stages, the refresh
+    as ``modraise_c2s``, ``evalmod`` and ``s2c``. ``run.exhaust(ct)`` and
+    ``run.dense2(refreshed)`` are the two stages around the refresh."""
+    cfg = setup.cfg
+    params = setup.params
+    device = setup.kp.pub.key.mask.device
+    ring0 = params.ring_cipher
+    n = ring0.n
+    s0 = setup.scale
+    d = cfg.positions
+
+    encode_dual = lambda ring, slots, scale: _encode_dual(ring, slots, scale, device)
+
+    enc = JL.BatchEncryptor(params, setup.kp.pub, sigma=3.2)
+
+    # ---- conv + bias + rescale at the full deep tower ----
+    w = np.asarray(model_params["conv_w"])
+    bconv = np.asarray(model_params["conv_b"])
+    q0 = ring0.modulus
+    wq = np.zeros((cfg.channels, cfg.kernel * cfg.kernel, ring0.nlimbs, 1), dtype=np.int64)
+    for c in range(cfg.channels):
+        for g in range(cfg.kernel * cfg.kernel):
+            m = round(float(w.reshape(-1, cfg.channels)[g, c]) * float(s0)) % q0
+            wq[c, g] = ring0.scalar_residues(m)
+    wq = torch.as_tensor(wq, device=device)
+    s_conv = s0 * s0
+    bias_dual = torch.stack([encode_dual(ring0, np.full(n // 2, float(bconv[c])), s_conv)
+                             for c in range(cfg.channels)], 0)
+    conv = JL.ConvLayer(params, ring0, cfg.channels).to(device)
+    ring1 = ring0.drop_last()
+    s1 = s_conv / ring0.primes[-1]
+
+    # ---- square 1 ----
+    sq1 = JL.SquareRelinLayer(params, setup.ek, ring1)
+    ring2 = ring1.drop_last()
+    s2 = s1 * s1 / ring1.primes[-1]
+
+    # ---- dense 1: iterated-rotation diagonal matmul per channel ----
+    w1 = np.asarray(model_params["w1"])
+    mat1 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring2)
+    diags1 = [torch.stack([
+        encode_dual(ring2, _rep_inner(np.diag(np.roll(w1[:, ci * d:(ci + 1) * d], k, axis=1)),
+                                      cfg.batch), s2)
+        for k in range(d)], 0) for ci in range(cfg.channels)]
+    s_fq1 = s2 * s2
+    b1_dual = encode_dual(ring2, _rep_inner(np.asarray(model_params["b1"]), cfg.batch), s_fq1)
+    br = JL.BiasRescaleLayer(ring2).to(device)
+    ring3 = ring2.drop_last()
+    s3 = s_fq1 / ring2.primes[-1]
+
+    # ---- square 2 ----
+    sq2 = JL.SquareRelinLayer(params, setup.ek, ring3)
+    ring4 = ring3.drop_last()
+    s4 = s3 * s3 / ring3.primes[-1]
+
+    # ---- dense 2 at the regained tower (built on the first refresh) ----
+    w2 = np.asarray(model_params["w2"]) * prescale
+    wpad2 = np.vstack([w2, np.zeros((d - w2.shape[0], d))])
+    bias2 = _bias2(cfg, model_params)
+    lazy2 = {}
+
+    def dense2(refreshed: CipherText) -> CipherText:
+        ringr, sr = refreshed.ring, Fraction(refreshed.enc.scale)
+        if lazy2.get("key") != (ringr, sr):
+            lazy2["key"] = (ringr, sr)
+            lazy2["mat"] = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element,
+                                                d, ringr)
+            lazy2["diag"] = torch.stack([
+                encode_dual(ringr, _rep_inner(np.diag(np.roll(wpad2, k, axis=1)), cfg.batch), sr)
+                for k in range(d)], 0)
+            lazy2["b2"] = encode_dual(ringr, bias2, sr * sr)
+        c1p = R.ensure_primal(ringr, refreshed.cs[0]).primal
+        c2p = R.ensure_primal(ringr, refreshed.cs[1]).primal
+        r1, r2 = lazy2["mat"](c1p, c2p, lazy2["diag"])
+        r1 = modmath.add_mod(r1, lazy2["b2"], ringr.mp)
+        return CipherText(params, (RingElt(dual=r1), RingElt(dual=r2)), ringr,
+                          enc=CKKSTag(sr * sr))
+
+    def refresh(ct: CipherText, clock) -> CipherText:
+        lo, hi = B.bootstrap_phase1(boot_ctx, ct)
+        clock("modraise_c2s")
+        ev = B.bootstrap_phase2(boot_ctx, lo, hi)
+        clock("evalmod")
+        out = B.bootstrap_phase3(boot_ctx, ev, *B._phase3_statics(boot_ctx, ct))
+        clock("s2c")
+        return out
+
+    def run(batch: np.ndarray, gen: torch.Generator, layer_times: Optional[dict] = None):
+        clock = _LayerClock(device, layer_times)
+        I = public_preprocess(cfg, batch)
+        pts = torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
+                           for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+        clock("encode")
+        cts = enc(pts, gen)                                # (G, 2, L0, N) dual
+        clock("encrypt")
+        conv_out = conv(cts, wq, bias_dual)                # (C, 2, L1, N) primal
+        clock("conv")
+        o1, o2 = sq1(conv_out[:, 0], conv_out[:, 1])       # (C, L2, N) primal
+        clock("square1")
+        fq1_1 = fq1_2 = None
+        for ci in range(cfg.channels):
+            r1, r2 = mat1(o1[ci], o2[ci], diags1[ci])      # dual at s2²
+            fq1_1 = r1 if fq1_1 is None else modmath.add_mod(fq1_1, r1, ring2.mp)
+            fq1_2 = r2 if fq1_2 is None else modmath.add_mod(fq1_2, r2, ring2.mp)
+        clock("dense1")
+        f1p, f2p = br(fq1_1, fq1_2, b1_dual)               # (L3, N) primal
+        clock("bias_rescale")
+        g1, g2 = sq2(f1p, f2p)                             # (L4, N) primal
+        clock("square2")
+        ct4 = CipherText(params, (RingElt(primal=g1), RingElt(primal=g2)), ring4,
+                         enc=CKKSTag(s4))
+        exhausted = _exhaust(boot_ctx, ct4, prescale)
+        clock("exhaust")
+        refreshed = refresh(exhausted, clock)
+        out = dense2(refreshed)
+        clock("dense2")
+        logits = _decrypt_logits(setup, out)
+        clock("decrypt")
+        return logits, refreshed.ring.nlimbs
+
+    run.exhaust = lambda ct: _exhaust(boot_ctx, ct, prescale)
+    run.dense2 = dense2
+    return run

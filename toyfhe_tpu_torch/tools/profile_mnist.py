@@ -1,14 +1,15 @@
 """Where one encrypted-MNIST batch spends its time on the card.
 
-    python3 -m toyfhe_tpu_torch.tools.profile_mnist [--schedule iterated|bsgs|both]
+    python3 -m toyfhe_tpu_torch.tools.profile_mnist [--schedule iterated|bsgs|both|bootstrapped]
 
 Builds the serving pipeline at ``MNISTConfig()`` with seeded random weights
 and images, warms it up, and runs one batch under ``torch.profiler``. For
-each schedule (the iterated rotation loop, or the BSGS dense layers with the
-dual flow) it prints the batch's wall time without the profiler, the
-profiled window, the number of device kernels, the device-busy time and its
-share of the unprofiled batch, and the kernels grouped by name. Needs a
-CUDA device.
+each schedule (the iterated rotation loop, the BSGS dense layers with the
+dual flow, or the bootstrapped pipeline of ``mnist.BOOTSTRAPPED_RECIPE``)
+it prints the batch's wall time without the profiler, the profiled window,
+the number of device kernels, the device-busy time and its share of the
+unprofiled batch, and the kernels grouped by name; for the bootstrapped
+pipeline, the same for one refresh alone. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def profile_batch(run, imgs, gen, device) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--schedule", choices=("iterated", "bsgs", "both"), default="both")
+    ap.add_argument("--schedule", choices=("iterated", "bsgs", "both", "bootstrapped"),
+                    default="both")
     ap.add_argument("--seed", type=int, default=17)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -75,22 +77,47 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     cfg = M.MNISTConfig()
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    setup = M.fhe_setup(cfg, gen)
     weights = M.init_params(cfg, args.seed)
     imgs = np.random.default_rng(args.seed).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
     print(f"device={torch.cuda.get_device_name(device)} N=2^{cfg.ring_logn} "
           f"batch={cfg.batch}", flush=True)
+    if args.schedule == "bootstrapped":
+        from ..core import bootstrap as B
+        setup, ctx = M.fhe_setup_bootstrapped(cfg, gen, **M.BOOTSTRAPPED_RECIPE)
+        run = M.build_bootstrapped_pipeline(setup, ctx, weights,
+                                            prescale=M.BOOTSTRAPPED_PRESCALE)
+        report("bootstrapped batch", profile_batch(run, imgs, gen, device))
+        vals = np.random.default_rng(args.seed).uniform(-0.7, 0.7, cfg.positions * cfg.batch)
+        c = encrypt_exhausted(setup, vals, gen)
+        report("one refresh", profile_batch(lambda *_: B.bootstrap(ctx, c), None, None, device))
+        return 0
+    setup = M.fhe_setup(cfg, gen)
     for schedule in (("iterated", "bsgs") if args.schedule == "both" else (args.schedule,)):
         gks = M.keygen_matmul_bsgs(setup, gen) if schedule == "bsgs" else None
         run = M.build_inference_pipeline(setup, weights, gks_bsgs=gks)
-        res = profile_batch(run, imgs, gen, device)
-        print(f"{schedule}: batch {res['wall_ms']:.1f} ms unprofiled, {res['window_ms']:.1f} ms "
-              f"profiled; {res['kernels']} device kernels, device busy {res['busy_ms']:.2f} ms "
-              f"= {100 * res['busy_ms'] / res['wall_ms']:.1f}% of the unprofiled batch "
-              f"(idle {100 - 100 * res['busy_ms'] / res['wall_ms']:.1f}%)", flush=True)
-        for name, (c, ms) in sorted(res["groups"].items(), key=lambda kv: -kv[1][1]):
-            print(f"  {name:<16} {c:6d} kernels {ms:9.2f} ms", flush=True)
+        report(schedule, profile_batch(run, imgs, gen, device))
     return 0
+
+
+def encrypt_exhausted(setup, vals, gen):
+    """An encryption of ``vals`` at the composite base scale 2^52, exhausted
+    to the two base limbs: a refresh's input."""
+    from fractions import Fraction
+
+    from ..core import ckks_encoding as CE
+    from ..core import rlwe
+    ring = setup.params.ring_cipher
+    c = rlwe.encrypt(setup.kp, CE.make_plaintext(ring, vals, Fraction(2) ** 52), gen)
+    return CE.ct_drop_to(c, 2)
+
+
+def report(what: str, res: dict) -> None:
+    print(f"{what}: {res['wall_ms']:.1f} ms unprofiled, {res['window_ms']:.1f} ms "
+          f"profiled; {res['kernels']} device kernels, device busy {res['busy_ms']:.2f} ms "
+          f"= {100 * res['busy_ms'] / res['wall_ms']:.1f}% of the unprofiled run "
+          f"(idle {100 - 100 * res['busy_ms'] / res['wall_ms']:.1f}%)", flush=True)
+    for name, (c, ms) in sorted(res["groups"].items(), key=lambda kv: -kv[1][1]):
+        print(f"  {name:<16} {c:6d} kernels {ms:9.2f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -129,3 +129,85 @@ def ciphertext(params: SchemeParams, ring: RingContext, components: Sequence,
 def ciphertext_to_numpy(c: CipherText, domain: str = "dual") -> np.ndarray:
     """The components stacked as uint32 [ncomp, ..., L, N]."""
     return np.stack([elt_to_numpy(c.ring, x, domain) for x in c.cs])
+
+
+def bootstrap_context(params: SchemeParams, ek_masks, ek_maskeds, gk_elements: Sequence[int],
+                      gk_masks, gk_maskeds, conj_element: int, conj_masks, conj_maskeds, *,
+                      K: float, deg: int, plan=None, arcsin: bool = False,
+                      double_angle: int = 0, scale_limbs: int = 1, base_scale=None,
+                      domain: str = "dual", device):
+    """The port's ``BootstrapContext`` from an exported one: the
+    relinearization key stacks, one pair of stacks per rotation key with its
+    Galois element, the conjugation key's element and stacks (each
+    [ndig, L, N] over ``params.ring_key``), and the plan as ``(n, radix)``
+    (None for the dense transforms); K, deg, arcsin, double_angle,
+    scale_limbs and base_scale as the exported context holds them."""
+    from ..core import bootstrap as B
+    from ..core import sfft as SF
+
+    return B.BootstrapContext(
+        ek=eval_mult_key(params, ek_masks, ek_maskeds, domain, device=device),
+        gks=galois_keys(params, gk_elements, gk_masks, gk_maskeds, domain, device=device),
+        gk_conj=galois_key(params, conj_element, conj_masks, conj_maskeds, domain,
+                           device=device),
+        K=float(K), deg=int(deg), plan=None if plan is None else SF.SfftPlan(*plan),
+        arcsin=bool(arcsin), double_angle=int(double_angle), scale_limbs=int(scale_limbs),
+        base_scale=None if base_scale is None else Fraction(base_scale))
+
+
+def fhe_setup_bootstrapped_from_numpy(cfg, secret, pub_mask, pub_masked, ek_masks,
+                                      ek_maskeds, gk_element: int, gk_masks, gk_maskeds, *,
+                                      depth: int, limb_bits: int = 28, scale_log2: int = 28,
+                                      hamming_weight: int = 4, scale_limbs: int = 1, device):
+    """The key set of ``models.mnist.fhe_setup_bootstrapped`` from exported
+    key material (the secret and public key primal over the key tower, the
+    relinearization and Galois key stacks as duals), over the parameters of
+    ``mnist.make_bootstrapped_params`` with the same arguments."""
+    from ..models import mnist as M
+
+    params, composite_log2 = M.make_bootstrapped_params(cfg, depth, limb_bits,
+                                                        hamming_weight, scale_limbs)
+    kp = KeyPair(priv_key(params, secret, device=device),
+                 pub_key(params, pub_mask, pub_masked, device=device))
+    return M.FHESetup(cfg, params, kp,
+                      eval_mult_key(params, ek_masks, ek_maskeds, device=device),
+                      galois_key(params, gk_element, gk_masks, gk_maskeds, device=device),
+                      Fraction(2) ** (composite_log2 or scale_log2))
+
+
+def to_device(obj, device):
+    """A copy of a port object with its tensors on ``device``: a ring
+    element, a key (component, switching key, relinearization or Galois key
+    or key set, private or public key, key pair), a ciphertext or a
+    ``BootstrapContext`` (whose encode store starts empty)."""
+    import dataclasses
+
+    from ..core.bootstrap import BootstrapContext
+
+    mv = lambda t: None if t is None else t.to(device)
+    if isinstance(obj, RingElt):
+        return RingElt(primal=mv(obj.primal), dual=mv(obj.dual))
+    if isinstance(obj, KeyComponent):
+        return KeyComponent(to_device(obj.mask, device), to_device(obj.masked, device))
+    if isinstance(obj, KeySwitchKey):
+        return KeySwitchKey(obj.params, [to_device(c, device) for c in obj.key], obj.ring)
+    if isinstance(obj, EvalMultKey):
+        return EvalMultKey(to_device(obj.key, device))
+    if isinstance(obj, GaloisKey):
+        return GaloisKey(obj.galois_element, to_device(obj.key, device))
+    if isinstance(obj, GaloisKeys):
+        return GaloisKeys([to_device(k, device) for k in obj.keys])
+    if isinstance(obj, PrivKey):
+        return PrivKey(obj.params, to_device(obj.secret, device))
+    if isinstance(obj, PubKey):
+        return PubKey(obj.params, to_device(obj.key, device))
+    if isinstance(obj, KeyPair):
+        return KeyPair(to_device(obj.priv, device), to_device(obj.pub, device))
+    if isinstance(obj, CipherText):
+        return CipherText(obj.params, tuple(to_device(x, device) for x in obj.cs), obj.ring,
+                          enc=obj.enc)
+    if isinstance(obj, BootstrapContext):
+        return dataclasses.replace(obj, ek=to_device(obj.ek, device),
+                                   gks=to_device(obj.gks, device),
+                                   gk_conj=to_device(obj.gk_conj, device), plain_cache={})
+    raise TypeError(f"no device copy for {type(obj).__name__}")

@@ -52,6 +52,59 @@ def next_prime(start: int, interval: int = 1) -> int:
     return p
 
 
+def prev_prime(start: int, interval: int = 1) -> int:
+    """Largest prime p <= start with p ≡ start (mod interval) (2 if none)."""
+    p = start
+    while p > 2 and not is_prime(p):
+        p -= interval
+    return p
+
+
+def balanced_pair_primes(n: int, npairs: int, bits: int = 26,
+                         avoid=()) -> List[int]:
+    """2·npairs NTT-friendly primes (≡ 1 mod 2N) straddling 2^bits, greedily
+    paired so each adjacent pair's product sits as close to 2^(2·bits) as
+    possible. Returns a flat list [a₁, b₁, a₂, b₂, …]: each (a, b) is one
+    composite-scale level.
+
+    Under composite scaling the CKKS equilibrium scale' = scale²/pair is
+    unstable: a log-deficit δ = log₂(pair / 2^(2·bits)) doubles at every
+    multiplicative level. An upward prime walk puts every pair above
+    2^(2·bits), and at N = 2^13 the ≡ 1 (mod 2N) lattice is coarse enough
+    that the compounded deficit collapses the working scale inside EvalMod;
+    pairing one prime above 2^bits with one below keeps each pair within
+    about 1e-3 bits of the target."""
+    m = 2 * n
+    target = 1 << (2 * bits)
+    avoid = set(avoid)
+    ups: List[int] = []
+    x = (1 << bits) + 1
+    while len(ups) < npairs + 8:
+        p = next_prime(x, interval=m)
+        if p not in avoid:
+            ups.append(p)
+        x = p + m
+    downs: List[int] = []
+    y = (1 << bits) + 1 - m
+    while len(downs) < npairs + 8 and y > (1 << (bits - 1)):
+        if is_prime(y) and y not in avoid:
+            downs.append(y)
+        y -= m
+    if len(downs) < npairs:
+        raise ValueError(f"not enough downward NTT primes below 2^{bits}")
+    pairs = []
+    downs_left = list(downs)
+    for u in ups[:npairs]:
+        best = min(downs_left, key=lambda d: abs(u * d - target))
+        downs_left.remove(best)
+        pairs.append((u, best))
+    # rescales consume pairs from the end of the tower, and the deficit of
+    # the first-consumed pair is doubled the most times: put the
+    # best-balanced pairs last
+    pairs.sort(key=lambda pr: -abs(pr[0] * pr[1] - target))
+    return [p for pr in pairs for p in pr]
+
+
 def ntt_prime_chain(n: int, logqs: Sequence[int]) -> List[int]:
     """Pick one NTT-friendly prime (≡ 1 mod 2n) per requested bit size.
 
