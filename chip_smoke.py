@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the toyfhe_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed S]
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
 source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
@@ -78,7 +78,21 @@ replaced). Then, for each path:
   then the bootstrapped encrypted-MNIST pipeline at ``MNISTConfig()`` on a
   depth-46 tower (conv → square → dense 1 → square → exhaust → refresh →
   dense 2), its logits held against the plaintext pass, its K1 launches
-  counted and its stages timed (every transform of these paths is K1).
+  counted and its stages timed (every transform of these paths is K1);
+* the exact schemes (every transform K1 again): K1 bit-equal to its plain
+  twin in every variant at their towers (the 16-limb BEHZ tower of
+  ``bfv_params(65537, eval_mult_count=4)`` at the product tree's batches,
+  the 17-bit plaintext slot ring, the ``bfv_crt`` towers past 2^30, the
+  BGV towers and their drops) and the golden scenarios ``bfv_triv``,
+  ``bfv_keyswitch``, ``bfv_simd``, ``bgv_triv`` and ``bfv_crt`` decoded
+  exactly on the card; SIMD BFV at N = 2^13: a depth-4 product tree over 16
+  ciphertexts (keys made on the CPU, slot vectors and encryptions from
+  ``--seed``), each level one batched BEHZ multiply and one
+  relinearization, card == CPU and the noise budget read at every level,
+  the last slots equal to the numpy product; leveled BGV at N = 2^13
+  (tower (28,)×5 + (30, 30), p = 65537): square → key switch → rescale, 3
+  levels under ModulusRaised and 2 under HybridRaised(3, 2), card == CPU
+  and the slots exact at every level.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -95,7 +109,10 @@ non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -211,15 +228,25 @@ def phase_kernel_vs_plain(dev):
     butterflies (a tower with a prime in [2^30, 2^31) takes only the latter),
     and the one-block radix-2 kernel; on small towers and on the production
     bootstrap tower at the bootstrapped path's own polynomial counts."""
-    from toyfhe_tpu_torch.ops import ntt as nttmod
-    from toyfhe_tpu_torch.ops import ntt_cuda
-
     log("== phase 3: K1 against plain radix-2 on the card: the cluster kernel at every legal "
         "cluster size, lazy and fully reduced, and the one-block radix-2 kernel")
     gen = torch.Generator(device=dev).manual_seed(3)
     err = {"fwd": 0, "inv": 0}
+    k1_check(dev, k1_sweep_cases(), gen, err)
+    return err
+
+
+def k1_check(dev, cases, gen, err):
+    """Every K1 variant against the plain twin over ``cases`` (N, tower
+    label, primes, leads): as dispatched, the radix-2 kernel and the cluster
+    kernel at every legal cluster size, lazy and fully reduced where the
+    tower allows lazy; then the round trip. Raises on the first difference,
+    keeps the largest difference in ``err``."""
+    from toyfhe_tpu_torch.ops import ntt as nttmod
+    from toyfhe_tpu_torch.ops import ntt_cuda
+
     ncase = nlaunch = 0
-    for n, tower, primes, leads in k1_sweep_cases():
+    for n, tower, primes, leads in cases:
         tables = nttmod.NttTables(n, primes)
         can_lazy = max(tables.primes) < ntt_cuda.LAZY_PRIME_LIMIT
         variants = [(c, lz) for c in ntt_cuda.legal_clusters(n)
@@ -260,7 +287,6 @@ def phase_kernel_vs_plain(dev):
             f"{'lazy and full' if can_lazy else 'full (a prime >= 2^30)'} + radix-2 + the "
             f"chooser's pick ({', '.join(picks)} polynomials): bit-equal, round trip exact")
     log(f"{ncase} cases, {nlaunch} launches: every K1 variant == plain, intt(ntt(x)) == x")
-    return err
 
 
 def _entry_operands(n, tower, batch, seed):
@@ -1905,6 +1931,356 @@ def phase_boot_mnist(dev, smi, boot):
 
 
 # ---------------------------------------------------------------------------
+# the exact schemes: BFV with the BEHZ multiply and leveled BGV
+# ---------------------------------------------------------------------------
+
+GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                           "reference_vectors.json")
+GOLDEN_SEED = 20260820      # the seed the goldens' plaintext vectors were drawn from
+EXACT_GOLDENS = ("bfv_triv", "bfv_keyswitch", "bfv_simd", "bgv_triv", "bfv_crt")
+BFV_P, BFV_EMC = 65537, 4   # bfv_params(65537, eval_mult_count=4): N = 8192, 7 x 28-bit limbs
+BFV_TREE = 16               # ciphertexts at the leaves of the depth-4 product tree
+BGV_N, BGV_P, BGV_BATCH = 1 << 13, 65537, 4
+BGV_TOWER = (28,) * 5 + (30, 30)
+
+
+def vec_matches(rec: dict, xs) -> bool:
+    """A decoded vector against its golden record: the whole list, or its
+    length, its first 64 entries and the sha256 of the list's ``repr``."""
+    xs = [int(x) for x in xs]
+    if "full" in rec:
+        return rec["full"] == xs
+    return (rec["len"] == len(xs) and rec["prefix"] == xs[:64]
+            and hashlib.sha256(repr(xs).encode()).hexdigest() == rec["sha256"])
+
+
+def golden_plain_vec(n, p):
+    return np.random.default_rng(GOLDEN_SEED).integers(0, p, size=n)
+
+
+def bfv_crt_params():
+    """The ``bfv_crt`` scenario's hand-built parameters: a (30, 29)-bit tower
+    at N = 2048, an auxiliary base of four primes continuing the prime walk
+    past it (above 2^30), p = 53, window 1, σ = 3.2, Δ = ⌊q/53⌋."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    n = 2048
+    ring = T.make_rns_ring(n, (30, 29))
+    last, aux = max(ring.primes), []
+    for _ in range(4):
+        last = nt.next_prime(last + 2 * n, interval=2 * n)
+        aux.append(last)
+    return T.BFVParams(ring, T.make_ring(n, aux), T.PlainRing(n, 53), 1, 3.2,
+                       delta=ring.modulus // 53)
+
+
+def exact_golden_vectors(name, dev):
+    """Golden scenario ``name`` on ``dev`` with the port's own keys: (N, the
+    decoded vectors by check name, with the drawn plaintext vectors under
+    "plain/..."), after the literal asserts of the reference's test of the
+    scenario. An exact scheme decodes the recorded vectors whatever the keys
+    and the noise."""
+    import toyfhe_tpu_torch as T
+
+    gen = torch.Generator(device=dev).manual_seed(GOLDEN_SEED)
+    dec = lambda kp, c: T.decrypt(kp, c).coeffs
+    slots = lambda kp, c: T.slot_decode(T.decrypt(kp, c), device=dev)
+    out = {}
+    if name == "bfv_simd":
+        params = T.bfv_params(65537, eval_mult_count=1)
+        pring = params.plaintext_space()
+        n = pring.n
+        kp = T.keygen(params, gen)
+        s1 = np.zeros(n, dtype=np.int64)
+        s1[:2] = 1
+        s2 = np.full(n, 10, dtype=np.int64)
+        s2[0] = 5
+        c1, c2 = (T.encrypt(kp, T.slot_encode(pring, s, device=dev), gen) for s in (s1, s2))
+        d = slots(kp, T.ct_mul(c1, c2))
+        if d[0] != 5 or d[1] != 10 or d[2:].any():
+            raise AssertionError("bfv_simd: slot products wrong")
+        out["slots_mul"] = d
+        sv = out["plain/slots"] = golden_plain_vec(n, 65537)
+        cv = T.encrypt(kp, T.slot_encode(pring, sv, device=dev), gen)
+        out["vec_slots_sq"] = slots(kp, T.ct_mul(cv, cv))
+        return n, out
+    p, scalar = {"bfv_triv": (53, 6), "bfv_keyswitch": (7, 2), "bgv_triv": (256, 6),
+                 "bfv_crt": (53, 6)}[name]
+    if name == "bgv_triv":
+        params = T.BGVParams(T.cryptparams.palisade_ring(4096), 256, 8 / (2 * np.pi) ** 0.5)
+    elif name == "bfv_crt":
+        params = bfv_crt_params()
+    else:
+        params = T.bfv_params(p, eval_mult_count={"bfv_triv": 2, "bfv_keyswitch": 3}[name])
+    pring = params.plaintext_space()
+    kp = T.keygen(params, gen)
+    c = T.encrypt(kp, T.scalar_encode(pring, scalar), gen)
+    m = out["plain/vec"] = golden_plain_vec(pring.n, p)
+    cv = T.encrypt(kp, T.coeff_encode(pring, m), gen)
+    if name == "bfv_keyswitch":
+        ek = T.keygen_eval_mult(gen, kp.priv)
+        csq = T.ct_mul(c, c)
+        out["dec_sq"] = dec(kp, csq)
+        cs = T.keyswitch(ek, csq)
+        cvs = T.keyswitch(ek, T.ct_mul(cv, cv))
+        if len(cs.cs) != 2 or len(cvs.cs) != 2:
+            raise AssertionError("bfv_keyswitch: the key switch left three components")
+        out["dec_keyswitched"] = dec(kp, cs)
+        out["dec_mul_after_switch"] = dec(kp, T.ct_mul(cs, c))
+        out["vec_sq_switched"] = dec(kp, cvs)
+        return pring.n, out
+    out["dec"] = dec(kp, c)
+    dsq = dec(kp, T.ct_mul(c, c))
+    if dsq[0] != 36:
+        raise AssertionError(f"{name}: 6 squared decoded as {dsq[0]}")
+    if name == "bfv_crt":
+        # the recorded full square wraps the literal big ring of the source
+        # test; the BEHZ base does not, so it is held against the sound record
+        out["dec_sq0"], out["dec_sq_sound"] = int(dsq[0]), dsq
+    else:
+        out["dec_sq"] = dsq
+    if name == "bfv_triv":
+        out["vec_dec"] = dec(kp, cv)
+    out["vec_sq"] = dec(kp, T.ct_mul(cv, cv))
+    return pring.n, out
+
+
+def check_exact_golden(name, scenarios, dev) -> int:
+    """Run golden scenario ``name`` on ``dev`` and hold every decoded vector
+    to its record, exactly; the number of vectors checked."""
+    g = scenarios[name]
+    n, vecs = exact_golden_vectors(name, dev)
+    if n != g["params"]["n"]:
+        raise AssertionError(f"{name}: parameter generation gave N={n}, the record {g['params']['n']}")
+    for key, xs in vecs.items():
+        group, _, k = key.rpartition("/")
+        rec = g["plain" if group else "checks"][k]
+        if not (rec == xs if isinstance(rec, int) else vec_matches(rec, xs)):
+            raise AssertionError(f"{name}: {key} differs from the golden record")
+    return len(vecs)
+
+
+def exact_k1_cases():
+    """(N, tower label, primes, leads) of phase 28: the towers the exact
+    schemes put through K1, at their polynomial counts."""
+    import toyfhe_tpu_torch as T
+
+    bfv = T.bfv_params(BFV_P, eval_mult_count=BFV_EMC)
+    q, ext = bfv.ring_cipher.primes, bfv.mul_ctx().ext_ring.primes
+    crt = bfv_crt_params()
+    bgv = T.make_rns_ring(BGV_N, BGV_TOWER).primes
+    cases = [(8192, "BFV q+Bsk", ext, ((8,), (4,), (2,), (1,))),
+             (8192, "BFV q", q, ((8,), (1,), (7, 8), (7, 1))),
+             (8192, "slots p=65537", [BFV_P], ((), (BGV_BATCH,), (BFV_TREE,))),
+             (2048, "bfv_crt q+Bsk", crt.mul_ctx().ext_ring.primes, ((), (2,))),
+             (2048, "bfv_crt q", crt.ring_cipher.primes, ((), (2,))),
+             (8192, "BGV key tower", bgv, ((),))]
+    # ModulusRaised: the ciphertext tower at each level, and its key switch's
+    # digits over the tower raised by the special prime
+    for lt in (6, 5, 4):
+        cases.append((8192, f"BGV q[:{lt}]", bgv[:lt], ((BGV_BATCH,),)))
+        cases.append((8192, f"BGV q[:{lt}]+special", bgv[:lt] + bgv[-1:],
+                      ((lt, BGV_BATCH), (BGV_BATCH,))))
+    # HybridRaised(3, 2): the raised towers Q_t ∪ P, and the out-of-group
+    # rows of each digit that its key switch transforms
+    hybrid = T.HybridRaised(T.BGVParams(T.make_rns_ring(BGV_N, BGV_TOWER), BGV_P, 3.2), 3, 2)
+    for lt in (5, 4):
+        raised = bgv[:lt] + bgv[5:]
+        cases.append((8192, f"BGV q[:{lt}]+P", raised, ((2, BGV_BATCH),)))
+        for j, (_, _, out_idx) in enumerate(hybrid.digit_rows(lt)):
+            cases.append((8192, f"BGV q[:{lt}]+P digit {j} out-of-group",
+                          [raised[i] for i in out_idx], ((BGV_BATCH,),)))
+    return cases
+
+
+def phase_exact_k1_goldens(dev):
+    """K1 held against its plain twin at the exact schemes' shapes in every
+    variant, then the exact golden scenarios on the card."""
+    log("== phase 28: K1 at the exact schemes' shapes (the BFV extended tower, the plaintext "
+        "slot ring, the bfv_crt tower past 2^30, the BGV towers and their drops), every "
+        "variant; the exact golden scenarios on the card")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    err = {"fwd": 0, "inv": 0}
+    k1_check(dev, exact_k1_cases(), gen, err)
+    with open(GOLDEN_PATH) as f:
+        scenarios = json.load(f)["scenarios"]
+    for name in EXACT_GOLDENS:
+        t0 = time.perf_counter()
+        nvec = check_exact_golden(name, scenarios, dev)
+        log(f"golden {name} (N={scenarios[name]['params']['n']}): {nvec} vectors decode "
+            f"exactly as recorded, {time.perf_counter() - t0:.2f} s with keygen")
+    return err
+
+
+def ct_rows(c, lo, hi):
+    """Entries [lo, hi) of a ciphertext batched on its first axis."""
+    import toyfhe_tpu_torch as T
+    cut = lambda t: None if t is None else t[lo:hi]
+    return T.CipherText(c.params, tuple(T.RingElt(primal=cut(x.primal), dual=cut(x.dual))
+                                        for x in c.cs), c.ring, enc=c.enc)
+
+
+def pub_key_bytes(kp) -> int:
+    return sum(t.numel() * t.element_size()
+               for e in (kp.pub.key.mask, kp.pub.key.masked, kp.priv.secret)
+               for t in (e.primal, e.dual) if t is not None)
+
+
+def phase_bfv_tree(dev, smi, seed):
+    """SIMD BFV at full width: a depth-4 product tree over 16 ciphertexts,
+    each level one batched multiply and one relinearization, the card held
+    to the CPU at every level, the noise budget read at every level and the
+    last slots decoded against numpy; each level timed warm, in its parts,
+    and once under ``torch.profiler`` (device-busy share)."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import rlwe
+    from toyfhe_tpu_torch.ops import ntt_cuda
+    from toyfhe_tpu_torch.tools.profile_mnist import profile_batch
+    from toyfhe_tpu_torch.utils import interop as I
+
+    params = T.bfv_params(BFV_P, eval_mult_count=BFV_EMC)
+    ring, n = params.ring_cipher, params.ring_cipher.n
+    ext = params.mul_ctx().ext_ring
+    log(f"== phase 29: SIMD BFV at full width (bfv_params({BFV_P}, eval_mult_count={BFV_EMC}): "
+        f"N={n}, q {ring.nlimbs} limbs = {ring.log2q:.1f} bits, "
+        f"BEHZ tower {ext.nlimbs} limbs), a depth-4 product tree over {BFV_TREE} ciphertexts "
+        f"[{smi}]")
+    t0 = time.perf_counter()
+    gen_cpu = torch.Generator().manual_seed(seed)
+    kp = T.keygen(params, gen_cpu)
+    ek = T.keygen_eval_mult(gen_cpu, kp.priv)
+    kp_d, ek_d = I.to_device(kp, dev), I.to_device(ek, dev)
+    log(f"keys on the CPU and copied to the card in {time.perf_counter() - t0:.2f} s: "
+        f"relinearization key {key_bytes(ek_d) / 2**20:.1f} MiB ({len(ek.key.key)} digits), "
+        f"public key and secret {pub_key_bytes(kp_d) / 2**20:.1f} MiB")
+    pring = params.plaintext_space()
+    vals = np.random.default_rng(seed).integers(0, BFV_P, (BFV_TREE, n))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pts = T.slot_encode(pring, vals, device=dev)
+    c = T.ct_stack([T.encrypt(kp_d, T.PlainPoly(pring, pts.coeffs[i]), gen)
+                    for i in range(BFV_TREE)])
+    cpu = I.to_device(c, "cpu")
+
+    def level(ek_, x):
+        h = x.cs[0].shape[0] // 2
+        return T.keyswitch(ek_, T.ct_mul(ct_rows(x, 0, h), ct_rows(x, h, 2 * h)))
+
+    levels = []
+    budget0 = min(T.invariant_noise_budget(kp_d, T.ct_index(c, i)) for i in range(BFV_TREE))
+    for depth in range(1, 5):
+        prev = c
+        sync(dev)
+        reset_launches()
+        c = level(ek_d, prev)
+        sync(dev)
+        launches, polys = dict(ntt_cuda.launches), sum(ntt_cuda.transforms.values())
+        h = c.cs[0].shape[0]
+        cpu = level(ek, cpu)
+        if not same_ct(c, cpu):
+            raise AssertionError(f"BFV level {depth}: the card differs from the CPU")
+        vals = vals[:h] * vals[h:2 * h] % BFV_P
+        t0 = time.perf_counter()
+        budgets = [T.invariant_noise_budget(kp_d, T.ct_index(c, i)) for i in range(h)]
+        meter_s = (time.perf_counter() - t0) / h
+        if min(budgets) <= 0:
+            raise AssertionError(f"BFV level {depth}: noise budget {min(budgets):.1f} bits")
+        # warm timings of the level and of its parts on the previous level's batch
+        a, b = ct_rows(prev, 0, h), ct_rows(prev, h, 2 * h)
+        _, (ea, eb) = params.mul_expand_pair(a, b)
+        prod = rlwe.tensor_product(ext, ea, eb)
+        sq = T.ct_mul(a, b)
+        ms = {"level": cuda_ms(lambda: level(ek_d, prev)),
+              "ct_mul": cuda_ms(lambda: T.ct_mul(a, b)),
+              "expand": cuda_ms(lambda: params.mul_expand_pair(a, b)),
+              "tensor": cuda_ms(lambda: rlwe.tensor_product(ext, ea, eb)),
+              "contract": cuda_ms(lambda: params.mul_contract_pair(ext, prod)),
+              "keyswitch": cuda_ms(lambda: T.keyswitch(ek_d, sq))}
+        prof = profile_batch(lambda *_: level(ek_d, prev), None, None, dev)
+        levels.append(dict(depth=depth, batch=h, launches=launches, polys=polys, ms=ms,
+                           budget=min(budgets), meter_s=meter_s, prof=prof))
+        log(f"level {depth}: {h} ct_mul + keyswitch in one batched call each, card == CPU; "
+            f"K1 {launches['fwd']} + {launches['inv']} launches, {polys} limb polynomials; "
+            f"noise budget >= {min(budgets):.1f} bits (fresh {budget0:.1f}); warm ms: level "
+            f"{ms['level']:.3f}, ct_mul {ms['ct_mul']:.3f} (expand {ms['expand']:.3f}, tensor "
+            f"{ms['tensor']:.3f}, contract {ms['contract']:.3f}), keyswitch "
+            f"{ms['keyswitch']:.3f}; host meter {meter_s * 1e3:.1f} ms a ciphertext [{smi}]")
+        log(f"  profiled level {depth}: {prof['kernels']} device kernels, device busy "
+            f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} (idle "
+            f"{100 - 100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); by group: " +
+            ", ".join(f"{g} {c} / {t:.3f} ms" for g, (c, t) in sorted(prof["groups"].items())))
+    t0 = time.perf_counter()
+    got = T.slot_decode(T.decrypt(kp_d, T.ct_index(c, 0)), device=dev)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, vals[0]):
+        raise AssertionError("BFV product tree: the final slots differ from the numpy product")
+    launches = {k: sum(lv["launches"][k] for lv in levels) for k in ("fwd", "inv")}
+    log(f"final slot_decode == the product of the {BFV_TREE} slot vectors mod {BFV_P}, exactly "
+        f"(host decrypt + decode {decode_ms:.1f} ms); the tree: K1 {launches['fwd']} + "
+        f"{launches['inv']} launches")
+    return dict(levels=levels, launches=launches, decode_ms=decode_ms, budget0=budget0,
+                key_mib=key_bytes(ek_d) / 2**20)
+
+
+def phase_bgv_levels(dev, smi, seed):
+    """Leveled BGV at full width: square → key switch → rescale, 3 levels
+    under ModulusRaised and 2 under HybridRaised(dnum=3, num_special=2), on a
+    batch of slot vectors, the card held to the CPU at every level and the
+    slots decoded exactly through the BGVTag factor."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bfv
+    from toyfhe_tpu_torch.ops import ntt_cuda
+    from toyfhe_tpu_torch.utils import interop as I
+
+    log(f"== phase 30: leveled BGV at full width (N={BGV_N}, tower {BGV_TOWER}, p={BGV_P}, "
+        f"a batch of {BGV_BATCH}): square -> key switch -> rescale [{smi}]")
+    ring = T.make_rns_ring(BGV_N, BGV_TOWER)
+    base = T.BGVParams(ring, BGV_P, bfv.DEFAULT_SIGMA)
+    out = {}
+    for label, params, depth in (("modraised", T.ModulusRaised(base), 3),
+                                 ("hybrid", T.HybridRaised(base, 3, 2), 2)):
+        gen_cpu = torch.Generator().manual_seed(seed)
+        kp = T.keygen(params, gen_cpu)
+        ek = T.keygen_eval_mult(gen_cpu, kp.priv)
+        kp_d, ek_d = I.to_device(kp, dev), I.to_device(ek, dev)
+        pring = params.plaintext_space()
+        vals = np.random.default_rng(seed).integers(0, BGV_P, (BGV_BATCH, BGV_N))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pts = T.slot_encode(pring, vals, device=dev)
+        c = T.ct_stack([T.encrypt(kp_d, T.PlainPoly(pring, pts.coeffs[i]), gen)
+                        for i in range(BGV_BATCH)])
+        cpu = I.to_device(c, "cpu")
+        step = lambda k, x: T.ct_rescale(T.keyswitch(k, T.ct_mul(x, x)))
+        rows = []
+        for lvl in range(1, depth + 1):
+            prev = c
+            sync(dev)
+            reset_launches()
+            c = step(ek_d, prev)
+            sync(dev)
+            launches, polys = dict(ntt_cuda.launches), sum(ntt_cuda.transforms.values())
+            cpu = step(ek, cpu)
+            if not same_ct(c, cpu):
+                raise AssertionError(f"BGV {label} level {lvl}: the card differs from the CPU")
+            vals = vals * vals % BGV_P
+            for i in range(BGV_BATCH):
+                got = T.slot_decode(T.decrypt(kp_d, T.ct_index(c, i)), device=dev)
+                if not np.array_equal(got, vals[i]):
+                    raise AssertionError(f"BGV {label} level {lvl}: slots of {i} differ")
+            budget = min(T.bgv_noise_budget(kp_d, T.ct_index(c, i)) for i in range(BGV_BATCH))
+            ms = cuda_ms(lambda: step(ek_d, prev))
+            rows.append(dict(level=lvl, limbs=c.ring.nlimbs, launches=launches, polys=polys,
+                             budget=budget, ms=ms))
+            log(f"{label} level {lvl}: {c.ring.nlimbs} limbs left, card == CPU, slots exact "
+                f"(BGVTag factor {c.enc.mult}), budget {budget:.1f} bits, K1 {launches['fwd']} "
+                f"+ {launches['inv']} launches ({polys} limb polynomials), warm {ms:.3f} ms "
+                f"[{smi}]")
+        out[label] = dict(rows=rows, launches={k: sum(r["launches"][k] for r in rows)
+                                               for k in ("fwd", "inv")})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the least time the card could take (the kernels line's bound_ms)
 # ---------------------------------------------------------------------------
 
@@ -1977,6 +2353,10 @@ def bound_k6(fk, lead: int = 1) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="On-card smoke run of toyfhe_tpu_torch.")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the exact schemes' keys, slot vectors and encryptions")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2025,6 +2405,9 @@ def main() -> int:
     boot_small = phase_boot_card_vs_cpu(dev, smi)
     boot = phase_boot_full(dev, smi)
     bmn = phase_boot_mnist(dev, smi, boot)
+    exact_err = phase_exact_k1_goldens(dev)
+    tree = phase_bfv_tree(dev, smi, args.seed)
+    bgv = phase_bgv_levels(dev, smi, args.seed)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -2037,8 +2420,11 @@ def main() -> int:
                               "mnist_bsgs_dual_flow": bsgs["launches"][k],
                               "refresh_n2^10": boot_small["launches"][k],
                               "refresh_n2^13": boot["launches"][k],
-                              "mnist_bootstrapped": bmn["launches"][k]},
-         "max_abs_err": err[k],
+                              "mnist_bootstrapped": bmn["launches"][k],
+                              "bfv_tree_n2^13": tree["launches"][k],
+                              "bgv_modraised_3_levels": bgv["modraised"]["launches"][k],
+                              "bgv_hybrid_2_levels": bgv["hybrid"]["launches"][k]},
+         "max_abs_err": max(err[k], exact_err[k]),
          "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],
          **bound_transform(28, 7, 1 << 13), "library_ms": None}
@@ -2094,7 +2480,12 @@ def main() -> int:
         f"refresh in a batch of 2), {boot['levels']} limbs out at error {boot['err']:.3e}; "
         f"bootstrapped MNIST {bmn['ms']:.1f} ms per batch, depth_out {bmn['depth_out']}, logit "
         f"error {bmn['err']:.3e}, K1 {bmn['launches']['fwd']} + {bmn['launches']['inv']} "
-        f"launches")
+        f"launches; BFV product tree at N=2^13 "
+        f"{sum(lv['ms']['level'] for lv in tree['levels']):.2f} ms over its 4 levels, last "
+        f"budget {tree['levels'][-1]['budget']:.1f} bits, K1 {tree['launches']['fwd']} + "
+        f"{tree['launches']['inv']} launches; BGV "
+        + ", ".join(f"{k} {len(v['rows'])} levels {sum(r['ms'] for r in v['rows']):.2f} ms, last "
+                    f"budget {v['rows'][-1]['budget']:.1f} bits" for k, v in bgv.items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -212,16 +212,18 @@ def test_passthrough_params_and_guards():
     with pytest.raises(ValueError):                   # P too small for α = 6
         T.HybridRaised(T.CKKSParams(T.make_rns_ring(32, (28,) * 7 + (20,)), 0, 3.2), 1, 1)
 
-    class BGVLike(T.CKKSParams):
-        def scheme_name(self):
-            return "BGV"
-
-    bgv = T.HybridRaised(BGVLike(base.ring_cipher, 0, 3.2), 3, 2)
-    with pytest.raises(NotImplementedError):
-        trlwe.bgv_plain_modulus(bgv)
-    with pytest.raises(NotImplementedError):
-        exp = bgv._tables(6)[0]
-        bgv.hybrid_contract(exp, T.RingElt(dual=torch.zeros(8, 32, dtype=torch.int64)))
+    # a BGV base: the contraction takes the p-adapted rounding at each
+    # special prime, on the primal form, in place of the fused ModDown
+    bgv = T.HybridRaised(T.BGVParams(base.ring_cipher, 257, 3.2), 3, 2)
+    assert trlwe.bgv_plain_modulus(bgv) == 257
+    exp = bgv._tables(6)[0]
+    acc = torch.as_tensor(np.random.default_rng(0).integers(0, 1 << 27, (2, 8, 32)))
+    ring, got = bgv.hybrid_contract(exp, T.RingElt(dual=acc))
+    want_ring, want = exp, T.ringops.ensure_primal(exp, T.RingElt(dual=acc))
+    for _ in range(2):
+        want_ring, want = T.ringops.rescale_adapted(want_ring, want, 257)
+    assert ring is want_ring and ring.primes == exp.primes[:6] and got.dual is None
+    assert torch.equal(got.primal, want.primal)
 
 
 def test_ring_select_repeated_rows():

@@ -121,10 +121,14 @@ def test_port_import_leaves_jax_out():
             "toyfhe_tpu_torch.core.sfft, toyfhe_tpu_torch.core.ckks_encoding, "
             "toyfhe_tpu_torch.utils.interop, toyfhe_tpu_torch.utils.numtheory, "
             "toyfhe_tpu_torch.tools.bench_kernels, toyfhe_tpu_torch.tools.profile_mnist, "
-            "toyfhe_tpu_torch.tools.bench_bootstrap, chip_smoke; "
+            "toyfhe_tpu_torch.tools.bench_bootstrap, toyfhe_tpu_torch.core.bfv, "
+            "toyfhe_tpu_torch.core.behz, toyfhe_tpu_torch.core.bgv, toyfhe_tpu_torch.core.plain, "
+            "toyfhe_tpu_torch.core.noise, toyfhe_tpu_torch.core.planner, "
+            "toyfhe_tpu_torch.core.cryptparams, toyfhe_tpu_torch.core.insecure, chip_smoke; "
             "from toyfhe_tpu_torch.core import bootstrap as B; "
             "from toyfhe_tpu_torch.models import mnist as M; "
             "assert callable(B.bootstrap_batched) and callable(M.build_bootstrapped_pipeline); "
+            "assert callable(toyfhe_tpu_torch.bfv_params) and callable(chip_smoke.phase_bfv_tree); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -177,4 +181,7 @@ def test_no_public_function_defaults_to_the_cpu():
             "ntt_pallas_cuda.choose_polymul_cluster", "ntt_pallas_cuda.polymul_plan",
             "pallas_keyswitch_cuda.launch", "pallas_keyswitch_cuda.keyswitch_schedule",
             "pallas_keyswitch_cuda.choose_cluster", "pallas_keyswitch_cuda.keyswitch_plan",
-            "rlwe.make_eval_key"} <= names
+            "rlwe.make_eval_key", "bfv.BFVParams.encode", "behz.BFVMulContext.smmrq_convert",
+            "bgv.BGVParams.encode", "plain.slot_encode", "plain.slot_decode",
+            "noise.bgv_noise_budget", "planner.plan_ckks_tower", "cryptparams.security_level",
+            "insecure.InsecureDebug.noise", "interop.encrypt_with_noise"} <= names

@@ -11,7 +11,11 @@ compiled encrypted layers (``parallel/layers.py``), CKKS bootstrapping
 (``core/bootstrap.py`` on the special-FFT factorization of ``core/sfft.py``)
 and encrypted MNIST (``models/mnist.py``: the serving pipeline on the
 iterated schedule and the BSGS + dual-flow serving configuration, the eager
-pass, and the bootstrapped pipeline). The fused kernels beside the plain
+pass, and the bootstrapped pipeline), and the exact schemes: BFV with the
+BEHZ multiply (``core/bfv.py``, ``core/behz.py``), leveled BGV
+(``core/bgv.py``), plaintext slots (``core/plain.py``), the noise meters and
+estimator (``core/noise.py``) and the parameter planner and security table
+(``core/planner.py``, ``core/cryptparams.py``). The fused kernels beside the plain
 paths: the four-step digit transform K2 (``csrc/ntt_mxu.cu``), the hybrid
 key switch K3 (``csrc/hybrid_ks.cu``), the fused polynomial product K4
 (``csrc/polymul.cu``), the bit-reversed DIF transform K5
@@ -21,7 +25,7 @@ point. Public names follow the reference package; this package imports
 torch and never jax.
 
 Layer map: ops/ = modular arithmetic, NTTs, sampling and the fused
-kernels; core/ = ring, RLWE engine, CKKS and the key-switch modifiers;
+kernels; core/ = ring, RLWE engine, the schemes and the key-switch modifiers;
 parallel/ = the steps and the layers; models/ = encrypted MNIST; tools/ =
 command-line tools; utils/ = host number theory and numpy interop.
 """
@@ -44,6 +48,15 @@ from .core.ckks_encoding import (CKKSPlaintext, CKKSTag, make_plaintext,
                                  ckks_encode, ckks_decode, mul_plain_vector,
                                  mul_plain_vector_at, mul_plain_vectors, mul_plain_scalar,
                                  mul_plain_scalar_at, add_plain)
+from .core.plain import (PlainRing, PlainPoly, scalar_encode, scalar_decode,
+                         coeff_encode, slot_encode, slot_decode)
+from .core.bfv import BFVParams, bfv_params, invariant_noise_budget
+from .core.bgv import BGVParams, BGVTag
+from .core.insecure import InsecureDebug
+from .core.noise import bgv_noise_budget, ckks_precision, ckks_scale_bits
+from .core.planner import plan_ckks_tower, plan_ckks_ring
+from .core.cryptparams import estimate_security, security_level
+from .core import cryptparams
 from .utils import interop
 
 __version__ = "0.1.0"

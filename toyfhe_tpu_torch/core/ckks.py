@@ -43,7 +43,7 @@ class CKKSParams(SchemeParams):
     def scheme_name(self):
         return "CKKS"
 
-    def encode(self, plaintext: RingElt, ring=None) -> RingElt:
+    def encode(self, plaintext: RingElt, ring=None, *, device) -> RingElt:
         return plaintext               # π⁻¹ = identity
 
     def decode(self, b: RingElt, ring: RingContext) -> RingElt:

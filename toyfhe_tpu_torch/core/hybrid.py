@@ -160,20 +160,28 @@ class HybridRaised(PassthroughParams):
         only the out-of-group rows: digit j satisfies D_j ≡ x (mod q_i) for
         every i in group j exactly, so those dual rows are x's own dual
         rows. Saves Lt of the dnum·(Lt+k) digit transforms, bit-exactly."""
-        lt = ring.nlimbs
         exp_ring, digits = self.hybrid_decompose(ring, x)  # [ndig, ..., T, N]
         xd = R.ensure_dual(ring, x).dual                   # [..., Lt, N]
-        T = exp_ring.nlimbs
         rows = []
-        for j in range(digits.shape[0]):
-            lo, hi = j * self.alpha, min((j + 1) * self.alpha, lt)
-            out_idx = list(range(lo)) + list(range(hi, T))
+        for j, (lo, hi, out_idx) in enumerate(self.digit_rows(ring.nlimbs)):
             sub = exp_ring.select(out_idx)
             res = nttmod.ntt(sub.tables, digits[j].index_select(
                 -2, torch.tensor(out_idx, device=digits.device)))
             rows.append(torch.cat(
                 [res[..., :lo, :], xd[..., lo:hi, :], res[..., lo:, :]], dim=-2))
         return exp_ring, torch.stack(rows, dim=0)
+
+    def digit_rows(self, lt: int) -> List[Tuple[int, int, List[int]]]:
+        """Per digit at ``lt`` ciphertext limbs: its group's rows [lo, hi)
+        and the rows of the expanded tower Q_t ∪ P outside the group, the
+        ones :meth:`hybrid_decompose_dual` transforms."""
+        out = []
+        for j in range(self.dnum):
+            lo, hi = j * self.alpha, min((j + 1) * self.alpha, lt)
+            if lo >= hi:
+                break
+            out.append((lo, hi, list(range(lo)) + list(range(hi, lt + self.num_special))))
+        return out
 
     def hybrid_key_limbs(self, exp_ring: RingContext) -> List[int]:
         """Positions of the expanded tower's limbs inside the key ring."""
@@ -186,13 +194,16 @@ class HybridRaised(PassthroughParams):
 
         Dual-domain accumulators (the key-switch hot path) take the fused
         ModDown (:meth:`hybrid_contract_fused`), bit-identical to the
-        sequential chain. A BGV base raises: it is not ported."""
+        sequential chain. A BGV base takes the p-adapted rounding
+        (``ring.rescale_adapted``) at each step, so the error stays ≡ 0 mod
+        p; P cancels fully, leaving no message factor."""
         from . import rlwe
-        rlwe.bgv_plain_modulus(self)
-        if a.dual is not None and a.primal is None:
+        t = rlwe.bgv_plain_modulus(self)
+        if t is None and a.dual is not None and a.primal is None:
             return self.hybrid_contract_fused(ring, a)
         for _ in range(self.num_special):
-            ring, a = R.rescale(ring, a)
+            ring, a = (R.rescale_adapted(ring, a, t) if t is not None
+                       else R.rescale(ring, a))
         return ring, a
 
     def _fused_tables(self, exp_ring: RingContext):

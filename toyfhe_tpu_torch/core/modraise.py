@@ -62,8 +62,12 @@ class ModulusRaised(PassthroughParams):
             primal=torch.cat([scaled.primal, zerolimb], dim=-2))
 
     def keyswitch_contract(self, ring: RingContext, c: RingElt):
-        """Rescale by the special prime; a BGV base raises (not ported)."""
-        rlwe.bgv_plain_modulus(self)
+        """Rescale by the special prime. A BGV base takes the p-adapted
+        rounding, so the low plaintext digits survive the division (the
+        special prime cancels fully: no message factor is left)."""
+        t = rlwe.bgv_plain_modulus(self)
+        if t is not None:
+            return R.rescale_adapted(ring, c, t)
         if c.dual is not None and c.primal is None:
             return R.rescale_dual(ring, c)     # bit-identical to the primal rescale
         return R.rescale(ring, c)

@@ -310,3 +310,32 @@ def rescale_dual(ring: RingContext, a: RingElt) -> Tuple[RingContext, RingElt]:
     out = modmath.sub_mod(modmath.mont_mul(a.dual[..., :-1, :], inv, mp),
                           corr_dual, mp)
     return sub_ring, RingElt(dual=out)
+
+
+def rescale_adapted(ring: RingContext, a: RingElt, t: int) -> Tuple[RingContext, RingElt]:
+    """BGV divide-and-round by the last prime: the correction d is chosen
+    ≡ a mod q_k and ≡ 0 mod t (the plaintext modulus), so (a − d)/q_k keeps
+    the noise ≡ 0 mod t and the low plaintext digits survive the division.
+    d = r + q_k·v with r the centered last-limb residue and v ≡ −r·q_k⁻¹
+    (mod t), centered; ‖d‖ ≤ q_k(t + 1)/2. The message is multiplied by
+    q_k⁻¹ mod t (``bgv.BGVTag`` tracks it)."""
+    a = ensure_primal(ring, a)
+    sub_ring = ring.drop_last()
+    qk = ring.primes[-1]
+    qk_mod, inv_m = ring.rescale_consts()
+    t = int(t)
+    if not (1 < t < (1 << 20)):
+        raise ValueError("rescale_adapted needs a plaintext modulus < 2^20")
+    dev = a.primal.device
+    mp = sub_ring.mp
+    r = modmath.centered(a.primal[..., -1:, :], ring.select([ring.nlimbs - 1]).mp)
+    # v ≡ −r·q_k⁻¹ (mod t), centered in (−t/2, t/2]; r mod t and the
+    # constant are below 2^20, so their product is exact in int64
+    neg_inv = (t - pow(qk, -1, t) % t) % t
+    vin = torch.remainder(torch.remainder(r, t) * neg_inv, t)
+    v = torch.where(vin > t // 2, vin - t, vin)
+    dj = modmath.add_mod(modmath.from_signed(r, mp),
+                         modmath.mul_mod(modmath.as_residues(qk_mod, dev),
+                                         modmath.from_signed(v, mp), mp), mp)
+    diff = modmath.sub_mod(a.primal[..., :-1, :], dj, mp)
+    return sub_ring, RingElt(primal=modmath.mont_mul(diff, modmath.as_residues(inv_m, dev), mp))

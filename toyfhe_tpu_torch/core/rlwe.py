@@ -1,4 +1,4 @@
-"""Scheme-generic RLWE engine (layer L3) — the subset CKKS needs.
+"""Scheme-generic RLWE engine (layer L3).
 
 Port of ``toyfhe_tpu/core/rlwe.py``: keygen, encrypt / decrypt, ciphertext
 add, subtract and multiply, the per-limb gadget (``relin_window = 0``: centered RNS
@@ -8,11 +8,12 @@ expand / contract hooks (:mod:`.modraise`) and its dispatch to the
 dnum-grouped hybrid key switch (:mod:`.hybrid`), rotations with one key or
 a key set, the hoisted rotation schedules (:func:`rotate_many`: one gadget
 decomposition shared by several rotations; :func:`rotate_sum`: one
-contraction for a sum of rotations), limb drops, the CKKS rescale, and
-batched ciphertexts (:func:`ct_stack` / :func:`ct_index`: leading axes run
-through every operation). A scheme is a :class:`SchemeParams` subclass supplying the encoder π⁻¹, decoder π, noise
-sampler 𝒩 and secret sampler 𝒢; :class:`PassthroughParams` wraps one to
-override selected hooks.
+contraction for a sum of rotations), limb drops, the rescale (CKKS, and
+BGV's plaintext-adapted rounding, ``ring.rescale_adapted``), and batched
+ciphertexts (:func:`ct_stack` / :func:`ct_index`: leading axes run through
+every operation). A scheme is a :class:`SchemeParams` subclass supplying
+the encoder π⁻¹, decoder π, noise sampler 𝒩 and secret sampler 𝒢;
+:class:`PassthroughParams` wraps one to override selected hooks.
 
 Randomness comes from an explicit ``torch.Generator``: keys and ciphertexts
 are made on the generator's device.
@@ -54,8 +55,8 @@ class SchemeParams:
     def plaintext_space(self):
         raise NotImplementedError
 
-    # π⁻¹ : plaintext -> RingElt in ring_cipher
-    def encode(self, plaintext) -> RingElt:
+    # π⁻¹ : plaintext -> RingElt in ring_cipher (or ``ring``), on ``device``
+    def encode(self, plaintext, ring=None, *, device) -> RingElt:
         raise NotImplementedError
 
     # π : RingElt -> native plaintext (host side)
@@ -108,12 +109,12 @@ class PassthroughParams(SchemeParams):
     def plaintext_space(self):
         return self.params.plaintext_space()
 
-    def encode(self, plaintext, ring=None):
+    def encode(self, plaintext, ring=None, *, device):
         # encode at the WRAPPER's ciphertext tower: raising modifiers
         # encrypt one or more limbs short of the base scheme's ring
         return self.params.encode(plaintext,
                                   ring=ring if ring is not None
-                                  else self.ring_cipher)
+                                  else self.ring_cipher, device=device)
 
     def decode(self, b, ring):
         return self.params.decode(b, ring)
@@ -261,9 +262,15 @@ def _encrypt_zero_at(params: SchemeParams, ring: RingContext,
     u = params.secret_sampler(gen, ring)
     e1 = params.noise(gen, ring)
     e2 = params.noise(gen, ring)
-    c1 = R.add(ring, R.mul(ring, key.masked, u), e1)
-    c2 = R.add(ring, R.mul(ring, key.mask, u), e2)
-    return CipherText(params, (c1, c2), ring)
+    return CipherText(params, zero_encryption(ring, key, u, e1, e2), ring)
+
+
+def zero_encryption(ring: RingContext, key: KeyComponent, u: RingElt, e1: RingElt,
+                    e2: RingElt) -> Tuple[RingElt, RingElt]:
+    """(masked·u + e₁, mask·u + e₂): an encryption of zero under the public
+    key ``key`` with the ephemeral secret ``u`` and the noise ``e1``, ``e2``."""
+    return (R.add(ring, R.mul(ring, key.masked, u), e1),
+            R.add(ring, R.mul(ring, key.mask, u), e2))
 
 
 def encrypt(key, plaintext, gen: torch.Generator) -> CipherText:
@@ -284,7 +291,7 @@ def _encode_with_tag(params, plaintext, device):
         return plaintext, None
     if hasattr(plaintext, "to_ring"):
         return plaintext.to_ring(params, device), plaintext.decode_tag(params)
-    return params.encode(plaintext), None
+    return params.encode(plaintext, device=device), None
 
 
 def _aligned_secret(priv: PrivKey, ring: RingContext) -> RingElt:
@@ -358,18 +365,24 @@ def ct_add_ring(c: CipherText, b: RingElt) -> CipherText:
     return CipherText(c.params, cs, c.ring, enc=c.enc)
 
 
+def tensor_product(ring: RingContext, a: Sequence[RingElt],
+                   b: Sequence[RingElt]) -> List[RingElt]:
+    """out_k = Σ_{i+j=k} a_i·b_j in ``ring`` (dual domain)."""
+    out: List[Optional[RingElt]] = [None] * (len(a) + len(b) - 1)
+    for i in range(len(a)):
+        for j in range(len(b)):
+            t = R.mul(ring, a[i], b[j])
+            out[i + j] = t if out[i + j] is None else R.add(ring, out[i + j], t)
+    return out
+
+
 def enc_mul(c1: CipherText, c2: CipherText) -> Tuple[RingContext, Tuple[RingElt, ...]]:
     """Tensor product with the scheme's expand/contract hooks."""
     if c1.params is not c2.params:
         raise UsageError("Attempting to multiply ciphertexts with differing parameters")
     params = c1.params
     ring, (a, b) = params.mul_expand_pair(c1, c2)
-    out: List[Optional[RingElt]] = [None] * (len(a) + len(b) - 1)
-    for i in range(len(a)):
-        for j in range(len(b)):
-            t = R.mul(ring, a[i], b[j])
-            out[i + j] = t if out[i + j] is None else R.add(ring, out[i + j], t)
-    return params.mul_contract_pair(ring, out)
+    return params.mul_contract_pair(ring, tensor_product(ring, a, b))
 
 
 def ct_mul(c1: CipherText, c2: CipherText) -> CipherText:
@@ -598,7 +611,10 @@ def _keyswitch_hybrid(params, ek: KeySwitchKey, c: CipherText) -> CipherText:
     # both accumulator components in a single NTT call
     out_ring, a = params.hybrid_contract(
         exp_ring, RingElt(dual=torch.stack([acc1, acc2], dim=0)))
-    a1, a2 = RingElt(dual=a.dual[0]), RingElt(dual=a.dual[1])
+    if a.dual is not None:
+        a1, a2 = RingElt(dual=a.dual[0]), RingElt(dual=a.dual[1])
+    else:                       # the BGV contraction returns the primal form
+        a1, a2 = RingElt(primal=a.primal[0]), RingElt(primal=a.primal[1])
     if out_ring is not ring:
         raise UsageError("hybrid contraction left the ciphertext tower")
     c1 = R.add(ring, c.cs[0], a1)
@@ -843,28 +859,32 @@ def ct_modswitch_drop(c: CipherText) -> CipherText:
 
 def bgv_plain_modulus(params):
     """The plaintext modulus when the (possibly wrapped) base scheme is
-    BGV, None for every other scheme. BGV is not ported, so a BGV base
-    raises rather than take the CKKS rounding."""
+    BGV, whose divide-and-round steps must keep the error ≡ 0 mod p
+    (``ring.rescale_adapted``); None for every other scheme."""
     base = params
     while isinstance(base, PassthroughParams):
         base = base.params
-    if base.scheme_name() == "BGV":
-        raise NotImplementedError("BGV is not ported: its p-adapted rounding "
-                                  "(ring.rescale_adapted) is missing")
-    return None
+    return base.plain.p if base.scheme_name() == "BGV" else None
 
 
 def ct_rescale(c: CipherText) -> CipherText:
-    """CKKS rescale by the last prime: exact divide-and-round of every
-    component and division of the scale tag. The tower shrinks to L-1."""
+    """Modulus switch by the last prime; the tower shrinks to L-1. CKKS: the
+    exact divide-and-round of every component and the division of the
+    scale tag. BGV: the p-adapted rounding, and the message picks up a
+    q_k⁻¹ mod p factor that a ``bgv.BGVTag`` tracks (leveled BGV)."""
     ring = c.ring
+    t = bgv_plain_modulus(c.params)
     cs = []
     sub = None
     for x in c.cs:
-        sub, y = R.rescale(ring, x)
+        sub, y = R.rescale_adapted(ring, x, t) if t is not None else R.rescale(ring, x)
         cs.append(y)
-    enc = (c.enc.rescale_by(ring.primes[-1])
-           if c.enc is not None and hasattr(c.enc, "rescale_by") else c.enc)
+    if t is not None:
+        from .bgv import BGVTag
+        enc = (c.enc if c.enc is not None else BGVTag(t)).rescale_by(ring.primes[-1])
+    else:
+        enc = (c.enc.rescale_by(ring.primes[-1])
+               if c.enc is not None and hasattr(c.enc, "rescale_by") else c.enc)
     return CipherText(c.params, tuple(cs), sub, enc=enc)
 
 

@@ -126,6 +126,32 @@ def ciphertext(params: SchemeParams, ring: RingContext, components: Sequence,
     return CipherText(params, cs, ring, enc=enc)
 
 
+def encrypt_with_noise(key, plaintext, u, e1, e2, *, device) -> CipherText:
+    """``rlwe.encrypt`` with its randomness given: the ephemeral secret
+    ``u`` and the noise ``e1``, ``e2``, each a signed integer array [N].
+    The base scheme's samplers are replaced, for this one call, by ones that
+    return u, then e₁, then e₂ over the ring they are asked for; the
+    encryption itself, modifiers' hooks included, is the real one."""
+    from ..core import rlwe
+
+    pub = key.pub if isinstance(key, KeyPair) else key
+    base = pub.params
+    while hasattr(base, "params"):
+        base = base.params
+    noise = [e1, e2]
+
+    def elt(x, ring):
+        x = np.asarray(x, dtype=np.int64)
+        return ring_elt(primal=np.stack([np.mod(x, p) for p in ring.primes]), device=device)
+
+    base.secret_sampler = lambda gen, ring, batch=(): elt(u, ring)
+    base.noise = lambda gen, ring, batch=(): elt(noise.pop(0), ring)
+    try:
+        return rlwe.encrypt(key, plaintext, torch.Generator(device=device))
+    finally:
+        del base.secret_sampler, base.noise
+
+
 def ciphertext_to_numpy(c: CipherText, domain: str = "dual") -> np.ndarray:
     """The components stacked as uint32 [ncomp, ..., L, N]."""
     return np.stack([elt_to_numpy(c.ring, x, domain) for x in c.cs])

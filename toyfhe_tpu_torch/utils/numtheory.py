@@ -179,6 +179,16 @@ def invmod(a: int, m: int) -> int:
     return pow(a, -1, m)
 
 
+def crt_reconstruct(residues: Sequence[int], moduli: Sequence[int]) -> int:
+    """CRT recombination to the canonical representative in [0, ∏ q_i)."""
+    q = math.prod(moduli)
+    x = 0
+    for r, qi in zip(residues, moduli):
+        qhat = q // qi
+        x += (int(r) * invmod(qhat, qi) % qi) * qhat
+    return x % q
+
+
 def centered(x: int, q: int) -> int:
     """Centered representative in (-q/2, q/2]: values strictly greater than
     q ÷ 2 (floor) map down by q."""
@@ -207,3 +217,10 @@ def frac_to_float(fr) -> float:
     except OverflowError:
         v = math.inf
     return -v if neg else v
+
+
+def divround(a: int, b: int) -> int:
+    """Round-to-nearest division, ties away from zero, for b > 0."""
+    if a >= 0:
+        return (2 * a + b) // (2 * b)
+    return -((-2 * a + b) // (2 * b))
