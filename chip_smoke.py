@@ -92,7 +92,24 @@ replaced). Then, for each path:
   the last slots equal to the numpy product; leveled BGV at N = 2^13
   (tower (28,)×5 + (30, 30), p = 65537): square → key switch → rescale, 3
   levels under ModulusRaised and 2 under HybridRaised(3, 2), card == CPU
-  and the slots exact at every level.
+  and the slots exact at every level;
+* the host side: the exact host RLWE engine (Python integers, the
+  Kronecker-substitution multiply) as the card's oracle at the serving data
+  tower (N = 2^13, seven 28-bit limbs, the RNS-limb gadget): it makes a
+  secret, an eval key and an encryption of 4096 slots, squares, key-switches
+  and rescales, and the card, given the same secret, ciphertext and eval
+  key, must decrypt its own square → key switch → rescale to the host's raw
+  integers exactly; the C++ CRT (``toyfhe_tpu_torch/native``, built with
+  g++) decoding the production MNIST logits ciphertext, the last BFV level
+  and the last BGV levels exactly as the Python CRT does; the production
+  BSGS setup (key pair, relinearization key, 14 Galois keys, an input
+  ciphertext) saved to files and loaded back onto the card, the pipeline on
+  the loaded keys giving the logits ciphertext of the original keys bit for
+  bit; plaintext training at ``MNISTConfig()`` on the card (300 steps, the
+  reference's recipe, held-out accuracy > 0.9; three updates equal to the
+  same updates on the CPU), then the trained weights served encrypted
+  through the BSGS + dual-flow pipeline (labels equal to the plaintext
+  pass's on at least 62 of 64 images).
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -1619,7 +1636,7 @@ def phase_bsgs_pipeline(dev, smi, base):
         ", ".join(f"{k} {v:.2f} / {base['layers'][k]:.2f}" for k, v in layers.items())
         + f" [{smi}]")
     return dict(launches=launches, transforms=transforms, counts=counts, err=err, diff=diff,
-                ms=ms, layers=layers)
+                ms=ms, layers=layers, gks=gks)
 
 
 # ---------------------------------------------------------------------------
@@ -2219,7 +2236,7 @@ def phase_bfv_tree(dev, smi, seed):
         f"(host decrypt + decode {decode_ms:.1f} ms); the tree: K1 {launches['fwd']} + "
         f"{launches['inv']} launches")
     return dict(levels=levels, launches=launches, decode_ms=decode_ms, budget0=budget0,
-                key_mib=key_bytes(ek_d) / 2**20)
+                key_mib=key_bytes(ek_d) / 2**20, final=(kp_d, T.ct_index(c, 0)))
 
 
 def phase_bgv_levels(dev, smi, seed):
@@ -2276,8 +2293,306 @@ def phase_bgv_levels(dev, smi, seed):
                 f"+ {launches['inv']} launches ({polys} limb polynomials), warm {ms:.3f} ms "
                 f"[{smi}]")
         out[label] = dict(rows=rows, launches={k: sum(r["launches"][k] for r in rows)
-                                               for k in ("fwd", "inv")})
+                                               for k in ("fwd", "inv")},
+                          final=(kp_d, T.ct_index(c, 0)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the exact host engine, the C++ CRT, serialization and training
+# ---------------------------------------------------------------------------
+
+HOST_N = 1 << 13
+HOST_BITS = (28,) * 7                     # the serving data tower
+HOST_SCALE = Fraction(2) ** 26
+# The RNS-limb gadget's key switch adds about 7 digits × 2^27 × σ·√N of noise
+# before the rescale; the decode spreads it over N coefficients: the host
+# engine's slots come out within a few 1e-2 at N = 2^13 (6.7e-2 on a CPU run
+# with seed 0), so the bound only catches a broken decode. The card is held
+# to the host's integers exactly.
+HOST_DECODE_ATOL = 0.25
+
+
+def phase_host_oracle(dev, smi, seed):
+    """The exact host engine as the card's oracle at serving width: the
+    ``ckks_device_tower`` scenario at N = 2^13. The host engine (exact Python
+    integers, RNS-limb gadget) makes a secret, an eval key and an encryption
+    of 4096 slots, squares, key-switches and rescales, and decrypts to raw
+    integers; the card imports the secret, the ciphertext and the eval key,
+    runs ``ct_mul`` → ``keyswitch`` → ``ct_rescale`` through K1, and its
+    ``decrypt_raw`` must be the host's integers exactly."""
+    import random
+
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import host_engine as HE
+    from toyfhe_tpu_torch.utils import interop as I
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    tower = nt.ntt_prime_chain(HOST_N, HOST_BITS)
+    log(f"== phase 31: the exact host engine as the card's oracle (N={HOST_N}, tower "
+        f"{HOST_BITS}, RNS-limb gadget, {HOST_N // 2} slots at scale 2^26): host square -> "
+        f"key switch -> rescale against the card's, raw decrypted integers bit-equal")
+    ring = HE.Pow2HostRing(HOST_N, moduli=tower)
+    hp = HE.HostParams(ring=ring, scheme="ckks", sigma=3.2, relin_window=0)
+    rng = random.Random(seed)
+    slots = np.linspace(0.1, 1.0, HOST_N // 2).astype(np.complex128)
+    secs = {}
+
+    def host(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t
+        return out
+
+    t0 = time.perf_counter()
+    kp = host("keygen", lambda: HE.keygen(hp, rng))
+    ek = host("keygen_eval_mult", lambda: HE.keygen_eval_mult(hp, kp, rng))
+    pt = host("encode", lambda: HE.ckks_encode_host(ring, slots, HOST_SCALE))
+    c = host("encrypt", lambda: HE.encrypt(hp, kp, pt, rng))
+    csq = host("ct_mul", lambda: HE.ct_mul(hp, c, c))
+    cks = host("keyswitch", lambda: HE.keyswitch(hp, ek, csq))
+    sub, crs = host("modswitch", lambda: HE.modswitch(hp, cks))
+    raw = host("decrypt_raw", lambda: HE.decrypt_raw(sub, kp, crs, sub.ring))
+    host_s = time.perf_counter() - t0
+    dec = HE.ckks_decode_host(sub.ring, raw, HOST_SCALE ** 2 / tower[-1])
+    host_err = float(np.max(np.abs(dec - slots ** 2)))
+    log(f"host engine: {host_s:.1f} s in all; seconds a step: " +
+        ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) +
+        f"; decode error {host_err:.3e} (limit {HOST_DECODE_ATOL})")
+    if not host_err < HOST_DECODE_ATOL:
+        raise AssertionError(f"host engine decode error {host_err}")
+
+    dring = T.make_ring(HOST_N, tower)
+    params = T.CKKSParams(dring, 0, 3.2)
+    res = lambda xs: dring.from_bigint(xs)
+    kpd = I.priv_key(params, res(kp.secret), device=dev)
+    cd = I.ciphertext(params, dring, [res(x) for x in c], domain="primal", device=dev)
+    ekd = I.eval_mult_key(params, np.stack([res(m) for m in ek.masks]),
+                          np.stack([res(m) for m in ek.maskeds]), "primal", device=dev)
+    step = lambda: T.ct_rescale(T.keyswitch(ekd, T.ct_mul(cd, cd)))
+    sync(dev)
+    reset_launches()
+    out = step()                                                          # the main path
+    sync(dev)
+    launches = read_launches()
+    got = T.ringops.ensure_primal(out.ring, T.decrypt_raw(kpd, out)).primal.cpu().numpy()
+    if out.ring.primes != sub.ring.moduli or out.ring.to_bigint(got) != raw:
+        raise AssertionError("the card's decrypt_raw differs from the host engine's integers")
+    ms = {"ct_mul": cuda_ms(lambda: T.ct_mul(cd, cd))}
+    sq = T.ct_mul(cd, cd)
+    ms["keyswitch"] = cuda_ms(lambda: T.keyswitch(ekd, sq))
+    ks = T.keyswitch(ekd, sq)
+    ms["ct_rescale"] = cuda_ms(lambda: T.ct_rescale(ks))
+    ms["all"] = cuda_ms(step)
+    log(f"card: decrypt_raw == the host engine's {HOST_N} integers over {out.ring.nlimbs} "
+        f"limbs, exactly; launched {launches}; warm ms (CUDA events, median of {REPS}): " +
+        ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) +
+        f"; the same three steps on the host: "
+        f"{secs['ct_mul'] + secs['keyswitch'] + secs['modswitch']:.1f} s [{smi}]")
+    return dict(launches=launches, secs=secs, host_s=host_s, ms=ms, host_err=host_err)
+
+
+def phase_native_decodes(dev, smi, bsgs_setup, tree, bgv):
+    """The C++ CRT on ciphertexts made on the card: the production MNIST
+    logits ciphertext, the last level of the BFV product tree and the last
+    BGV levels, decrypted on the card and decoded on the host through
+    ``RingContext.native()`` and through the exact Python CRT."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.utils import numtheory as nt
+
+    log("== phase 32: the C++ CRT on the card's ciphertexts (decode_centered_double, "
+        "decode_bfv, decode_centered_mod) against the exact Python CRT")
+    setup, gen = bsgs_setup["setup"], torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
+    logits_ct = setup._pipeline(bsgs_setup["imgs"], gen, _return_ct=True)
+    cases = [("mnist_logits", "ckks", setup.kp, logits_ct),
+             ("bfv_tree_last", "bfv", *tree["final"])]
+    cases += [(f"bgv_{label}_last", "bgv", *v["final"]) for label, v in bgv.items()]
+    rows = {}
+    for name, kind, kp, c in cases:
+        ring = c.ring
+        raw = T.ringops.ensure_primal(ring, T.decrypt_raw(kp, c)).primal.cpu().numpy()
+        q = ring.modulus
+        nat = ring.native()
+        t0 = time.perf_counter()
+        xs = [nt.centered(x, q) for x in ring.to_bigint(raw)]
+        crt_ms = (time.perf_counter() - t0) * 1e3
+        if kind == "ckks":
+            t0 = time.perf_counter()
+            got = nat.decode_centered_double(raw)
+            native_ms = (time.perf_counter() - t0) * 1e3
+            want = np.array([float(x) for x in xs])
+            bad = int(np.sum(np.abs(got - want) > np.abs(want) * 2.0 ** -51))
+            what = f"decode_centered_double within 2^-51 of float(centered) ({bad} outside)"
+        else:
+            p = c.params.plaintext_space().p
+            t0 = time.perf_counter()
+            got = (nat.decode_bfv(raw, q // p, p) if kind == "bfv"
+                   else nat.decode_centered_mod(raw, p))
+            native_ms = (time.perf_counter() - t0) * 1e3
+            want = [nt.divround(x, q // p) % p if kind == "bfv" else x % p for x in xs]
+            bad = int(np.sum(np.asarray(got) != np.asarray(want)))
+            if kind == "bfv":
+                bad += int(np.sum(nat.decode_centered_mod(raw, p) != np.array([x % p for x in xs])))
+            what = ("decode_bfv and decode_centered_mod bit-equal" if kind == "bfv"
+                    else "decode_centered_mod bit-equal")
+        log(f"{name} ({ring.nlimbs} limbs): {what}; C++ CRT {native_ms:.2f} ms, exact Python "
+            f"CRT {crt_ms:.2f} ms for {ring.n} coefficients [{smi}]")
+        if bad:
+            raise AssertionError(f"{name}: {bad} coefficients differ from the exact CRT")
+        rows[name] = dict(native_ms=native_ms, crt_ms=crt_ms, limbs=ring.nlimbs)
+    log(f"phase 23's decrypt + decode stage, now on the C++ CRT: "
+        f"{bsgs_setup['layers']['decrypt']:.2f} ms (the exact-CRT figure in PERF.md section 5: "
+        f"41.48 ms)")
+    return rows
+
+
+def phase_serialization(dev, smi, base, bsgs):
+    """The production BSGS setup saved from the card and loaded back: the key
+    pair, the relinearization key, the 14 Galois keys and one input
+    ciphertext; the BSGS pipeline on the loaded keys gives the logits
+    ciphertext of the original keys, bit for bit."""
+    import tempfile
+
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.utils import serialization as S
+
+    cfg, setup, gks = base["cfg"], base["setup"], bsgs["gks"]
+    params = setup.params
+    log(f"== phase 33: serialization of the production setup ({len(gks.keys)} Galois keys, "
+        f"the key pair, the relinearization key, one input ciphertext) and the BSGS pipeline "
+        f"on the loaded keys")
+    grid = M.public_preprocess(cfg, base["imgs"])
+    c = T.encrypt(setup.kp, T.make_plaintext(params.ring_cipher, grid[0, 0], setup.scale),
+                  torch.Generator(device=dev).manual_seed(33))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        path = lambda name: os.path.join(d, f"{name}.npz")
+        sync(dev)
+        t0 = time.perf_counter()
+        S.save_keypair(path("kp"), setup.kp)
+        S.save_eval_mult_key(path("ek"), setup.ek)
+        for i, gk in enumerate(gks.keys):
+            S.save_galois_key(path(f"gk{i}"), gk)
+        S.save_ciphertext(path("ct"), c)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)}
+        t0 = time.perf_counter()
+        kp2 = S.load_keypair(path("kp"), params, device=dev)
+        ek2 = S.load_eval_mult_key(path("ek"), params, device=dev)
+        gks2 = T.GaloisKeys([S.load_galois_key(path(f"gk{i}"), params, device=dev)
+                             for i in range(len(gks.keys))])
+        c2 = S.load_ciphertext(path("ct"), params, device=dev)
+        sync(dev)
+        load_ms = (time.perf_counter() - t0) * 1e3
+    gk_bytes = sum(v for k, v in sizes.items() if k.startswith("gk"))
+    log(f"saved {len(sizes)} files, {sum(sizes.values()) / 2**20:.1f} MiB "
+        f"({gk_bytes / 2**20:.1f} MiB of Galois keys) in {save_ms:.0f} ms; loaded onto the "
+        f"card in {load_ms:.0f} ms (host clock) [{smi}]")
+    if not (same_ct(c, c2) and c2.ring is params.ring_cipher):
+        raise AssertionError("the reloaded ciphertext differs")
+    if not np.array_equal(T.decrypt(kp2, c2), T.decrypt(setup.kp, c)):
+        raise AssertionError("the reloaded key pair decrypts differently")
+
+    # the BSGS pipeline does not use the iterated schedule's Galois key
+    setup2 = M.FHESetup(cfg, params, kp2, ek2, None, setup.scale)
+    run2 = M.build_inference_pipeline(setup2, base["weights"], gks2)
+    enc = lambda: torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
+    sync(dev)
+    reset_launches()
+    out2 = run2(base["imgs"], enc(), _return_ct=True)                     # the main path
+    sync(dev)
+    launches = read_launches()
+    out = setup._pipeline(base["imgs"], enc(), _return_ct=True)
+    if not same_ct(out, out2):
+        raise AssertionError("the logits ciphertext on the loaded keys differs")
+    log(f"BSGS pipeline on the loaded keys: the logits ciphertext is bit-equal to the one on "
+        f"the original keys; launched {launches}")
+    return dict(launches=launches, save_ms=save_ms, load_ms=load_ms,
+                mib=sum(sizes.values()) / 2**20, gk_mib=gk_bytes / 2**20, files=len(sizes))
+
+
+TRAIN_STEPS = 300
+TRAIN_PARITY_STEPS = 3
+TRAIN_PARITY_ATOL = 1e-5         # float32 parameters after three Adam steps, card against CPU
+TRAIN_MIN_ACC = 0.9
+TRAIN_MIN_AGREE = 62             # of 64 encrypted labels equal to the plaintext ones
+
+
+def phase_training(dev, smi, base, bsgs, seed):
+    """Plaintext training at ``MNISTConfig()`` on the card (the reference's
+    default recipe: 300 steps, warmup-cosine, clipping, the augmentation pool;
+    real digits when the host has them, else 512 synthetic images), three
+    updates from shared weights on a shared batch on the card and on the
+    CPU, then the trained weights served encrypted through the BSGS + dual
+    flow pipeline (train.jl → infer.jl)."""
+    from toyfhe_tpu_torch.models import mnist as M
+
+    cfg, setup, gks = base["cfg"], base["setup"], bsgs["gks"]
+    log(f"== phase 34: plaintext training at MNISTConfig() ({TRAIN_STEPS} steps), then serving "
+        f"the trained weights encrypted [{smi}]")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmuls must not run in TF32 here")
+
+    # three updates from shared weights on a shared batch, card against CPU
+    weights = {k: v.astype(np.float32) for k, v in M.init_params(cfg, seed).items()}
+    x, y = M.synthetic_dataset(cfg, torch.Generator().manual_seed(seed), 256)
+    sched = M.warmup_cosine(1e-3, TRAIN_STEPS)
+    params = {}
+    for where in ("cpu", dev):
+        model = M.PlainCNN(cfg, weights, where)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+        for count in range(60, 60 + TRAIN_PARITY_STEPS):
+            M.train_step(model, opt, x.to(where), y.to(where), sched(count), clip=True,
+                         smoothing=0.05)
+        params[str(where)] = model.params()
+    diff = max(float(np.max(np.abs(params["cpu"][k] - params[str(dev)][k]))) for k in weights)
+    step = max(float(np.max(np.abs(params["cpu"][k] - weights[k]))) for k in weights)
+    log(f"{TRAIN_PARITY_STEPS} clipped Adam updates on 256 images, card against CPU: "
+        f"max |difference| {diff:.3e} (limit {TRAIN_PARITY_ATOL}) for a largest change of "
+        f"{step:.3e}")
+    if not diff <= TRAIN_PARITY_ATOL:
+        raise AssertionError(f"training on the card differs from the CPU by {diff}")
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = M.load_real_digits(cfg)
+    source = "real digits"
+    if data is None:
+        data, source = M.synthetic_dataset(cfg, gen, 512), "512 synthetic images"
+    sync(dev)
+    t0 = time.perf_counter()
+    trained, acc = M.train(cfg, gen, steps=TRAIN_STEPS, data=data, device=dev)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    log(f"train on {source}: {train_s:.2f} s for {TRAIN_STEPS} steps "
+        f"({train_s * 1e3 / TRAIN_STEPS:.2f} ms a step, the augmentation pool included), "
+        f"held-out accuracy {acc:.4f} (limit > {TRAIN_MIN_ACC}) [{smi}]")
+    if not acc > TRAIN_MIN_ACC:
+        raise AssertionError(f"held-out accuracy {acc}")
+
+    imgs = torch.as_tensor(data[0]).cpu().numpy()
+    n = min(len(imgs), 2048)
+    held = imgs[(n * 4) // 5:n][:cfg.batch]
+    plain = M.model_forward(cfg, trained, held)
+    M.encrypted_inference_fast(setup, trained, held, gen, gks_bsgs=gks)     # build
+    sync(dev)
+    reset_launches()
+    logits = M.encrypted_inference_fast(                                  # the main path
+        setup, trained, held, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED),
+        gks_bsgs=gks).T
+    sync(dev)
+    launches = read_launches()
+    if logits.shape != (cfg.batch, cfg.classes) or not np.all(np.isfinite(logits)):
+        raise AssertionError(f"bad logits: shape {logits.shape} or non-finite values")
+    err = float(np.max(np.abs(logits - plain)))
+    agree = int(np.sum(np.argmax(logits, -1) == np.argmax(plain, -1)))
+    log(f"the trained weights encrypted (BSGS + dual flow, {cfg.batch} held-out images): "
+        f"labels agree with the plaintext pass on {agree}/{cfg.batch} (limit "
+        f">= {TRAIN_MIN_AGREE}), max logit error {err:.3e} (largest |logit| "
+        f"{float(np.max(np.abs(plain))):.2f}); launched {launches}")
+    if agree < TRAIN_MIN_AGREE:
+        raise AssertionError(f"encrypted labels agree on {agree} of {cfg.batch}")
+    return dict(launches=launches, acc=acc, train_s=train_s, err=err, agree=agree,
+                parity=diff, source=source)
 
 
 # ---------------------------------------------------------------------------
@@ -2408,6 +2723,13 @@ def main() -> int:
     exact_err = phase_exact_k1_goldens(dev)
     tree = phase_bfv_tree(dev, smi, args.seed)
     bgv = phase_bgv_levels(dev, smi, args.seed)
+    t0 = time.perf_counter()
+    host = phase_host_oracle(dev, smi, args.seed)
+    log(f"phase 31 took {time.perf_counter() - t0:.1f} s (host clock)")
+    native = phase_native_decodes(dev, smi, dict(setup=pipe["setup"], imgs=pipe["imgs"],
+                                                 layers=bsgs["layers"]), tree, bgv)
+    ser = phase_serialization(dev, smi, pipe, bsgs)
+    trained = phase_training(dev, smi, pipe, bsgs, args.seed)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -2423,7 +2745,10 @@ def main() -> int:
                               "mnist_bootstrapped": bmn["launches"][k],
                               "bfv_tree_n2^13": tree["launches"][k],
                               "bgv_modraised_3_levels": bgv["modraised"]["launches"][k],
-                              "bgv_hybrid_2_levels": bgv["hybrid"]["launches"][k]},
+                              "bgv_hybrid_2_levels": bgv["hybrid"]["launches"][k],
+                              "host_oracle_n2^13": host["launches"][k],
+                              "mnist_bsgs_loaded_keys": ser["launches"][k],
+                              "mnist_bsgs_trained_weights": trained["launches"][k]},
          "max_abs_err": max(err[k], exact_err[k]),
          "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],
@@ -2485,7 +2810,14 @@ def main() -> int:
         f"budget {tree['levels'][-1]['budget']:.1f} bits, K1 {tree['launches']['fwd']} + "
         f"{tree['launches']['inv']} launches; BGV "
         + ", ".join(f"{k} {len(v['rows'])} levels {sum(r['ms'] for r in v['rows']):.2f} ms, last "
-                    f"budget {v['rows'][-1]['budget']:.1f} bits" for k, v in bgv.items()))
+                    f"budget {v['rows'][-1]['budget']:.1f} bits" for k, v in bgv.items())
+        + f"; host engine at N=2^13 {host['host_s']:.1f} s, the card's square -> key switch -> "
+        f"rescale {host['ms']['all']:.3f} ms, bit-equal; C++ CRT decodes exact "
+        f"({', '.join('%s %.2f ms' % (k, v['native_ms']) for k, v in native.items())}); setup "
+        f"files {ser['mib']:.1f} MiB, saved in {ser['save_ms']:.0f} ms, loaded in "
+        f"{ser['load_ms']:.0f} ms, logits bit-equal on the loaded keys; training "
+        f"{trained['train_s'] * 1e3 / TRAIN_STEPS:.2f} ms a step, held-out accuracy "
+        f"{trained['acc']:.4f}, encrypted labels {trained['agree']}/{pipe['batch']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

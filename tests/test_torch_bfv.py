@@ -155,11 +155,19 @@ def test_encrypt_with_shared_noise(shared):
 
 
 def ref_exact_meters(monkeypatch):
-    """Send the reference's decode and noise meters down its exact Python CRT
-    path, which the port ports: its C++ meter takes the distance from the Δ
+    """Send the reference's invariant noise budget down its exact Python CRT
+    path, which the port keeps: its C++ meter takes the distance from the Δ
     lattice as a difference of doubles, which rounds it to a multiple of
-    2^(log2 Δ − 53) near the lattice's midpoints."""
-    monkeypatch.setattr(ref_ring.RingContext, "native", lambda self: None)
+    2^(log2 Δ − 53) near the lattice's midpoints. Its decodes and its BGV
+    meter keep the C++ CRT, as the port's do."""
+    exact = F.invariant_noise_budget
+
+    def budget(key, c):
+        with monkeypatch.context() as m:
+            m.setattr(ref_ring.RingContext, "native", lambda self: None)
+            return exact(key, c)
+
+    monkeypatch.setattr(F, "invariant_noise_budget", budget)
 
 
 def test_mul_keyswitch_mul(shared, monkeypatch):

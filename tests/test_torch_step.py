@@ -124,11 +124,18 @@ def test_port_import_leaves_jax_out():
             "toyfhe_tpu_torch.tools.bench_bootstrap, toyfhe_tpu_torch.core.bfv, "
             "toyfhe_tpu_torch.core.behz, toyfhe_tpu_torch.core.bgv, toyfhe_tpu_torch.core.plain, "
             "toyfhe_tpu_torch.core.noise, toyfhe_tpu_torch.core.planner, "
-            "toyfhe_tpu_torch.core.cryptparams, toyfhe_tpu_torch.core.insecure, chip_smoke; "
+            "toyfhe_tpu_torch.core.cryptparams, toyfhe_tpu_torch.core.insecure, "
+            "toyfhe_tpu_torch.native, toyfhe_tpu_torch.core.generic_ring, "
+            "toyfhe_tpu_torch.core.polycrt, toyfhe_tpu_torch.core.host_engine, "
+            "toyfhe_tpu_torch.core.refparams, toyfhe_tpu_torch.core.golden, "
+            "toyfhe_tpu_torch.utils.serialization, toyfhe_tpu_torch.utils.metrics, chip_smoke; "
             "from toyfhe_tpu_torch.core import bootstrap as B; "
             "from toyfhe_tpu_torch.models import mnist as M; "
             "assert callable(B.bootstrap_batched) and callable(M.build_bootstrapped_pipeline); "
             "assert callable(toyfhe_tpu_torch.bfv_params) and callable(chip_smoke.phase_bfv_tree); "
+            "assert callable(M.train) and callable(M.synthetic_dataset) and callable(M.load_mnist_local); "
+            "assert toyfhe_tpu_torch.serialization.load_keypair and toyfhe_tpu_torch.metrics.snapshot; "
+            "assert toyfhe_tpu_torch.core.golden.SCENARIOS['bfv_uint8']; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -184,4 +191,12 @@ def test_no_public_function_defaults_to_the_cpu():
             "rlwe.make_eval_key", "bfv.BFVParams.encode", "behz.BFVMulContext.smmrq_convert",
             "bgv.BGVParams.encode", "plain.slot_encode", "plain.slot_decode",
             "noise.bgv_noise_budget", "planner.plan_ckks_tower", "cryptparams.security_level",
-            "insecure.InsecureDebug.noise", "interop.encrypt_with_noise"} <= names
+            "insecure.InsecureDebug.noise", "interop.encrypt_with_noise",
+            "serialization.load_ciphertext", "serialization.load_keypair",
+            "serialization.load_keyswitch_key", "serialization.load_eval_mult_key",
+            "serialization.load_galois_key", "mnist.train", "mnist.synthetic_dataset",
+            "mnist.PlainCNN.__init__", "mnist.train_step", "mnist.load_real_digits",
+            "golden.run_ckks_bootstrap", "golden.run_all", "host_engine.keyswitch",
+            "generic_ring.GenericRing.mul", "polycrt.PolyCRTContext.encode",
+            "refparams.bfv_reference_paramgen", "native.CrtNative.decode_bfv",
+            "metrics.timed", "ring.RingContext.native"} <= names

@@ -15,7 +15,14 @@ pass, and the bootstrapped pipeline), and the exact schemes: BFV with the
 BEHZ multiply (``core/bfv.py``, ``core/behz.py``), leveled BGV
 (``core/bgv.py``), plaintext slots (``core/plain.py``), the noise meters and
 estimator (``core/noise.py``) and the parameter planner and security table
-(``core/planner.py``, ``core/cryptparams.py``). The fused kernels beside the plain
+(``core/planner.py``, ``core/cryptparams.py``); on the host, the exact RLWE
+engine over Python integers (``core/host_engine.py``, with general cyclotomic
+rings in ``core/generic_ring.py``, PolyCRT slots in ``core/polycrt.py``, the
+reference-literal parameters in ``core/refparams.py`` and the golden-vector
+scenarios in ``core/golden.py``), the C++ CRT of the decodes
+(``native/fhe_host.cpp``, built with g++ at first use), key and ciphertext
+files (``utils/serialization.py``), op counters (``utils/metrics.py``) and
+plaintext training of the MNIST model (``models/mnist.py``). The fused kernels beside the plain
 paths: the four-step digit transform K2 (``csrc/ntt_mxu.cu``), the hybrid
 key switch K3 (``csrc/hybrid_ks.cu``), the fused polynomial product K4
 (``csrc/polymul.cu``), the bit-reversed DIF transform K5
@@ -26,8 +33,9 @@ torch and never jax.
 
 Layer map: ops/ = modular arithmetic, NTTs, sampling and the fused
 kernels; core/ = ring, RLWE engine, the schemes and the key-switch modifiers;
-parallel/ = the steps and the layers; models/ = encrypted MNIST; tools/ =
-command-line tools; utils/ = host number theory and numpy interop.
+parallel/ = the steps and the layers; models/ = encrypted MNIST and its
+training; native/ = the C++ host CRT; tools/ = command-line tools; utils/ =
+host number theory, numpy interop, serialization and metrics.
 """
 
 from .core.ring import RingContext, RingElt, make_ring, make_rns_ring
@@ -57,6 +65,6 @@ from .core.noise import bgv_noise_budget, ckks_precision, ckks_scale_bits
 from .core.planner import plan_ckks_tower, plan_ckks_ring
 from .core.cryptparams import estimate_security, security_level
 from .core import cryptparams
-from .utils import interop
+from .utils import interop, metrics, serialization
 
 __version__ = "0.1.0"

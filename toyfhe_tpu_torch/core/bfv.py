@@ -6,8 +6,10 @@ Port of ``toyfhe_tpu/core/bfv.py``:
     parameter generator below emits limb bit-sizes rather than one wide
     prime;
   * multiplication is the exact BEHZ RNS pipeline (:mod:`.behz`);
-  * decode and the invariant-noise-budget meter CRT-reconstruct on the
-    host with exact Python integers (``RingContext.to_bigint``).
+  * decode CRT-reconstructs on the host through the C++ CRT
+    (``RingContext.native``), as the reference does; the invariant noise
+    budget takes the exact Python CRT (``RingContext.to_bigint``), since the
+    C++ meter rounds near the Δ lattice's midpoints.
 """
 
 from __future__ import annotations
@@ -71,14 +73,11 @@ class BFVParams(SchemeParams):
 
     def decode(self, b: RingElt, ring: RingContext) -> PlainPoly:
         """π: centered round by Δ (at the ciphertext's own tower), then mod p;
-        exact on the host."""
+        through the C++ CRT on the host."""
         b = R.ensure_primal(ring, b)
         p = self.plain.p
         delta = self.delta if ring is self._ring else ring.modulus // p
-        q = ring.modulus
-        xs = ring.to_bigint(b.primal.cpu().numpy())
-        out = np.array([nt.divround(nt.centered(x, q), delta) % p for x in xs], dtype=np.int64)
-        return PlainPoly(self.plain, out)
+        return PlainPoly(self.plain, ring.native().decode_bfv(b.primal.cpu().numpy(), delta, p))
 
     def noise(self, gen, ring: RingContext, batch=()):
         return RingElt(primal=sampling.discrete_gaussian(gen, ring.mp, ring.n,

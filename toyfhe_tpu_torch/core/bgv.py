@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from ..ops import sampling
-from ..utils import numtheory as nt
 from . import ring as R
 from .plain import PlainPoly, PlainRing
 from .ring import RingContext, RingElt
@@ -79,11 +78,8 @@ class BGVParams(SchemeParams):
 
     def decode(self, b: RingElt, ring: RingContext) -> PlainPoly:
         b = R.ensure_primal(ring, b)
-        q = ring.modulus
-        p = self.plain.p
-        xs = ring.to_bigint(b.primal.cpu().numpy())
-        return PlainPoly(self.plain, np.array([nt.centered(x, q) % p for x in xs],
-                                              dtype=np.int64))
+        return PlainPoly(self.plain, ring.native().decode_centered_mod(b.primal.cpu().numpy(),
+                                                                       self.plain.p))
 
     def noise(self, gen, ring: RingContext, batch=()):
         return RingElt(primal=sampling.discrete_gaussian(

@@ -133,14 +133,13 @@ def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
 
 
 def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
-    """Ring element → slots ∈ ℂ^{N/2}, through the exact CRT on the host."""
+    """Ring element → slots ∈ ℂ^{N/2}, through the C++ CRT on the host (the
+    centered value as a double, then divided by the scale, as the
+    reference's decode)."""
     n = ring.n
     scale = Fraction(scale)
     re = R.ensure_primal(ring, re)
-    xs = ring.to_bigint(re.primal.cpu().numpy())
-    q = ring.modulus
-    vals = np.array([nt.frac_to_float(Fraction(nt.centered(x, q)) / scale)
-                     for x in xs])
+    vals = ring.native().decode_centered_double(re.primal.cpu().numpy()) / nt.frac_to_float(scale)
     k = np.arange(n)
     multed = vals * np.exp(-2j * np.pi * k / (2 * n))
     f = np.fft.fft(multed)

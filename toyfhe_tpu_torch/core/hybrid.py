@@ -29,6 +29,7 @@ import torch
 
 from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import as_residues
+from ..utils import metrics
 from . import ring as R
 from .ring import RingContext, RingElt
 from .rlwe import CipherText, PassthroughParams, PubKey
@@ -167,6 +168,7 @@ class HybridRaised(PassthroughParams):
             sub = exp_ring.select(out_idx)
             res = nttmod.ntt(sub.tables, digits[j].index_select(
                 -2, torch.tensor(out_idx, device=digits.device)))
+            metrics.count("ntt_limb_transform", math.prod(res.shape[:-1]))
             rows.append(torch.cat(
                 [res[..., :lo, :], xd[..., lo:hi, :], res[..., lo:, :]], dim=-2))
         return exp_ring, torch.stack(rows, dim=0)
@@ -255,6 +257,7 @@ class HybridRaised(PassthroughParams):
         dual = a.dual
         dev = dual.device
         sp = nttmod.intt(sp_ring.tables, dual[..., lt:, :])   # [..., k, N]
+        metrics.count("ntt_limb_transform", math.prod(sp.shape[:-1]))
         mp_ct = ct_ring.mp
         corr = None
         for s in range(k):
@@ -269,6 +272,7 @@ class HybridRaised(PassthroughParams):
                                     as_residues(wts[s], dev), mp_ct)
             corr = term if corr is None else modmath.add_mod(corr, term, mp_ct)
         corr_dual = nttmod.ntt(ct_ring.tables, corr)
+        metrics.count("ntt_limb_transform", math.prod(corr.shape[:-1]))
         out = modmath.sub_mod(
             modmath.mont_mul(dual[..., :lt, :], as_residues(pinv, dev), mp_ct),
             corr_dual, mp_ct)

@@ -12,7 +12,6 @@ import math
 
 import numpy as np
 
-from ..utils import numtheory as nt
 from . import ring as R
 from .rlwe import CipherText, KeyPair, _gadget_shape, decrypt, decrypt_raw
 
@@ -23,10 +22,9 @@ def bgv_noise_budget(key, c: CipherText) -> float:
     priv = key.priv if isinstance(key, KeyPair) else key
     ring = c.ring
     b = R.ensure_primal(ring, decrypt_raw(priv, c))
-    q = ring.modulus
-    xs = ring.to_bigint(b.primal.cpu().numpy())
-    worst = max(max(abs(nt.centered(x, q)) for x in xs), 1)
-    return math.log2(q / 2) - math.log2(worst)
+    vals = np.abs(ring.native().decode_centered_double(b.primal.cpu().numpy()))
+    worst = float(max(vals.max(), 1.0))
+    return math.log2(ring.modulus / 2) - math.log2(worst)
 
 
 def ckks_precision(key, c: CipherText, expected) -> float:

@@ -19,9 +19,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native as crt_native
 from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import MontParams
-from ..utils import numtheory as nt
+from ..utils import metrics, numtheory as nt
 
 __all__ = ["RingContext", "RingElt", "make_ring", "make_rns_ring"]
 
@@ -44,6 +45,7 @@ class RingContext:
         self._children: dict = {}
         self._rescale_cache: dict = {}
         self._galois_cache: dict = {}
+        self._native: Optional[crt_native.CrtNative] = None
         # derived towers are cached on the ROOT ring by absolute limb
         # indices, so drop_last() of a derived tower is the same object
         self._root: "RingContext" = self
@@ -109,9 +111,17 @@ class RingContext:
             self._galois_cache[g] = nttmod.galois_perm_tables(self.n, g)
         return self._galois_cache[g]
 
-    # ---- host-side exact CRT (decode path) ----
+    # ---- host CRT: the C++ library of the decodes, and the exact oracle ----
+    def native(self) -> crt_native.CrtNative:
+        """The C++ CRT of this tower (built at first use, kept per tower);
+        raises if the library cannot be built."""
+        if self._native is None:
+            self._native = crt_native.CrtNative(self.primes)
+        return self._native
+
     def to_bigint(self, primal: np.ndarray) -> list:
-        """CRT-reconstruct [L, N] residues to Python ints in [0, q)."""
+        """CRT-reconstruct [L, N] residues to Python ints in [0, q),
+        exactly (the oracle of :meth:`native`)."""
         q = self.modulus
         acc = [0] * primal.shape[-1]
         for l, p in enumerate(self.primes):
@@ -184,12 +194,14 @@ def zero_like(ring: RingContext, x: RingElt) -> RingElt:
 def ensure_primal(ring: RingContext, x: RingElt) -> RingElt:
     if x.primal is not None:
         return x
+    metrics.count("ntt_limb_transform", math.prod(x.dual.shape[:-1]))
     return RingElt(primal=nttmod.intt(ring.tables, x.dual), dual=x.dual)
 
 
 def ensure_dual(ring: RingContext, x: RingElt) -> RingElt:
     if x.dual is not None:
         return x
+    metrics.count("ntt_limb_transform", math.prod(x.primal.shape[:-1]))
     return RingElt(primal=x.primal, dual=nttmod.ntt(ring.tables, x.primal))
 
 
@@ -304,9 +316,11 @@ def rescale_dual(ring: RingContext, a: RingElt) -> Tuple[RingContext, RingElt]:
     inv = torch.as_tensor(inv_m.astype(np.int64), device=a.device)
     last_ring = ring.select([ring.nlimbs - 1])
     last = nttmod.intt(last_ring.tables, a.dual[..., -1:, :])   # raw residues
+    metrics.count("ntt_limb_transform", math.prod(last.shape[:-1]))
     mp = sub_ring.mp.on(a.device)
     corr = modmath.mont_mul(modmath.umod(last, mp.p), inv, mp)
     corr_dual = nttmod.ntt(sub_ring.tables, corr)
+    metrics.count("ntt_limb_transform", math.prod(corr.shape[:-1]))
     out = modmath.sub_mod(modmath.mont_mul(a.dual[..., :-1, :], inv, mp),
                           corr_dual, mp)
     return sub_ring, RingElt(dual=out)

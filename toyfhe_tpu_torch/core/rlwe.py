@@ -27,6 +27,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops import modmath, ntt as nttmod, sampling
+from ..utils import metrics
 from . import ring as R
 from .ring import RingContext, RingElt
 
@@ -380,6 +381,7 @@ def enc_mul(c1: CipherText, c2: CipherText) -> Tuple[RingContext, Tuple[RingElt,
     """Tensor product with the scheme's expand/contract hooks."""
     if c1.params is not c2.params:
         raise UsageError("Attempting to multiply ciphertexts with differing parameters")
+    metrics.count("enc_mul")
     params = c1.params
     ring, (a, b) = params.mul_expand_pair(c1, c2)
     return params.mul_contract_pair(ring, tensor_product(ring, a, b))
@@ -569,6 +571,8 @@ def keyswitch(ek, c: CipherText) -> CipherText:
     key_dec_ring = params.ring_cipher if _is_modraised(params) else ek.ring
     kpl = _gadget_shape(key_dec_ring, window)[0] if window else None
     digits = gadget_decompose(ring, exp_ring, c.cs[-1], window, k_per_limb=kpl)
+    metrics.count("keyswitch")
+    metrics.count("ntt_limb_transform", int(digits.shape[0]) * exp_ring.nlimbs)
     ddual = nttmod.ntt(exp_ring.tables, digits)              # [ndig, ..., Lt, N]
 
     masks, maskeds = _downswitch_stack(params, ek, exp_ring, int(digits.shape[0]))
@@ -600,6 +604,7 @@ def _keyswitch_hybrid(params, ek: KeySwitchKey, c: CipherText) -> CipherText:
     groups fast-base-converted into the Q_t ∪ P tower; the accumulator
     alone is divided by P (the base components are never pre-scaled)."""
     ring = c.ring
+    metrics.count("keyswitch")
     exp_ring, ddual = params.hybrid_decompose_dual(ring, c.cs[-1])
     masks, maskeds = _hybrid_key_stack(params, ek, exp_ring,
                                        int(ddual.shape[0]), ddual.dim() - 3)
@@ -651,6 +656,7 @@ def rotate(gk, c: CipherText, steps: Optional[int] = None) -> CipherText:
         gk = gk.for_steps(c.ring.n, steps)
     if not isinstance(gk, GaloisKey):
         raise TypeError("rotate takes a GaloisKey or a GaloisKeys collection")
+    metrics.count("rotate")
     return keyswitch(gk, apply_galois_ct(c, gk.galois_element))
 
 
@@ -701,6 +707,7 @@ class _HoistGadget:
                 self.exp_ring = (expand(self.ring, R.zero_like(self.ring, elt))[0]
                                  if expand is not None else self.ring)
             digits = gadget_decompose(self.ring, self.exp_ring, elt, 0)
+            metrics.count("ntt_limb_transform", int(digits.shape[0]) * self.exp_ring.nlimbs)
             ddual = nttmod.ntt(self.exp_ring.tables, digits)
         self.ndig = int(ddual.shape[0])
         _count("decompositions", "decompose_calls", ddual)
@@ -765,6 +772,8 @@ def rotate_many(gks: GaloisKeys, c: CipherText, elements) -> dict:
     outs = {}
     for g in elements:
         gk = gks.for_element(g)
+        metrics.count("rotate")
+        metrics.count("keyswitch")
         perm = nttmod.galois_dual_perm_dev(n, g, ddual.device)
         pd = ddual.index_select(-1, perm)
         acc1, acc2 = gad.key_products(gk.key, pd)
@@ -823,6 +832,8 @@ def rotate_sum(gks: GaloisKeys, terms) -> CipherText:
         if t.ring is not ring:
             raise UsageError("rotate_sum terms must share one tower")
         gk = gks.for_element(g)
+        metrics.count("rotate")
+        metrics.count("keyswitch")
         ddual = gad.decompose_dual(t.cs[1])
         perm = nttmod.galois_dual_perm_dev(n, g, ddual.device)
         pd = ddual.index_select(-1, perm)             # σ_g ∘ decompose
@@ -872,6 +883,7 @@ def ct_rescale(c: CipherText) -> CipherText:
     exact divide-and-round of every component and the division of the
     scale tag. BGV: the p-adapted rounding, and the message picks up a
     q_k⁻¹ mod p factor that a ``bgv.BGVTag`` tracks (leveled BGV)."""
+    metrics.count("rescale")
     ring = c.ring
     t = bgv_plain_modulus(c.params)
     cs = []

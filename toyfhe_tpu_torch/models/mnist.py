@@ -29,10 +29,13 @@ and on the compiled layers at each tower level
 (:func:`build_bootstrapped_pipeline`), with the keys and the
 ``core.bootstrap.BootstrapContext`` of :func:`fhe_setup_bootstrapped`.
 
-Weights are drawn from a numpy seed (``init_params``; training is not
-ported) or carried across from the reference (``utils.interop.mnist_params``).
-``model_forward`` is the plaintext pass in numpy, the check of the
-encrypted one.
+Weights are drawn from a numpy seed (``init_params``), trained on the
+device (:func:`train`: the same forward pass as a float32 ``nn.Module``,
+torch Adam with the reference's optax schedule, clipping, label smoothing
+and augmentation pool, on real digits where the host has them, else on
+synthetic ones) or carried across from the reference
+(``utils.interop.mnist_params``). ``model_forward`` is the plaintext pass in
+numpy, the check of the encrypted one.
 """
 
 from __future__ import annotations
@@ -140,6 +143,289 @@ def model_forward(cfg: MNISTConfig, params, batch) -> np.ndarray:
     fq1 = feats @ np.asarray(params["w1"]).T + np.asarray(params["b1"])
     sq2 = fq1 ** 2
     return sq2 @ np.asarray(params["w2"]).T + np.asarray(params["b2"])
+
+
+# ---------------------------------------------------------------------------
+# plaintext training (train.jl's role)
+# ---------------------------------------------------------------------------
+
+class PlainCNN(torch.nn.Module):
+    """The x²-CNN as a float32 ``nn.Module`` with autograd: the computation of
+    :func:`model_forward` (patches, conv, square, channel-major features,
+    dense, square, dense), on the device of the parameters."""
+
+    def __init__(self, cfg: MNISTConfig, params, device):
+        super().__init__()
+        self.cfg = cfg
+        for name in ("conv_w", "conv_b", "w1", "b1", "w2", "b2"):
+            value = torch.as_tensor(np.asarray(params[name], dtype=np.float32), device=device)
+            setattr(self, name, torch.nn.Parameter(value.clone()))
+
+    def forward(self, batch: torch.Tensor) -> torch.Tensor:
+        cfg, b = self.cfg, batch.shape[0]
+        pt = batch.unfold(1, cfg.kernel, cfg.stride).unfold(2, cfg.kernel, cfg.stride)
+        pt = pt.reshape(b, cfg.positions, cfg.kernel * cfg.kernel)          # [B, P, k*k]
+        conv = torch.einsum("bpk,kc->bpc", pt, self.conv_w.reshape(-1, cfg.channels)) + self.conv_b
+        feats = (conv ** 2).permute(0, 2, 1).reshape(b, cfg.features)     # channel-major
+        sq2 = (feats @ self.w1.T + self.b1) ** 2
+        return sq2 @ self.w2.T + self.b2
+
+    def params(self) -> dict:
+        """The weights as float32 numpy arrays (the encrypted pipeline's
+        ``model_params``)."""
+        return {name: p.detach().cpu().numpy() for name, p in self.named_parameters()}
+
+
+def warmup_cosine(lr: float, steps: int):
+    """optax's ``warmup_cosine_decay_schedule(0, lr, max(50, steps // 20),
+    steps, 0.05·lr)`` as a function of the update count: linear warmup from
+    0, then cosine decay to 0.05·lr, in float32 with optax's order of
+    operations. As in optax, update k (from 0) takes the value at count k, so
+    the first update has lr = 0."""
+    f32 = np.float32
+    warm = max(50, steps // 20)
+    decay = steps - warm
+    if decay <= 0:
+        raise ValueError(f"the cosine decay needs steps > {warm}, got {steps}")
+    alpha = (lr * 0.05) / lr
+
+    def schedule(count: int) -> float:
+        if count < warm:
+            frac = f32(1) - f32(min(max(count, 0), warm)) / f32(warm)
+            return float(f32(0.0 - lr) * frac + f32(lr))
+        t = f32(min(count - warm, decay))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * t / f32(decay)))
+        return float(f32(lr) * (f32(1 - alpha) * cosine + f32(alpha)))
+    return schedule
+
+
+def clip_by_global_norm_(params, max_norm: float = 1.0) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``: every gradient scaled by
+    max_norm / ‖g‖ when the global norm ‖g‖ ≥ max_norm, untouched below it
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm). Returns the
+    norm."""
+    grads = [p.grad for p in params]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+def train_step(model: PlainCNN, opt: torch.optim.Optimizer, batch: torch.Tensor,
+               labels: torch.Tensor, lr: float, clip: bool, smoothing: float) -> torch.Tensor:
+    """One update: softmax cross-entropy (label smoothing ``smoothing``:
+    targets onehot·(1−s) + s/C), optionally clipped to global norm 1, then
+    Adam at ``lr``. Returns the loss (a device scalar: reading it waits for
+    the device)."""
+    opt.zero_grad(set_to_none=False)
+    loss = torch.nn.functional.cross_entropy(model(batch), labels, label_smoothing=smoothing)
+    loss.backward()
+    if clip:
+        clip_by_global_norm_(list(model.parameters()))
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    return loss.detach()
+
+
+def synthetic_dataset(cfg: MNISTConfig, gen: torch.Generator, n: int):
+    """Class-patterned images + noise (the dataset stand-in), drawn from
+    ``gen`` on its device: (imgs float32 [n, H, W], labels int64 [n])."""
+    dev = gen.device
+    labels = torch.randint(0, cfg.classes, (n,), generator=gen, device=dev)
+    protos = torch.randn((cfg.classes, cfg.image, cfg.image), generator=gen, device=dev)
+    noise = torch.randn((n, cfg.image, cfg.image), generator=gen, device=dev)
+    return protos[labels] + 0.3 * noise, labels
+
+
+_MNIST_CANDIDATES = (
+    "{root}/train-images-idx3-ubyte.gz", "{root}/train-images.idx3-ubyte",
+    "{root}/MNIST/raw/train-images-idx3-ubyte.gz",
+    "{root}/mnist.npz",
+)
+
+
+def load_mnist_local(root: str = None):
+    """(imgs float32 [N, 28, 28] in [0, 1], labels int64 [N]) from a local
+    MNIST copy (idx / idx.gz or Keras-style mnist.npz), or None when there is
+    none. Looks under ``root``, ``$MNIST_PATH``, ``~/.cache/mnist`` and
+    ``./data``; nothing is downloaded."""
+    import gzip
+    import os
+    import struct
+
+    roots = [r for r in (root, os.environ.get("MNIST_PATH"),
+                         os.path.expanduser("~/.cache/mnist"), "data") if r]
+    for rt in roots:
+        for pat in _MNIST_CANDIDATES:
+            path = pat.format(root=rt)
+            if not os.path.exists(path):
+                continue
+            if path.endswith(".npz"):
+                with np.load(path) as z:
+                    return (z["x_train"].astype(np.float32) / 255.0,
+                            z["y_train"].astype(np.int64))
+            opener = gzip.open if path.endswith(".gz") else open
+            with opener(path, "rb") as f:
+                magic, n, h, w = struct.unpack(">IIII", f.read(16))
+                if magic != 2051:
+                    raise ValueError(f"{path}: not an idx3 image file")
+                imgs = np.frombuffer(f.read(n * h * w), dtype=np.uint8)
+            lbl_path = path.replace("images-idx3", "labels-idx1") \
+                           .replace("images.idx3", "labels.idx1")
+            with opener(lbl_path, "rb") as f:
+                magic, n2 = struct.unpack(">II", f.read(8))
+                if magic != 2049 or n2 != n:
+                    raise ValueError(f"{lbl_path}: not the labels of {path}")
+                labels = np.frombuffer(f.read(n), dtype=np.uint8)
+            return (imgs.reshape(n, h, w).astype(np.float32) / 255.0,
+                    labels.astype(np.int64))
+    return None
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] float32 weights of a bilinear (triangle-kernel) resize
+    with half-pixel centres, normalised over the input pixels in reach, as
+    ``jax.image.resize(..., "bilinear")`` builds them."""
+    inv_scale = np.float32(n_in) / np.float32(n_out)
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).T.astype(np.float32)
+
+
+def resize_bilinear(imgs: np.ndarray, size: int) -> np.ndarray:
+    """[N, h, w] float32 images resampled to [N, size, size] bilinearly."""
+    wh = _resize_weights(imgs.shape[1], size)
+    ww = _resize_weights(imgs.shape[2], size)
+    return np.einsum("yh,nhw,xw->nyx", wh, imgs.astype(np.float32), ww).astype(np.float32)
+
+
+def load_real_digits(cfg: MNISTConfig):
+    """Real handwritten digits at cfg.image: a local MNIST copy
+    (:func:`load_mnist_local`, 28×28 only), else the UCI handwritten-digit
+    scans bundled with scikit-learn (1797 8×8 images, resampled bilinearly
+    to cfg.image; classes ≥ cfg.classes dropped). None when neither exists
+    (the reference's rule: then :func:`train` uses the synthetic set)."""
+    if cfg.image == 28:
+        local = load_mnist_local()
+        if local is not None:
+            return local
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError:
+        return None
+    d = load_digits()
+    imgs = d.images.astype(np.float32) / 16.0          # [N, 8, 8] in [0, 1]
+    labels = d.target.astype(np.int64)
+    if cfg.classes < 10:
+        keep = labels < cfg.classes
+        imgs, labels = imgs[keep], labels[keep]
+    if cfg.image != 8:
+        imgs = resize_bilinear(imgs, cfg.image)
+    return imgs, labels
+
+
+def augmentation_pool(cfg: MNISTConfig, imgs: np.ndarray, labels: np.ndarray):
+    """The host-side augmentation pool of long training runs: the images,
+    four small-angle rotations (±5°, ±10°) and four elastic distortions
+    (Simard et al.: smoothed random displacement fields from
+    ``np.random.default_rng(7)``), with their labels; the images alone
+    when scipy is absent."""
+    try:
+        from scipy.ndimage import gaussian_filter, map_coordinates
+        from scipy.ndimage import rotate as _rot
+    except ImportError:
+        return imgs, labels
+    base_i, base_l = np.asarray(imgs), np.asarray(labels)
+    pools_i, pools_l = [base_i], [base_l]
+    for ang in (-10.0, -5.0, 5.0, 10.0):
+        pools_i.append(_rot(base_i, ang, axes=(1, 2), reshape=False, order=1, mode="constant"))
+        pools_l.append(base_l)
+    rng_el = np.random.default_rng(7)
+    yy, xx = np.meshgrid(np.arange(cfg.image), np.arange(cfg.image), indexing="ij")
+    sigma_el, alpha_el = cfg.image / 7.0, cfg.image / 4.0
+    for _ in range(4):
+        dy = gaussian_filter(rng_el.uniform(-1, 1, base_i.shape[1:]), sigma_el,
+                             mode="constant") * alpha_el
+        dx = gaussian_filter(rng_el.uniform(-1, 1, base_i.shape[1:]), sigma_el,
+                             mode="constant") * alpha_el
+        warped = np.stack([map_coordinates(im, [yy + dy, xx + dx], order=1, mode="constant")
+                           for im in base_i], 0)
+        pools_i.append(warped.astype(np.float32))
+        pools_l.append(base_l)
+    return np.concatenate(pools_i, 0), np.concatenate(pools_l, 0)
+
+
+def _shift(imgs: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """Each image rolled by (dy, dx) pixels (``jnp.roll`` on both axes)."""
+    h, w = imgs.shape[1:]
+    rows = (torch.arange(h, device=imgs.device) - dy[:, None]) % h            # [B, H]
+    cols = (torch.arange(w, device=imgs.device) - dx[:, None]) % w            # [B, W]
+    return imgs[torch.arange(imgs.shape[0], device=imgs.device)[:, None, None],
+                rows[:, :, None], cols[:, None, :]]
+
+
+def train(cfg: MNISTConfig, gen: torch.Generator, steps: int = 300, lr: float = 1e-3,
+          data=None, *, device):
+    """Train the x²-CNN (train.jl's role) on ``device`` with
+    ``torch.optim.Adam`` (optax's β = (0.9, 0.999), ε = 1e-8); returns
+    (params as float32 numpy arrays, held-out accuracy).
+
+    ``data`` — (imgs [N, H, W], labels [N]); by default real digits
+    (:func:`load_real_digits`), else 512 synthetic images from ``gen``.
+    Weights start from :func:`init_params` at a seed drawn from ``gen``. The
+    first 2048 samples are used, 80 / 20 into training and held-out sets when
+    there are 256 or more. Runs of 300 steps or more take the warmup-cosine
+    schedule and global-norm clipping, and, with 256 or more training
+    images, minibatches of 256 from the augmentation pool, each image rolled
+    by up to cfg.image // 8 pixels, with label smoothing 0.05; shorter runs
+    take full-batch Adam at ``lr``. Minibatch indices and shifts are drawn
+    from ``gen``."""
+    seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=gen.device))
+    model = PlainCNN(cfg, init_params(cfg, seed), device)
+    if data is None:
+        data = load_real_digits(cfg)
+    if data is None:
+        data = synthetic_dataset(cfg, gen, 512)
+    imgs = torch.as_tensor(data[0]).cpu().numpy().astype(np.float32)[:2048]
+    labels = torch.as_tensor(data[1]).cpu().numpy().astype(np.int64)[:2048]
+    n = len(labels)
+    ntr = (n * 4) // 5 if n >= 256 else n
+    held_out = ntr < n
+    test_imgs, test_labels = (imgs[ntr:], labels[ntr:]) if held_out else (imgs, labels)
+    imgs, labels = imgs[:ntr], labels[:ntr]
+
+    long_run = steps >= 300
+    augment = long_run and ntr >= 256
+    if augment:
+        imgs, labels = augmentation_pool(cfg, imgs, labels)
+    schedule = warmup_cosine(lr, steps) if long_run else (lambda count: lr)
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    x = torch.as_tensor(imgs, device=device)
+    y = torch.as_tensor(labels, device=device)
+    nb = min(256, len(labels))
+    sh = max(1, cfg.image // 8)
+    for count in range(steps):
+        if augment:
+            idx = torch.randint(0, len(labels), (nb,), generator=gen, device=gen.device)
+            dy = torch.randint(-sh, sh + 1, (nb,), generator=gen, device=gen.device)
+            dx = torch.randint(-sh, sh + 1, (nb,), generator=gen, device=gen.device)
+            idx, dy, dx = idx.to(device), dy.to(device), dx.to(device)
+            mb, ml = _shift(x[idx], dy, dx), y[idx]
+        else:
+            mb, ml = x, y
+        train_step(model, opt, mb, ml, schedule(count), clip=long_run,
+                   smoothing=0.05 if augment else 0.0)
+    with torch.no_grad():
+        pred = model(torch.as_tensor(test_imgs, device=device)).argmax(-1).cpu().numpy()
+    return model.params(), float((pred == test_labels).mean())
 
 
 # ---------------------------------------------------------------------------
