@@ -109,7 +109,19 @@ replaced). Then, for each path:
   reference's recipe, held-out accuracy > 0.9; three updates equal to the
   same updates on the CPU), then the trained weights served encrypted
   through the BSGS + dual-flow pipeline (labels equal to the plaintext
-  pass's on at least 62 of 64 images).
+  pass's on at least 62 of 64 images);
+* the sharded paths (``parallel/sharding.py``, ``parallel/distributed.py``,
+  every per-shard transform K1): every sharded entry point over a mesh of
+  one rank in this process, then 8 gloo ranks spawned on the same card
+  (``parallel/launch.py``): ``make_sharded_step`` at N = 2^13, eight 28-bit
+  limbs, batch 4 over dp 2 x rp 4, the hybrid steps (v1 and the fused
+  schedule) at the serving gadget's 6-limb level over rp 2 and rp 3,
+  ``make_2axis_step`` at N = 2^13 over rp 2 x cp 2, each bit-equal to the
+  single-device step on the card, its dropped limb zero and its collective
+  counter equal to the communication model, K1 counted per rank; the
+  encrypted-MNIST pipeline at ``MNISTConfig()`` (BSGS + dual flow) over dp 2
+  x rp 2, its logits ciphertext on every rank bit-equal to the
+  single-device pipeline's; and ``tools.dryrun.dryrun_multihost(2)``.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -2596,6 +2608,333 @@ def phase_training(dev, smi, base, bsgs, seed):
 
 
 # ---------------------------------------------------------------------------
+# the sharded paths: a mesh of one rank here, then gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SHARD_N = 1 << 13
+SHARD_TOWER = (28,) * 8              # the per-limb step: 8 x 28-bit limbs, batch 4
+SHARD_B = 4
+SHARD_WORLD = 8                      # ranks of the spawn; each case takes the first it needs
+SHARD_2AXIS_TOWER = (29, 29, 28, 28)  # the four-step digit products need primes < 2^30
+SHARD_2AXIS_B = 2
+SHARD_PIPE_SEED = 37                 # keys of the sharded pipeline, made alike on every rank
+SHARD_PIPE_MESH = (2, 2)             # (dp, rp) of phase 37
+
+
+def _k1() -> dict:
+    from toyfhe_tpu_torch.ops import ntt_cuda
+    return dict(ntt_cuda.launches)
+
+
+def _k1_since(before: dict) -> dict:
+    after = _k1()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _uniform(shape, primes, seed):
+    return np.random.default_rng(seed).integers(0, min(primes), shape)
+
+
+def _counts_match(counts: dict, model: dict) -> bool:
+    from toyfhe_tpu_torch.parallel import distributed as D
+    return D.counter_matches_model(counts, model)
+
+
+def sharded_step_case(mesh, dev, n_rp, n_dp) -> dict:
+    """make_sharded_step at N = 2^13, 8 x 28-bit limbs, batch 4 over ``mesh``
+    against the single-device step on the card (synthetic keys)."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.parallel import distributed as D, ops as pops, sharding as S
+
+    ring = T.make_rns_ring(SHARD_N, SHARD_TOWER)
+    L = ring.nlimbs
+    km = _uniform((L, L, SHARD_N), ring.primes, 350)
+    kd = _uniform((L, L, SHARD_N), ring.primes, 351)
+    batch = _uniform((SHARD_B, 2, L, SHARD_N), ring.primes, 352)
+    step, place = pops.make_sharded_step(mesh, ring.tables, km, kd)
+    block = place(batch)
+    mesh.comm.reset()
+    k1 = _k1()
+    out = step(block)
+    sync(dev)
+    launches, counts = _k1_since(k1), mesh.comm.snapshot()
+    on_device = block.device == mesh.device == out.device
+    got = S.unshard(out, pops.DATA_SPEC, mesh)
+    want = pops.make_single_chip_step(ring.tables, torch.as_tensor(km, device=dev),
+                                      torch.as_tensor(kd, device=dev))(
+        torch.as_tensor(batch, device=dev))
+    model = D.sharded_step_comm_model(SHARD_N, L, n_rp, SHARD_B // n_dp)
+    return {"equal": bool(torch.equal(got, want)), "dropped_zero": bool((got[:, :, -1] == 0).all()),
+            "counter_is_model": _counts_match(counts, model), "on_device": on_device,
+            "k1": launches, "counts": counts}
+
+
+def hybrid_sharded_case(mesh, dev, n_rp, fused_schedule) -> dict:
+    """The hybrid step at the serving gadget (MNISTConfig()'s HybridRaised(2, 4))
+    on its 6-limb level over rp ranks, against the single-device step."""
+    from toyfhe_tpu_torch.parallel import distributed as D, ops as pops, sharding as S
+
+    _, tower, dnum, k, _ = HYBRID_CONFIGS[1]
+    params = hybrid_params(SHARD_N, tower, dnum, k)
+    ek = synthetic_eval_key(params, 353, dev)
+    ring = params.ring_cipher.drop_last()
+    batch = _uniform((SHARD_B, 2, ring.nlimbs, SHARD_N), ring.primes, 354)
+    step, place = pops.make_hybrid_sharded_step(mesh, params, ek, ct_ring=ring,
+                                                fused_schedule=fused_schedule, dp=False)
+    block = place(batch)
+    mesh.comm.reset()
+    k1 = _k1()
+    out = step(block)
+    sync(dev)
+    launches, counts = _k1_since(k1), mesh.comm.snapshot()
+    on_device = block.device == mesh.device == out.device
+    got = S.unshard(out, (None, None, "rp", None), mesh)
+    single, splace = pops.make_hybrid_sharded_step(None, params, ek, ct_ring=ring,
+                                                   fused_schedule=fused_schedule)
+    want = single(splace(batch))
+    model = D.sharded_step_comm_model(SHARD_N, ring.nlimbs, n_rp, SHARD_B,
+                                      ncomp=4 if fused_schedule else 2)
+    return {"equal": bool(torch.equal(got, want)), "dropped_zero": bool((got[:, :, -1] == 0).all()),
+            "counter_is_model": _counts_match(counts, model), "on_device": on_device,
+            "k1": launches, "counts": counts}
+
+
+def two_axis_case(mesh, dev, n_rp, n_cp) -> dict:
+    """make_2axis_step at N = 2^13 over rp x cp against the single-device
+    step on the card."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.ops import ntt_mxu as MX
+    from toyfhe_tpu_torch.parallel import distributed as D, ops as pops, sharding as S
+
+    ring = T.make_rns_ring(SHARD_N, SHARD_2AXIS_TOWER)
+    L = ring.nlimbs
+    km = _uniform((L, L, SHARD_N), ring.primes, 360)
+    kd = _uniform((L, L, SHARD_N), ring.primes, 361)
+    batch = _uniform((SHARD_2AXIS_B, 2, L, SHARD_N), ring.primes, 362)
+    step, place, (_, out_nat) = pops.make_2axis_step(mesh, MX.MxuNttTables(ring.tables), km, kd,
+                                                     n_cp=n_cp)
+    block = place(batch)
+    mesh.comm.reset()
+    out = step(block)
+    sync(dev)
+    counts = mesh.comm.snapshot()
+    on_device = block.device == mesh.device == out.device
+    got = S.unshard(out, (None, None, "rp", "cp"), mesh)
+    nat = torch.zeros_like(got)
+    nat[..., torch.as_tensor(out_nat, device=got.device)] = got
+    want = pops.make_single_chip_step(ring.tables, torch.as_tensor(km, device=dev),
+                                      torch.as_tensor(kd, device=dev))(
+        torch.as_tensor(batch, device=dev))
+    model = D.step2axis_comm_model(SHARD_N, L, n_rp, n_cp, SHARD_2AXIS_B)
+    return {"equal": bool(torch.equal(nat, want)), "counter_is_model": _counts_match(counts, model),
+            "on_device": on_device, "counts": counts}
+
+
+def sharded_pipeline_setup(dev, cfg):
+    """Keys, BSGS keys, weights and images of phase 37, made alike in every
+    process from fixed seeds."""
+    from toyfhe_tpu_torch.models import mnist as M
+    gen = torch.Generator(device=dev).manual_seed(SHARD_PIPE_SEED)
+    setup = M.fhe_setup(cfg, gen)
+    gks = M.keygen_matmul_bsgs(setup, gen)
+    weights = M.init_params(cfg, SHARD_PIPE_SEED)
+    imgs = np.random.default_rng(SHARD_PIPE_SEED).uniform(0.0, 1.0,
+                                                          (cfg.batch, cfg.image, cfg.image))
+    return setup, gks, weights, imgs
+
+
+def pipeline_case(mesh, dev, workdir, cfg) -> dict:
+    """The BSGS + dual-flow pipeline over ``mesh``: one batch with the counts
+    at 0 (the logits ciphertext saved for the parent), then warm batches."""
+    import torch.distributed as dist
+    from toyfhe_tpu_torch.models import mnist as M
+
+    setup, gks, weights, imgs = sharded_pipeline_setup(dev, cfg)
+    run = M.build_inference_pipeline(setup, weights, gks, mesh=mesh)
+    enc_gen = lambda: torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
+    run(imgs, enc_gen(), _return_ct=True)                        # build's first batch
+    mesh.comm.reset()
+    k1 = _k1()
+    ct = run(imgs, enc_gen(), _return_ct=True)
+    sync(dev)
+    launches, counts = _k1_since(k1), mesh.comm.snapshot()
+    np.savez(os.path.join(workdir, f"pipe_rank{dist.get_rank()}.npz"),
+             c0=ct.cs[0].dual.cpu().numpy(), c1=ct.cs[1].dual.cpu().numpy())
+    walls = []
+    for _ in range(PIPE_REPS):
+        sync(dev)
+        t = time.perf_counter()
+        run(imgs, enc_gen(), _return_ct=True)
+        sync(dev)
+        walls.append((time.perf_counter() - t) * 1e3)
+    return {"k1": launches, "counts": counts, "walls_ms": walls,
+            "on_device": ct.cs[0].dual.device == mesh.device}
+
+
+def sharded_rank(workdir: str, device: str, cfg: dict) -> dict:
+    """One gloo rank of phases 35-37 (every rank on ``device``): each case
+    on the first ranks it needs, every rank building every mesh; ``cfg``
+    the pipeline's MNISTConfig fields."""
+    import torch.distributed as dist
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.parallel import sharding as S
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    rep = {"rank": dist.get_rank()}
+    mesh = S.make_mesh(4, 2, device=dev)
+    rep["per_limb_dp2xrp4"] = sharded_step_case(mesh, dev, 4, 2)
+    for n_rp in (2, 3):
+        mesh = S.make_mesh(n_rp, 1, device=dev, ranks=range(n_rp))
+        for name, fused in (("v1", False), ("fused_schedule", True)):
+            if mesh.member:
+                rep[f"hybrid_rp{n_rp}_{name}"] = hybrid_sharded_case(mesh, dev, n_rp, fused)
+    mesh = S.Mesh(("rp", "cp"), (2, 2), device=dev, ranks=range(4))
+    if mesh.member:
+        rep["two_axis"] = two_axis_case(mesh, dev, 2, 2)
+    n_dp, n_rp = SHARD_PIPE_MESH
+    mesh = S.make_mesh(n_rp, n_dp, device=dev, ranks=range(n_dp * n_rp))
+    if mesh.member:
+        rep["pipeline"] = pipeline_case(mesh, dev, workdir, M.MNISTConfig(
+            **dict(cfg, limb_bits=tuple(cfg["limb_bits"]))))
+    return rep
+
+
+def _site_line(counts: dict) -> str:
+    return ", ".join(f"{k} {v['kind']} x{v['count']} {sum(v['bytes'])} B"
+                     for k, v in counts.items())
+
+
+def _require(rep: dict, what: str, cuda: bool):
+    """Every check of a case's report true, and on the card K1 launched."""
+    bad = [k for k in ("equal", "dropped_zero", "counter_is_model", "on_device")
+           if k in rep and not rep[k]]
+    if bad:
+        raise AssertionError(f"{what}: {bad} failed: {json.dumps(rep)[:1500]}")
+    if cuda and "k1" in rep and not (rep["k1"]["fwd"] and rep["k1"]["inv"]):
+        raise AssertionError(f"{what}: K1 was not launched: {rep['k1']}")
+
+
+def phase_sharded_one_rank(dev):
+    """Phase 35, part 1: every sharded entry point over a mesh of one rank in
+    this process (no process group), bit-equal to the single-device path."""
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.parallel import sharding as S
+
+    log("== phase 35: the sharded steps on the card; first every sharded entry point over a "
+        "mesh of one rank in this process")
+    one = S.make_mesh(1, 1, device=dev)
+    rows = {"per_limb": sharded_step_case(one, dev, 1, 1)}
+    for name, fused in (("v1", False), ("fused_schedule", True)):
+        rows[f"hybrid_{name}"] = hybrid_sharded_case(one, dev, 1, fused)
+    rows["two_axis"] = two_axis_case(S.Mesh(("rp", "cp"), (1, 1), device=dev), dev, 1, 1)
+    cfg = M.MNISTConfig(image=8, kernel=4, stride=4, channels=2, classes=4, ring_logn=6)
+    setup, gks, weights, imgs = sharded_pipeline_setup(dev, cfg)
+    gen = lambda: torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
+    want = M.build_inference_pipeline(setup, weights, gks)(imgs, gen(), _return_ct=True)
+    got = M.build_inference_pipeline(setup, weights, gks, mesh=one)(imgs, gen(), _return_ct=True)
+    rows["pipeline_tiny"] = {"equal": all(torch.equal(a.dual, b.dual)
+                                          for a, b in zip(got.cs, want.cs)),
+                             "on_device": got.cs[0].dual.device == one.device}
+    for name, rep in rows.items():
+        _require(rep, f"one-rank {name}", dev.type == "cuda")
+        log(f"  {name}: bit-equal to the single-device path on {dev}"
+            + (f", K1 {rep['k1']}" if "k1" in rep else "")
+            + (f"; counter = model ({_site_line(rep['counts'])})" if "counts" in rep else ""))
+
+
+def phase_sharded_ranks(dev, smi, cfg=None):
+    """Phases 35 (part 2), 36 and 37: one spawn of gloo ranks sharing the
+    card; the parent holds the pipeline's ciphertexts against its own."""
+    import dataclasses
+    import tempfile
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.parallel import launch
+
+    cfg = M.MNISTConfig() if cfg is None else cfg
+    n_dp, n_rp = SHARD_PIPE_MESH
+    log(f"== phase 37 (its single-device side, in this process): MNISTConfig() with BSGS + dual "
+        f"flow on keys from seed {SHARD_PIPE_SEED}")
+    setup, gks, weights, imgs = sharded_pipeline_setup(dev, cfg)
+    ct = M.build_inference_pipeline(setup, weights, gks)(
+        imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED), _return_ct=True)
+    want = [x.dual.cpu().numpy() for x in ct.cs]
+    logits = M.decrypt(setup.kp, ct).real.reshape(cfg.positions, cfg.batch)[:cfg.classes].T
+    err = float(np.max(np.abs(logits - M.model_forward(cfg, weights, imgs))))
+    del setup, gks
+    torch.cuda.empty_cache()
+
+    log(f"spawning {SHARD_WORLD} gloo ranks on {dev} (phases 35-37)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as work:
+        reps = launch.run_ranks("chip_smoke:sharded_rank", SHARD_WORLD, work,
+                                args={"device": str(dev), "cfg": dataclasses.asdict(cfg)},
+                                timeout_s=600.0)
+        pipes = {}
+        for r in range(SHARD_PIPE_MESH[0] * SHARD_PIPE_MESH[1]):
+            with np.load(os.path.join(work, f"pipe_rank{r}.npz")) as z:
+                pipes[r] = dict(z)
+    log(f"ranks done in {time.perf_counter() - t0:.1f} s (host clock, spawn to exit)")
+
+    log(f"== phase 35 (part 2): make_sharded_step at N=2^13, {len(SHARD_TOWER)} x 28-bit limbs, "
+        f"batch {SHARD_B}, over dp 2 x rp 4; the hybrid steps at the serving gadget's 6-limb "
+        "level over rp 2 and rp 3")
+    out = {"k1": {}}
+    for rep in reps:
+        for key in [k for k in rep if k.startswith(("per_limb", "hybrid_"))]:
+            _require(rep[key], f"rank {rep['rank']} {key}", dev.type == "cuda")
+            out["k1"].setdefault(key, {})[rep["rank"]] = rep[key]["k1"]
+    for key, per_rank in out["k1"].items():
+        c = reps[0][key]["counts"]
+        log(f"  {key}: every rank bit-equal to the single-device step on {dev}, dropped limb "
+            f"zeroed, counter = sharded_step_comm_model ({_site_line(c)} on rank 0); K1 per rank "
+            + ", ".join(f"{r}: {v['fwd']}+{v['inv']}" for r, v in sorted(per_rank.items())))
+
+    log("== phase 36: make_2axis_step at N=2^13 over rp 2 x cp 2")
+    for rep in reps[:4]:
+        _require(rep["two_axis"], f"rank {rep['rank']} two_axis", dev.type == "cuda")
+    log(f"  every rank bit-equal to the single-device step; counter = step2axis_comm_model "
+        f"({_site_line(reps[0]['two_axis']['counts'])} on rank 0)")
+
+    log(f"== phase 37: the sharded MNIST pipeline at MNISTConfig() over dp {n_dp} x rp {n_rp} "
+        f"gloo ranks on {dev}")
+    walls = []
+    for rep in reps[:n_dp * n_rp]:
+        got = pipes[rep["rank"]]
+        if not (np.array_equal(got["c0"], want[0]) and np.array_equal(got["c1"], want[1])):
+            raise AssertionError(f"rank {rep['rank']}: sharded logits ciphertext differs")
+        _require(rep["pipeline"], f"rank {rep['rank']} pipeline", dev.type == "cuda")
+        walls.append(float(np.median(rep["pipeline"]["walls_ms"])))
+        log(f"  rank {rep['rank']}: logits ciphertext bit-equal to the single-device pipeline; "
+            f"K1 {rep['pipeline']['k1']['fwd']}+{rep['pipeline']['k1']['inv']}; collectives "
+            f"{_site_line(rep['pipeline']['counts'])}; warm "
+            f"{', '.join(f'{w:.1f}' for w in rep['pipeline']['walls_ms'])} ms/batch")
+    if not err < 0.5:
+        raise AssertionError(f"logit error {err} >= 0.5")
+    log(f"  logits vs model_forward: max abs error {err:.3e} (limit 0.5); warm ms per batch, "
+        f"median over ranks {float(np.median(walls)):.1f} [{smi}] (all ranks share one card: a "
+        "correctness check, not a scaling figure)")
+    out["pipeline"] = {r["rank"]: r["pipeline"] for r in reps[:n_dp * n_rp]}
+    out["ms"] = float(np.median(walls))
+    return out
+
+
+def phase_multihost(dev):
+    from toyfhe_tpu_torch.tools import dryrun
+
+    log(f"== phase 38: dryrun_multihost(2) on {dev}: 2 hosts of 2 gloo ranks, dp across the "
+        "hosts, rp inside each")
+    t0 = time.perf_counter()
+    reps = dryrun.dryrun_multihost(2, device=dev)
+    for rep in reps:
+        log(f"  rank {rep['rank']} host {rep['host']} {rep['coords']}: bit-equal to the "
+            f"single-device step ({_site_line(rep['counts'])})")
+    log(f"took {time.perf_counter() - t0:.1f} s (host clock)")
+    return reps
+
+
+# ---------------------------------------------------------------------------
 # the least time the card could take (the kernels line's bound_ms)
 # ---------------------------------------------------------------------------
 
@@ -2730,6 +3069,11 @@ def main() -> int:
                                                  layers=bsgs["layers"]), tree, bgv)
     ser = phase_serialization(dev, smi, pipe, bsgs)
     trained = phase_training(dev, smi, pipe, bsgs, args.seed)
+    t0 = time.perf_counter()
+    phase_sharded_one_rank(dev)
+    sharded = phase_sharded_ranks(dev, smi)
+    phase_multihost(dev)
+    log(f"phases 35-38 took {time.perf_counter() - t0:.1f} s (host clock)")
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -2748,7 +3092,12 @@ def main() -> int:
                               "bgv_hybrid_2_levels": bgv["hybrid"]["launches"][k],
                               "host_oracle_n2^13": host["launches"][k],
                               "mnist_bsgs_loaded_keys": ser["launches"][k],
-                              "mnist_bsgs_trained_weights": trained["launches"][k]},
+                              "mnist_bsgs_trained_weights": trained["launches"][k],
+                              **{f"sharded_{path}_rank{r}": v[k]
+                                 for path, per_rank in sharded["k1"].items()
+                                 for r, v in per_rank.items()},
+                              **{f"mnist_sharded_dp2xrp2_rank{r}": v["k1"][k]
+                                 for r, v in sharded["pipeline"].items()}},
          "max_abs_err": max(err[k], exact_err[k]),
          "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],

@@ -115,7 +115,9 @@ def test_step_matches_engine_and_decrypts(setup):
 
 
 def test_mesh_is_refused(setup):
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not a ``sharding.Mesh`` is refused (the sharded
+    steps themselves: tests/test_torch_sharding.py)."""
+    with pytest.raises(TypeError):
         pops.make_hybrid_sharded_step(object(), setup["tparams"], setup["tek"])
 
 

@@ -135,7 +135,7 @@ def test_pipeline_logits_ciphertext_bit_equal(small, monkeypatch):
 
 def test_encrypted_inference_fast_port_keys(small):
     """The entry point with keys and sampling of the port's own, cached on
-    the setup; the unported sharded schedule raises."""
+    the setup; a mesh that is not a ``sharding.Mesh`` is refused."""
     tcfg = small["tcfg"]
     gen = torch.Generator().manual_seed(8)
     tsetup = TM.fhe_setup(tcfg, gen)
@@ -147,7 +147,7 @@ def test_encrypted_inference_fast_port_keys(small):
     pipe = tsetup._pipeline
     TM.encrypted_inference_fast(tsetup, small["params"], small["imgs"], gen)
     assert tsetup._pipeline is pipe
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         TM.build_inference_pipeline(tsetup, small["params"], mesh=object())
     with pytest.raises(ValueError):                    # dual flow needs BSGS keys
         TM.build_inference_pipeline(tsetup, small["params"], dual_flow=True)

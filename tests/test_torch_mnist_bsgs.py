@@ -207,7 +207,7 @@ def test_pipeline_options(small):
     tsetup, params, tgks = small["tsetup"], small["params"], small["tgks"]
     with pytest.raises(ValueError):
         TM.build_inference_pipeline(tsetup, params, dual_flow=True)       # no BSGS keys
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         TM.build_inference_pipeline(tsetup, params, gks_bsgs=tgks, mesh=object())
     mcfg = TM.MNISTConfig(**MODRAISE)
     msetup = TM.fhe_setup(mcfg, torch.Generator().manual_seed(2))

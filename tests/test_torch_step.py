@@ -128,7 +128,9 @@ def test_port_import_leaves_jax_out():
             "toyfhe_tpu_torch.native, toyfhe_tpu_torch.core.generic_ring, "
             "toyfhe_tpu_torch.core.polycrt, toyfhe_tpu_torch.core.host_engine, "
             "toyfhe_tpu_torch.core.refparams, toyfhe_tpu_torch.core.golden, "
-            "toyfhe_tpu_torch.utils.serialization, toyfhe_tpu_torch.utils.metrics, chip_smoke; "
+            "toyfhe_tpu_torch.utils.serialization, toyfhe_tpu_torch.utils.metrics, "
+            "toyfhe_tpu_torch.parallel.sharding, toyfhe_tpu_torch.parallel.distributed, "
+            "toyfhe_tpu_torch.parallel.launch, toyfhe_tpu_torch.tools.dryrun, chip_smoke; "
             "from toyfhe_tpu_torch.core import bootstrap as B; "
             "from toyfhe_tpu_torch.models import mnist as M; "
             "assert callable(B.bootstrap_batched) and callable(M.build_bootstrapped_pipeline); "
@@ -136,6 +138,8 @@ def test_port_import_leaves_jax_out():
             "assert callable(M.train) and callable(M.synthetic_dataset) and callable(M.load_mnist_local); "
             "assert toyfhe_tpu_torch.serialization.load_keypair and toyfhe_tpu_torch.metrics.snapshot; "
             "assert toyfhe_tpu_torch.core.golden.SCENARIOS['bfv_uint8']; "
+            "assert callable(toyfhe_tpu_torch.parallel.ops.make_2axis_step); "
+            "assert callable(chip_smoke.phase_sharded_ranks); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'toyfhe_tpu')]; "
             "assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -73,11 +73,17 @@ class BFVParams(SchemeParams):
 
     def decode(self, b: RingElt, ring: RingContext) -> PlainPoly:
         """π: centered round by Δ (at the ciphertext's own tower), then mod p;
-        through the C++ CRT on the host."""
+        through the C++ CRT on the host (the exact CRT on a tower it cannot
+        hold)."""
         b = R.ensure_primal(ring, b)
         p = self.plain.p
         delta = self.delta if ring is self._ring else ring.modulus // p
-        return PlainPoly(self.plain, ring.native().decode_bfv(b.primal.cpu().numpy(), delta, p))
+        arr = b.primal.cpu().numpy()
+        nat = ring.native()
+        if nat is not None:
+            return PlainPoly(self.plain, nat.decode_bfv(arr, delta, p))
+        return PlainPoly(self.plain, np.array([nt.divround(x, delta) % p
+                                               for x in ring.centered_ints(arr)], dtype=np.int64))
 
     def noise(self, gen, ring: RingContext, batch=()):
         return RingElt(primal=sampling.discrete_gaussian(gen, ring.mp, ring.n,

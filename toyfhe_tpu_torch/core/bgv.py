@@ -78,8 +78,13 @@ class BGVParams(SchemeParams):
 
     def decode(self, b: RingElt, ring: RingContext) -> PlainPoly:
         b = R.ensure_primal(ring, b)
-        return PlainPoly(self.plain, ring.native().decode_centered_mod(b.primal.cpu().numpy(),
-                                                                       self.plain.p))
+        arr = b.primal.cpu().numpy()
+        p = self.plain.p
+        nat = ring.native()
+        if nat is not None:
+            return PlainPoly(self.plain, nat.decode_centered_mod(arr, p))
+        return PlainPoly(self.plain, np.array([x % p for x in ring.centered_ints(arr)],
+                                              dtype=np.int64))
 
     def noise(self, gen, ring: RingContext, batch=()):
         return RingElt(primal=sampling.discrete_gaussian(

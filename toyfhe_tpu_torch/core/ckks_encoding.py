@@ -135,11 +135,16 @@ def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
 def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
     """Ring element → slots ∈ ℂ^{N/2}, through the C++ CRT on the host (the
     centered value as a double, then divided by the scale, as the
-    reference's decode)."""
+    reference's decode), or the exact CRT on a tower it cannot hold."""
     n = ring.n
     scale = Fraction(scale)
     re = R.ensure_primal(ring, re)
-    vals = ring.native().decode_centered_double(re.primal.cpu().numpy()) / nt.frac_to_float(scale)
+    arr = re.primal.cpu().numpy()
+    nat = ring.native()
+    if nat is not None:
+        vals = nat.decode_centered_double(arr) / nt.frac_to_float(scale)
+    else:
+        vals = np.array([nt.frac_to_float(Fraction(x) / scale) for x in ring.centered_ints(arr)])
     k = np.arange(n)
     multed = vals * np.exp(-2j * np.pi * k / (2 * n))
     f = np.fft.fft(multed)

@@ -22,8 +22,12 @@ def bgv_noise_budget(key, c: CipherText) -> float:
     priv = key.priv if isinstance(key, KeyPair) else key
     ring = c.ring
     b = R.ensure_primal(ring, decrypt_raw(priv, c))
-    vals = np.abs(ring.native().decode_centered_double(b.primal.cpu().numpy()))
-    worst = float(max(vals.max(), 1.0))
+    arr = b.primal.cpu().numpy()
+    nat = ring.native()
+    if nat is not None:
+        worst = float(max(np.abs(nat.decode_centered_double(arr)).max(), 1.0))
+    else:
+        worst = max(max(abs(x) for x in ring.centered_ints(arr)), 1)
     return math.log2(ring.modulus / 2) - math.log2(worst)
 
 

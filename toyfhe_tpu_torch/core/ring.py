@@ -112,12 +112,24 @@ class RingContext:
         return self._galois_cache[g]
 
     # ---- host CRT: the C++ library of the decodes, and the exact oracle ----
-    def native(self) -> crt_native.CrtNative:
-        """The C++ CRT of this tower (built at first use, kept per tower);
-        raises if the library cannot be built."""
+    def native(self) -> Optional[crt_native.CrtNative]:
+        """The C++ CRT of this tower (built at first use, kept per tower),
+        or ``None`` for a tower the library cannot hold: the callers then
+        take the exact Python CRT (:meth:`centered_ints`). Raises if the
+        library cannot be built."""
         if self._native is None:
-            self._native = crt_native.CrtNative(self.primes)
-        return self._native
+            try:
+                self._native = crt_native.CrtNative(self.primes)
+            except crt_native.TowerRefused:
+                self._native = False
+        return self._native or None
+
+    def centered_ints(self, primal: np.ndarray) -> list:
+        """The centered representatives in (−q/2, q/2] of [L, N] residues,
+        as exact Python ints: the decodes' path where :meth:`native` is
+        ``None``."""
+        q = self.modulus
+        return [nt.centered(x, q) for x in self.to_bigint(primal)]
 
     def to_bigint(self, primal: np.ndarray) -> list:
         """CRT-reconstruct [L, N] residues to Python ints in [0, q),

@@ -64,6 +64,7 @@ from ..core.rlwe import (CipherText, EvalMultKey, GaloisKey, KeyPair, UsageError
 from ..ops import modmath
 from ..parallel import layers as JL
 from ..parallel import ops as pops
+from ..parallel.sharding import Mesh
 
 
 # ---------------------------------------------------------------------------
@@ -749,21 +750,30 @@ class _BsgsDense:
                 stacks.append(torch.stack(rows, 0))
         self.diags = torch.stack(stacks, 0) if stacks else None      # [G, bs, C, L, N]
 
-    def __call__(self, gks, c1: torch.Tensor, c2: torch.Tensor, dual: bool):
+    def __call__(self, gks, c1: torch.Tensor, c2: torch.Tensor, dual: bool,
+                 place: Optional[JL.MeshPlacement] = None):
         """Components [C, L, N] (dual or primal) → the layer's output
-        components (L, N), dual, at scale²."""
+        components (L, N), dual, at scale². With ``place``, ``c1`` / ``c2``
+        are this rank's block of the C input ciphertexts: the giant steps'
+        inner sums over them are completed over 'dp' before the giant
+        rotations."""
         ring, mp = self.ring, self.ring.mp
         if self.diags is None:                      # all-zero weights
             zero = torch.zeros_like(c1[0])
             return zero, zero
+        diags = self.diags
+        if place is not None:
+            diags = diags[:, :, place.batch(diags.shape[2])]
         mk = (lambda x: RingElt(dual=x)) if dual else (lambda x: RingElt(primal=x))
         ct = CipherText(self.params, (mk(c1), mk(c2)), ring, enc=CKKSTag(self.scale))
         hoisted = rlwe.rotate_many(gks, ct, sorted(set(self.baby_els)))
         babies = [ct] + [hoisted[e] for e in self.baby_els]
         stack = torch.stack([torch.stack([R.ensure_dual(ring, x).dual for x in c.cs], 0)
                              for c in babies], 0)                    # [bs, 2, C, L, N]
-        prod = modmath.mul_mod(self.diags[:, :, None], stack[None], mp)
+        prod = modmath.mul_mod(diags[:, :, None], stack[None], mp)
         inner = modmath.umod(prod.sum(dim=(1, 3)), mp.on(prod.device).p)   # [G, 2, L, N]
+        if place is not None:
+            inner = place.dp_sum(inner, self.diags.shape[2], mp, "dense_channel_sum")
         tag = CKKSTag(self.scale * self.scale)
         terms = [(el, CipherText(self.params, (RingElt(dual=inner[i, 0]),
                                                RingElt(dual=inner[i, 1])), ring, enc=tag))
@@ -818,19 +828,37 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     ``run`` takes ``_return_ct=True`` to return the logits ciphertext
     undecrypted, and ``layer_times`` (a dict) to collect each stage's
     milliseconds on the host clock, the device synchronised between
-    stages. The sharded pipeline (``mesh``) is not ported."""
+    stages.
+
+    ``mesh`` (a ('dp', 'rp') :class:`..parallel.sharding.Mesh` whose
+    device holds the keys): the sharded pipeline, run by every rank of the
+    mesh with the same arguments (``gen`` seeded alike on every rank). The
+    grid and channel axes go on 'dp' and the limbs on 'rp' where the mesh
+    divides them (:class:`..parallel.layers.MeshPlacement`); keys are
+    whole on every rank. The reference gets its collectives from GSPMD;
+    here each layer issues its own: the conv's grid sum and the dense
+    layers' channel sums over 'dp', and at a level 'rp' divides the
+    square layer runs the sharded hybrid step (its digit share and
+    dropped-row sites) and gathers its result's rows. The dense layers'
+    rotations run on whole rows. Every sum is a modular sum, exact in any
+    order, so the logits are bit-equal to the single-device pipeline's,
+    on every rank."""
     hybrid = getattr(setup.params, "hybrid_decompose", None) is not None
     if dual_flow is None:
         dual_flow = hybrid and gks_bsgs is not None
     if dual_flow and (not hybrid or gks_bsgs is None):
         raise ValueError("dual_flow requires HybridRaised params and "
                          "BSGS dense keys (gks_bsgs)")
-    if mesh is not None:
-        raise NotImplementedError("the sharded pipeline is not ported "
-                                  "(ROADMAP.md queue 1, item 14: sharded paths)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a sharding.Mesh or None, got {type(mesh).__name__}")
     cfg = setup.cfg
     params = setup.params
     device = setup.kp.pub.key.mask.device
+    place = None
+    if mesh is not None:
+        if modmath.canonical_device(device) != mesh.device:
+            raise ValueError(f"the keys are on {device}, the mesh's rank on {mesh.device}")
+        place = JL.MeshPlacement(mesh)
     ring0 = params.ring_cipher
     n = ring0.n
     s0 = setup.scale
@@ -856,11 +884,33 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     ring1 = ring0.drop_last()
     s1 = s_conv / ring0.primes[-1]
 
+    def square_layer(ring):
+        """square → relinearize → rescale at ``ring``'s level, on stacked
+        components (B, 2, L, N) in the flow's domain → (B, 2, L − 1, N)."""
+        L = ring.nlimbs
+        if place is not None and place.limbs_cut(L) and hybrid:
+            step, _ = pops.make_hybrid_sharded_step(mesh, params, setup.ek, ct_ring=ring,
+                                                    fused_schedule=dual_flow, dp=False)
+            local = ring.select(range(L)[place.rows(L)])
+            sub = ring.drop_last()
+
+            def sharded(x):                        # the rank's limb rows in, all rows out
+                d = x if dual_flow else JL._ntt_t(x, local)
+                out = place.gather_rows(step(d), L)[..., :L - 1, :]
+                return out if dual_flow else JL._intt_t(out, sub)
+            return sharded
+        if dual_flow:
+            fn = pops.make_hybrid_fused_step(params, setup.ek, ring)[0]
+            whole = lambda x: fn(x)[..., :L - 1, :]
+        else:
+            layer = JL.SquareRelinLayer(params, setup.ek, ring)
+            whole = lambda x: torch.stack(layer(x[:, 0], x[:, 1]), 1)
+        if place is None:
+            return whole
+        return lambda x: whole(place.gather_rows(x, L))
+
     # ---- square 1 ----
-    if dual_flow:
-        sq1_fused, _ = pops.make_hybrid_fused_step(params, setup.ek, ring1)
-    else:
-        sq1 = JL.SquareRelinLayer(params, setup.ek, ring1)
+    sq1 = square_layer(ring1)
     ring2 = ring1.drop_last()
     s2 = s1 * s1 / ring1.primes[-1]
 
@@ -883,10 +933,7 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     s3 = s_fq1 / ring2.primes[-1]
 
     # ---- square 2 ----
-    if dual_flow:
-        sq2_fused, _ = pops.make_hybrid_fused_step(params, setup.ek, ring3)
-    else:
-        sq2 = JL.SquareRelinLayer(params, setup.ek, ring3)
+    sq2 = square_layer(ring3)
     ring4 = ring3.drop_last()
     s4 = s3 * s3 / ring3.primes[-1]
 
@@ -915,32 +962,37 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
         clock("encode")
         cts = enc(pts, gen)                                # (G, 2, L0, N) dual
         clock("encrypt")
-        conv_out = conv(cts, wq, bias_dual)                # (C, 2, L1, N)
+        if place is None:
+            conv_out = conv(cts, wq, bias_dual)            # (C, 2, L1, N)
+        else:                                              # the rank's block of the grid
+            blk = cts[place.batch(cts.shape[0])][..., place.rows(ring0.nlimbs), :]
+            conv_out = conv(blk, wq, bias_dual, place)     # its channels and L1 rows
         clock("conv")
-        if dual_flow:
-            # conv_out is dual; the fused square keeps the tower shape with
-            # the dropped limb zeroed: slice to ring2's rows
-            sq1_out = sq1_fused(conv_out)[..., :ring2.nlimbs, :]
-            o1, o2 = sq1_out[:, 0], sq1_out[:, 1]          # (C, L2, N) dual
-        else:
-            o1, o2 = sq1(conv_out[:, 0], conv_out[:, 1])   # (C, L2, N) primal
+        o = sq1(conv_out)                                  # (C, 2, L2, N), dual or primal
+        o1, o2 = o[:, 0], o[:, 1]
         clock("square1")
         if gks_bsgs is not None:
-            fq1_1, fq1_2 = dense1_bsgs(gks_bsgs, o1, o2, dual_flow)   # dual at s2²
+            fq1_1, fq1_2 = dense1_bsgs(gks_bsgs, o1, o2, dual_flow, place)   # dual at s2²
         else:
+            chans = range(cfg.channels)
+            if place is not None:
+                chans = chans[place.batch(cfg.channels)]
             fq1_1 = fq1_2 = None
-            for ci in range(cfg.channels):
-                r1, r2 = mat1(o1[ci], o2[ci], diags1[ci])  # dual at s2²
+            for i, ci in enumerate(chans):
+                r1, r2 = mat1(o1[i], o2[i], diags1[ci])    # dual at s2²
                 fq1_1 = r1 if fq1_1 is None else modmath.add_mod(fq1_1, r1, mp2)
                 fq1_2 = r2 if fq1_2 is None else modmath.add_mod(fq1_2, r2, mp2)
+            if place is not None:
+                fq1_1, fq1_2 = place.dp_sum(torch.stack([fq1_1, fq1_2]), cfg.channels, mp2,
+                                            "dense_channel_sum")
         clock("dense1")
         f1p, f2p = br(fq1_1, fq1_2, b1_dual)               # (L3, N)
         clock("bias_rescale")
-        if dual_flow:
-            sq2_out = sq2_fused(torch.stack([f1p, f2p], 0)[None])[0][..., :ring4.nlimbs, :]
-            g1, g2 = sq2_out[0], sq2_out[1]                # (L4, N) dual
-        else:
-            g1, g2 = sq2(f1p, f2p)
+        sq2_in = torch.stack([f1p, f2p], 0)[None]
+        if place is not None:
+            sq2_in = place.cut_rows(sq2_in, ring3.nlimbs)
+        g = sq2(sq2_in)[0]
+        g1, g2 = g[0], g[1]                                # (L4, N)
         clock("square2")
         if gks_bsgs is not None:
             r1, r2 = dense2_bsgs(gks_bsgs, g1[None], g2[None], dual_flow)  # dual at s4²

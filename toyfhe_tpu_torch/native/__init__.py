@@ -9,8 +9,12 @@ compiles it at first use into ``toyfhe_tpu_torch/_build/libtoyfhe_fhe_host.so``
 Unlike the reference, which returns ``None`` and falls back to its Python
 CRT when the build fails, a failed build raises with the compiler's
 message: the decodes round as this library does, and a silent fallback
-would change their last bits. ``RingContext.to_bigint`` stays the exact
-oracle the tests hold the library against. Nothing here runs at import.
+would change their last bits. A tower the library cannot hold (more than
+64 primes, or a modulus too wide for it) raises :class:`TowerRefused`,
+and there ``RingContext.native`` answers ``None`` and the decodes take
+the exact Python CRT, as the reference's do. ``RingContext.to_bigint``
+stays the exact oracle the tests hold the library against. Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -97,22 +101,30 @@ def _words(x: int) -> np.ndarray:
     return np.asarray(w or [0], dtype=np.uint64)
 
 
+class TowerRefused(ValueError):
+    """The library cannot hold this tower: more than :data:`MAX_LIMBS`
+    primes, or a modulus of more words than its fixed-size arithmetic
+    holds. ``RingContext.native`` answers ``None`` for such a tower and
+    the decodes take the exact Python CRT."""
+
+
 class CrtNative:
     """The CRT context of one tower (``RingContext.native`` keeps one per
     tower). Every method takes residues ``[L, N]`` in the tower's limb
-    order."""
+    order. A tower the library cannot hold raises :class:`TowerRefused`;
+    a library that cannot be built raises ``RuntimeError``."""
 
     def __init__(self, primes):
         primes = [int(p) for p in primes]
         if not 0 < len(primes) <= MAX_LIMBS or min(primes) < 2 or max(primes) >= 1 << 63:
-            raise ValueError(f"a tower of 1 to {MAX_LIMBS} primes below 2^63, got {primes}")
+            raise TowerRefused(f"a tower of 1 to {MAX_LIMBS} primes below 2^63, got {primes}")
         self.lib = get_lib()
         self.L = len(primes)
         self.ctx = ctypes.create_string_buffer(self.lib.fhe_crt_ctx_size())
         self._primes = np.asarray(primes, dtype=np.uint64)
         rc = self.lib.fhe_crt_init(self.ctx, self._primes.ctypes.data_as(_U64P), self.L)
         if rc <= 0:
-            raise RuntimeError(f"fhe_crt_init failed: {rc}")
+            raise TowerRefused(f"fhe_crt_init refused the tower: {rc}")
 
     def _res64(self, residues) -> np.ndarray:
         r = np.ascontiguousarray(residues, dtype=np.uint64)

@@ -14,7 +14,10 @@ tensors, the plain radix-2 twin for CPU tensors.
   * :class:`SquareRelinLayer` — ct² → relinearize → rescale;
   * :class:`ConvLayer`, :class:`BiasRescaleLayer`, :class:`DualRescale` —
     the plaintext-weight layers and the rescales between them;
-  * :class:`BatchEncryptor` — batched public-key encryption.
+  * :class:`BatchEncryptor` — batched public-key encryption;
+  * :class:`MeshPlacement` — where the sharded pipeline's tensors live on a
+    ('dp', 'rp') mesh; :class:`ConvLayer` takes it to run on a rank's
+    block and complete its grid sum over 'dp'.
 
 All arithmetic is exact modular integer arithmetic, so every layer is
 bit-identical to the reference's on the same inputs. Where the reference
@@ -32,6 +35,7 @@ from ..core import ring as R
 from ..core.ring import RingContext
 from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import MontParams, as_residues
+from . import sharding as S
 
 
 def _mont_col(vals, ps) -> np.ndarray:
@@ -442,16 +446,32 @@ class ConvLayer(_RescaleBy):
         self.dual_out = dual_out
         self.dual_rescale = DualRescale(ct) if dual_out else None
 
-    def forward(self, cts_dual, w_res, bias_dual):
-        mp = self.ct_ring.mp
+    def forward(self, cts_dual, w_res, bias_dual, place: "MeshPlacement" = None):
+        """With ``place``: ``cts_dual`` is this rank's block of the grid
+        (its grid rows on 'dp', its limb rows on 'rp' where the level
+        divides it) and the weights and biases are whole; the grid sum is
+        completed over 'dp', and the rank's block of the output (its
+        channels, its limb rows) returned."""
+        L, G = self.ct_ring.nlimbs, w_res.shape[1]
+        rows = place.rows(L) if place is not None else slice(None)
+        if place is not None:
+            w_res = w_res[:, place.batch(G)][..., rows, :]
+        mp = self.ct_ring.mp.select(range(L)[rows])
         acc = None
         for g in range(cts_dual.shape[0]):
             term = modmath.mul_mod(cts_dual[g][None], w_res[:, g][:, None], mp)
             acc = term if acc is None else modmath.add_mod(acc, term, mp)
+        if place is not None:
+            acc = place.gather_rows(place.dp_sum(acc, G, mp, "conv_grid_sum"), L)
+        mp = self.ct_ring.mp
         acc = torch.stack([modmath.add_mod(acc[:, 0], bias_dual, mp), acc[:, 1]], 1)
         if self.dual_rescale is not None:          # dual-domain boundary
-            return self.dual_rescale(acc)
-        return self.rescale(_intt_t(acc, self.ct_ring))
+            out = self.dual_rescale(acc)
+        else:
+            out = self.rescale(_intt_t(acc, self.ct_ring))
+        if place is not None:
+            out = place.cut_rows(out[place.batch(out.shape[0])], L - 1)
+        return out
 
 
 class BiasRescaleLayer(_RescaleBy):
@@ -472,6 +492,58 @@ class BiasRescaleLayer(_RescaleBy):
         else:
             out = self.rescale(_intt_t(stack, self.ct_ring))
         return out[0], out[1]
+
+
+class MeshPlacement:
+    """Where a serving-pipeline tensor lives on a ('dp', 'rp') mesh
+    (:class:`.sharding.Mesh`), by the reference's rule: a grid, channel or
+    batch axis on 'dp' where 'dp' divides its extent, the limb axis on 'rp'
+    where 'rp' divides the level, whole elsewhere. Two consecutive levels
+    are never both divisible, so a rescale's input and output are never
+    both cut: a layer whose level is cut and whose result is not gathers
+    its rows (one all-gather over 'rp') before it rescales."""
+
+    def __init__(self, mesh: S.Mesh):
+        self.mesh = mesh
+        self.n_dp, self.n_rp = mesh.shape["dp"], mesh.shape["rp"]
+
+    def limbs_cut(self, L: int) -> bool:
+        return self.n_rp > 1 and L % self.n_rp == 0
+
+    def rows(self, L: int) -> slice:
+        """This rank's limb rows of a level-L tensor."""
+        if not self.limbs_cut(L):
+            return slice(None)
+        step = L // self.n_rp
+        lo = self.mesh.index("rp") * step
+        return slice(lo, lo + step)
+
+    def cut_rows(self, x: torch.Tensor, L: int) -> torch.Tensor:
+        return x[..., self.rows(L), :]
+
+    def gather_rows(self, x: torch.Tensor, L: int) -> torch.Tensor:
+        """The whole level-L tensor from this rank's rows."""
+        if not self.limbs_cut(L):
+            return x
+        return S.all_gather(x, self.mesh, "rp", -2, "level_gather")
+
+    def dp_cut(self, extent: int) -> bool:
+        return self.n_dp > 1 and extent % self.n_dp == 0
+
+    def batch(self, extent: int) -> slice:
+        """This rank's block of a leading axis of ``extent``."""
+        if not self.dp_cut(extent):
+            return slice(None)
+        step = extent // self.n_dp
+        lo = self.mesh.index("dp") * step
+        return slice(lo, lo + step)
+
+    def dp_sum(self, x: torch.Tensor, extent: int, mp, site: str) -> torch.Tensor:
+        """A modular sum over this rank's block of an axis of ``extent``,
+        completed over 'dp' where that axis is cut (exact, in any order)."""
+        if not self.dp_cut(extent):
+            return x
+        return S.all_sum(x, self.mesh, "dp", mp, site)
 
 
 class BatchEncryptor(nn.Module):
