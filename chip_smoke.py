@@ -1800,6 +1800,25 @@ def phase_boot_card_vs_cpu(dev, smi):
     return dict(launches=launches, err=err, cpu_ms=cpu_ms, warm_ms=float(np.median(warm)))
 
 
+BOOT_FULL_SEED = 26
+
+
+def boot_full_keys(dev, cfg):
+    """Phase 26's generator, MNIST setup and bootstrap context at ``cfg``,
+    made alike in every process from one seed (phase 39's ranks make them
+    again); the exhausted inputs follow from the generator."""
+    from toyfhe_tpu_torch.models import mnist as M
+    gen = torch.Generator(device=dev).manual_seed(BOOT_FULL_SEED)
+    setup, ctx = M.fhe_setup_bootstrapped(cfg, gen, **boot_recipe())
+    return gen, setup, ctx
+
+
+def ct_numpy(c) -> list:
+    """A whole ciphertext's dual components as host arrays."""
+    import toyfhe_tpu_torch as T
+    return [T.ringops.ensure_dual(c.ring, x).dual.cpu().numpy() for x in c.cs]
+
+
 def phase_boot_full(dev, smi, cfg=None):
     """One refresh at the full width of the bootstrapped MNIST configuration
     (N = 2^13, 55 limbs), cold and warm, each phase timed; the batch of 2.
@@ -1811,9 +1830,8 @@ def phase_boot_full(dev, smi, cfg=None):
 
     cfg = M.MNISTConfig() if cfg is None else cfg
     log(f"== phase 26: one CKKS refresh at full width (N=2^{cfg.ring_logn}, {boot_recipe()})")
-    gen = torch.Generator(device=dev).manual_seed(26)
     t0 = time.perf_counter()
-    setup, ctx = M.fhe_setup_bootstrapped(cfg, gen, **boot_recipe())
+    gen, setup, ctx = boot_full_keys(dev, cfg)
     sync(dev)
     setup_s = time.perf_counter() - t0
     params = setup.params
@@ -1823,7 +1841,7 @@ def phase_boot_full(dev, smi, cfg=None):
         f"HybridRaised dnum={params.dnum} alpha={params.alpha}, {len(ctx.gks.keys)} rotation "
         f"keys + conjugation + 2 relinearization + 1 dense Galois key = "
         f"{kb / 2 ** 20:.1f} MiB on the card; {setup_s:.2f} s (host clock)")
-    vals = boot_vals(1 << (cfg.ring_logn - 1), 26)
+    vals = boot_vals(1 << (cfg.ring_logn - 1), BOOT_FULL_SEED)
     c = boot_exhausted(params, setup.kp, vals, gen)
 
     t0 = time.perf_counter()
@@ -1863,8 +1881,8 @@ def phase_boot_full(dev, smi, cfg=None):
     if not (levels >= 13 and err < 1e-3):
         raise AssertionError(f"full-width refresh: {levels} limbs, error {err}")
 
-    vals2 = boot_vals(1 << (cfg.ring_logn - 1), 126)
-    c2 = boot_exhausted(params, setup.kp, vals2, gen)
+    vals2 = boot_vals(1 << (cfg.ring_logn - 1), BOOT_FULL_SEED + 100)
+    c2 = boot_exhausted(params, setup.kp, vals2, gen)        # the refreshes draw nothing
     single2 = B.bootstrap(ctx, c2)
     both = T.ct_stack([c, c2])
     batch_ms = []
@@ -1881,7 +1899,8 @@ def phase_boot_full(dev, smi, cfg=None):
         f"{', '.join(f'{t:.1f}' for t in batch_ms)} ms) [{smi}]")
     return dict(setup=setup, ctx=ctx, setup_s=setup_s, key_bytes=kb, cold_ms=cold_ms,
                 warm_ms=warm_ms, phases=med, launches=launches, transforms=transforms,
-                err=err, levels=levels, batch_ms=min(batch_ms) / 2, gen=gen)
+                err=err, levels=levels, batch_ms=min(batch_ms) / 2, gen=gen,
+                cache_bytes=cache_bytes(ctx), want=[ct_numpy(cold), ct_numpy(single2)])
 
 
 def phase_boot_mnist(dev, smi, boot):
@@ -2935,6 +2954,246 @@ def phase_multihost(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 39: the limb-sharded refresh
+# ---------------------------------------------------------------------------
+
+SHARD_BOOT_SEED = 39                 # keys of (a) and (b), made alike on every rank
+SHARD_BOOT_WORLD = 4                 # (b) over rp 4; (c) on the first 2 ranks
+SHARD_BOOT_FULL_RP = 2
+
+
+def boot_small_material(dev, logn: int = BOOT_SMALL_LOGN):
+    """(params, key pair, context, exhausted ciphertext, slots) of phase
+    39 (a) and (b): the production recipe at N = 2^logn, made on ``dev``
+    from one seed alike in every process."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.models import mnist as M
+
+    recipe = boot_recipe()
+    depth, hw = recipe.pop("depth"), recipe.pop("hamming_weight")
+    params, _ = M.make_bootstrapped_params(M.MNISTConfig(ring_logn=logn), depth,
+                                           hamming_weight=hw, scale_limbs=recipe["scale_limbs"])
+    gen = torch.Generator(device=dev).manual_seed(SHARD_BOOT_SEED)
+    kp = T.keygen(params, gen)
+    ctx = B.setup_bootstrap(gen, kp.priv, **recipe)
+    vals = boot_vals(1 << (logn - 1), SHARD_BOOT_SEED)
+    return params, kp, ctx, boot_exhausted(params, kp, vals, gen), vals
+
+
+def held_mib(ctx) -> tuple:
+    """(key MiB, plain-cache MiB) a context holds on this rank."""
+    return (key_bytes(ctx.ek, ctx.gks, ctx.gk_conj) / 2 ** 20, cache_bytes(ctx) / 2 ** 20)
+
+
+def sharded_refresh_case(mesh, ctx, c, want, kp, vals, dev, single_mib, c2=None,
+                         want2=None) -> dict:
+    """The refresh of ``c`` with ``ctx`` and ``c`` placed limb-wise on
+    ``mesh``: cold, then one warm refresh with the counts at 0 (K1
+    launches, collectives by site, the output gathered), then
+    ``BOOT_REPS`` warm refreshes timed, and one more with the card
+    synchronised around each collective and the time in its transport
+    summed (waits for the other ranks included); the gathered output against the
+    single device's ``want`` (and with ``c2`` the batch of two against
+    ``want`` and ``want2``). ``single_mib``: the single device's (key,
+    plain-cache) MiB, printed beside the rank's."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.parallel import sharding as S
+
+    sctx, sc = S.shard_limbwise(ctx, mesh), S.shard_limbwise(c, mesh)
+    sync(dev)
+    t0 = time.perf_counter()
+    B.bootstrap(sctx, sc)
+    sync(dev)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    mesh.comm.reset()
+    out = S.gather_limbwise(B.bootstrap(sctx, sc))                     # the sharded path
+    sync(dev)
+    launches, counts = read_launches(), mesh.comm.snapshot()
+    warm = []
+    for _ in range(BOOT_REPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        B.bootstrap(sctx, sc)
+        sync(dev)
+        warm.append((time.perf_counter() - t0) * 1e3)
+    comm_s, transport = [0.0], S._all_gather_single
+
+    def timed_transport(buf, inp, group):
+        sync(dev)
+        t = time.perf_counter()
+        transport(buf, inp, group=group)
+        sync(dev)
+        comm_s[0] += time.perf_counter() - t
+
+    S._all_gather_single = timed_transport            # one more warm refresh, its transport timed
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        B.bootstrap(sctx, sc)
+        sync(dev)
+        comm_run_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        S._all_gather_single = transport
+    same = lambda a, w: all(np.array_equal(x, y) for x, y in zip(ct_numpy(a), w))
+    rep = {"equal": same(out, want), "levels": out.ring.nlimbs,
+           "comm_ms": comm_s[0] * 1e3, "comm_run_ms": comm_run_ms,
+           "err": float(np.max(np.abs(T.decrypt(kp, out) - vals))),
+           "held": list(sctx.ek.key.ring.held), "rows": sctx.ek.key.ring.nlimbs,
+           "cold_ms": cold_ms, "warm_ms": warm,
+           "k1": {k: launches[k] for k in ("fwd", "inv")}, "other_kernels": non_k1_launches(launches),
+           "counts": {k: {"count": v["count"], "bytes": sum(v["bytes"])} for k, v in counts.items()},
+           "mib": held_mib(sctx), "single_mib": single_mib,
+           "on_device": out.cs[0].device == mesh.device}
+    if c2 is not None:
+        sb = S.shard_limbwise(T.ct_stack([c, c2]), mesh)
+        outb = S.gather_limbwise(B.bootstrap_batched(sctx, sb))
+        rep["batched_equal"] = same(T.ct_index(outb, 0), want) and same(T.ct_index(outb, 1), want2)
+    return rep
+
+
+def sharded_boot_rank(workdir: str, device: str, cfg: dict, single_mib: dict,
+                      small_logn: int) -> dict:
+    """One gloo rank of phase 39 (every rank on ``device``): (b) the
+    N = 2^small_logn refresh over rp 4, then (c) phase 26's refresh at
+    ``cfg`` (the MNISTConfig fields) over rp 2 on the first two ranks."""
+    import torch.distributed as dist
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.parallel import sharding as S
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with np.load(os.path.join(workdir, "want.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    rep = {"rank": dist.get_rank()}
+    mesh = S.make_mesh(SHARD_BOOT_WORLD, 1, device=dev)
+    _, kp, ctx, c, vals = boot_small_material(dev, small_logn)
+    rep["small"] = sharded_refresh_case(mesh, ctx, c, [want["small0"], want["small1"]], kp,
+                                        vals, dev, single_mib["small"])
+    del ctx
+    mesh = S.make_mesh(SHARD_BOOT_FULL_RP, 1, device=dev, ranks=range(SHARD_BOOT_FULL_RP))
+    if mesh.member:
+        cfg = M.MNISTConfig(**dict(cfg, limb_bits=tuple(cfg["limb_bits"])))
+        gen, setup, ctx = boot_full_keys(dev, cfg)
+        h = 1 << (cfg.ring_logn - 1)
+        vals = boot_vals(h, BOOT_FULL_SEED)
+        c = boot_exhausted(setup.params, setup.kp, vals, gen)
+        c2 = boot_exhausted(setup.params, setup.kp, boot_vals(h, BOOT_FULL_SEED + 100), gen)
+        rep["full"] = sharded_refresh_case(mesh, ctx, c, [want["full0"], want["full1"]],
+                                           setup.kp, vals, dev, single_mib["full"], c2,
+                                           [want["full2_0"], want["full2_1"]])
+    return rep
+
+
+def _shard_boot_line(what: str, rep: dict) -> str:
+    k, (kmib, cmib), (skmib, scmib) = rep["k1"], rep["mib"], rep["single_mib"]
+    return (f"  {what} rank {rep['rank']} (key-tower rows {rep['held'][:3]}..., "
+            f"{len(rep['held'])} of {rep['rows']}): {rep['levels']} limbs out, "
+            f"error {rep['err']:.3e}; cold {rep['cold_ms']:.1f} ms, warm "
+            f"{float(np.median(rep['warm_ms'])):.1f} ms (median of {len(rep['warm_ms'])}: "
+            f"{', '.join(f'{w:.1f}' for w in rep['warm_ms'])}; in a further refresh of "
+            f"{rep['comm_run_ms']:.1f} ms synchronised around each collective, "
+            f"{rep['comm_ms']:.1f} ms in the all-gathers); K1 {k['fwd']} + {k['inv']} "
+            f"launches a refresh; collectives " + ", ".join(
+                f"{s} x{v['count']} {v['bytes'] / 2 ** 20:.2f} MiB" for s, v in rep["counts"].items())
+            + f"; keys {kmib:.1f} MiB of the single device's {skmib:.1f}, plain cache "
+            f"{cmib:.1f} MiB of {scmib:.1f}")
+
+
+def _require_refresh(rep: dict, what: str, cuda: bool, levels: int = 0):
+    bad = [k for k in ("equal", "on_device", "batched_equal") if k in rep and not rep[k]]
+    if bad or rep["other_kernels"] or rep["levels"] < levels or not rep["err"] < 1e-3:
+        raise AssertionError(f"{what}: {bad} failed, {rep['levels']} limbs, error {rep['err']}, "
+                             f"other kernels {rep['other_kernels']}")
+    if cuda and not (rep["k1"]["fwd"] and rep["k1"]["inv"]):
+        raise AssertionError(f"{what}: K1 was not launched: {rep['k1']}")
+
+
+def phase_boot_sharded(dev, smi, boot, cfg=None, small_logn: int = BOOT_SMALL_LOGN) -> dict:
+    """Phase 39: the limb-sharded refresh. (a) A mesh of one rank in this
+    process at N = 2^10; (b) 4 gloo ranks sharing the card at N = 2^10 over
+    rp 4; (c) phase 26's full-width refresh over rp 2 on the first two of
+    them, and its batch of two; each bit-equal to the single-device refresh
+    on the card. Then ``tools.dryrun.dryrun_multichip(4)`` with its refresh
+    flavour. ``boot`` is phase 26's report; ``cfg`` (default
+    ``MNISTConfig()``) phase 26's configuration; ``small_logn`` the ring of
+    (a) and (b)."""
+    import dataclasses
+    import tempfile
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.parallel import launch, sharding as S
+    from toyfhe_tpu_torch.tools import dryrun
+
+    cfg = M.MNISTConfig() if cfg is None else cfg
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    log(f"== phase 39: the limb-sharded refresh (B.bootstrap(S.shard_limbwise(ctx, mesh), "
+        f"S.shard_limbwise(c, mesh)), strided rows: rank r holds the key-tower rows = r mod rp)")
+    _, kp, ctx, c, vals = boot_small_material(dev, small_logn)
+    single = B.bootstrap(ctx, c)
+    want_small = ct_numpy(single)
+    log(f"(a) a mesh of one rank in this process, N=2^{small_logn} on the production tower "
+        f"(keys from seed {SHARD_BOOT_SEED} on {dev})")
+    small_mib = held_mib(ctx)
+    one = sharded_refresh_case(S.make_mesh(1, 1, device=dev), ctx, c, want_small, kp, vals, dev,
+                               small_mib)
+    one["rank"] = 0
+    _require_refresh(one, "one-rank refresh", cuda)
+    log(_shard_boot_line("one-rank mesh", one) + " [bit-equal]")
+    del ctx, single
+
+    log(f"(b), (c): spawning {SHARD_BOOT_WORLD} gloo ranks on {dev}; (b) N=2^{small_logn} "
+        f"over rp {SHARD_BOOT_WORLD}, (c) N=2^{cfg.ring_logn} ({boot_recipe()}) over rp "
+        f"{SHARD_BOOT_FULL_RP} on ranks 0-{SHARD_BOOT_FULL_RP - 1}, phase 26's keys made again "
+        f"from seed {BOOT_FULL_SEED}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_boot_ranks_") as work:
+        np.savez(os.path.join(work, "want.npz"), small0=want_small[0], small1=want_small[1],
+                 full0=boot["want"][0][0], full1=boot["want"][0][1],
+                 full2_0=boot["want"][1][0], full2_1=boot["want"][1][1])
+        reps = launch.run_ranks("chip_smoke:sharded_boot_rank", SHARD_BOOT_WORLD, work,
+                                args={"device": str(dev), "cfg": dataclasses.asdict(cfg),
+                                      "single_mib": {"small": small_mib,
+                                                     "full": held_mib(boot["ctx"])},
+                                      "small_logn": small_logn},
+                                timeout_s=600.0)
+    log(f"ranks done in {time.perf_counter() - t0:.1f} s (host clock, spawn to exit)")
+    out = {"one": one, "small": {}, "full": {}}
+    for rep in reps:
+        rep["small"]["rank"] = rep["rank"]
+        _require_refresh(rep["small"], f"rank {rep['rank']} N=2^{small_logn} rp "
+                         f"{SHARD_BOOT_WORLD}", cuda)
+        log(_shard_boot_line(f"(b) rp {SHARD_BOOT_WORLD}", rep["small"]) + " [bit-equal]")
+        out["small"][rep["rank"]] = rep["small"]
+    for rep in reps[:SHARD_BOOT_FULL_RP]:
+        rep["full"]["rank"] = rep["rank"]
+        _require_refresh(rep["full"], f"rank {rep['rank']} full width rp {SHARD_BOOT_FULL_RP}",
+                         cuda, levels=13 if cfg == M.MNISTConfig() else 0)
+        log(_shard_boot_line(f"(c) rp {SHARD_BOOT_FULL_RP}", rep["full"])
+            + " [bit-equal to phase 26; bootstrap_batched on 2 == the singles]")
+        out["full"][rep["rank"]] = rep["full"]
+    log(f"single device (phase 26): cold {boot['cold_ms']:.1f} ms, warm {boot['warm_ms']:.1f} ms; "
+        f"the ranks share one card and the host's cores, so their times are a correctness "
+        f"record, not a scaling figure [{smi}]")
+
+    t0 = time.perf_counter()
+    reps = dryrun.dryrun_multichip(SHARD_BOOT_WORLD, device=dev)
+    for rep in reps:
+        r = rep["refresh"]
+        log(f"  dryrun_multichip({SHARD_BOOT_WORLD}) rank {rep['rank']}: every flavour bit-equal; "
+            f"refresh flavour (bootstrap_phase1, N=16, 8 + 4 limbs, rp {r['rp']}, rows "
+            f"{r['held']}): {_site_line(r['counts'])}")
+    log(f"dry run took {time.perf_counter() - t0:.1f} s; phase 39 took "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the least time the card could take (the kernels line's bound_ms)
 # ---------------------------------------------------------------------------
 
@@ -3074,6 +3333,7 @@ def main() -> int:
     sharded = phase_sharded_ranks(dev, smi)
     phase_multihost(dev)
     log(f"phases 35-38 took {time.perf_counter() - t0:.1f} s (host clock)")
+    sboot = phase_boot_sharded(dev, smi, boot)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -3097,7 +3357,12 @@ def main() -> int:
                                  for path, per_rank in sharded["k1"].items()
                                  for r, v in per_rank.items()},
                               **{f"mnist_sharded_dp2xrp2_rank{r}": v["k1"][k]
-                                 for r, v in sharded["pipeline"].items()}},
+                                 for r, v in sharded["pipeline"].items()},
+                              "refresh_n2^10_sharded_one_rank": sboot["one"]["k1"][k],
+                              **{f"refresh_n2^10_sharded_rp4_rank{r}": v["k1"][k]
+                                 for r, v in sboot["small"].items()},
+                              **{f"refresh_n2^13_sharded_rp2_rank{r}": v["k1"][k]
+                                 for r, v in sboot["full"].items()}},
          "max_abs_err": max(err[k], exact_err[k]),
          "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],

@@ -5,8 +5,10 @@ counter of the per-limb step (dp 2 × rp 4) and of the dp × rp × cp step
 (2 × 2 × 2) equal to the communication model, which equals the
 reference's (the reference checks the model against its compiled HLO;
 the port's ranks count what they send, on 8 spawned gloo ranks); the
-scaling curves equal to the reference's over a grid of arguments; and the
-two-host dry run, bit-equal to the single-device step.
+scaling curves equal to the reference's over a grid of arguments; the
+two-host dry run, bit-equal to the single-device step; and the four-rank
+multichip dry run with its refresh flavour (the limb-sharded
+``bootstrap_phase1`` of __graft_entry__.py's dry run), bit-equal.
 """
 
 import itertools
@@ -140,3 +142,22 @@ def test_dryrun_multihost_2proc():
     reports = dryrun.dryrun_multihost(2, 2, device="cpu")
     assert len(reports) == 4 and all(r["ok"] and r["rp_in_one_host"] for r in reports)
     assert sorted(r["host"] for r in reports) == [0, 0, 1, 1]
+
+
+def test_dryrun_multichip_refresh():
+    """Four ranks: every flavour of the multichip dry run, with the refresh
+    flavour (the reference dry run's ``bootstrap_phase1`` at N = 16 on
+    8 + 4 limbs, keys and ciphertext placed limb-wise over rp 4) bit-equal
+    to the single-device phase on every rank; each rank holds its strided
+    rows of the 8-limb tower and gathered the ModRaise input and both
+    halves."""
+    reports = dryrun.dryrun_multichip(4, device="cpu")
+    assert len(reports) == 4
+    for r, rep in enumerate(reports):
+        ref = rep["refresh"]
+        assert ref["ok"] and ref["member"] and ref["rp"] == 4 and ref["limbs"] == 12
+        assert ref["held"] == [r, r + 4]
+        assert ref["counts"]["level_gather"]["count"] == 3
+        assert set(ref["counts"]) == {"level_gather", "keyswitch_digit_share",
+                                      "rescale_broadcast"}
+        assert all(rep[k]["ok"] for k in ("per_limb", "hybrid", "pipeline", "three_axis"))

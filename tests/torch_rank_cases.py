@@ -243,6 +243,216 @@ def case_pipeline_49(inp):
     return _pipeline(inp, "p49")
 
 
+# ---------------------------------------------------------------------------
+# the limb-sharded refresh (tests/test_torch_sharded_bootstrap.py)
+# ---------------------------------------------------------------------------
+
+def _frac(a):
+    from fractions import Fraction
+    return Fraction(str(a))
+
+
+def boot_setup(inp, prefix, device=DEV):
+    """The port's params, ``BootstrapContext`` and ciphertexts of
+    ``prefix`` from the exported key stacks (every tower on the key
+    tower's primes)."""
+    from toyfhe_tpu_torch.core import ring as R
+    g = lambda k: inp[f"{prefix}_{k}"]
+    ring = R.make_ring(int(g("n")), [int(p) for p in g("primes")])
+    params = T.HybridRaised(T.CKKSParams(ring, 0, 3.2, secret="sparse", hamming_weight=4),
+                            int(g("dnum")), int(g("k")))
+    radix = int(g("radix"))
+    ctx = I.bootstrap_context(
+        params, g("ek_masks"), g("ek_maskeds"), [int(e) for e in g("gk_el")], list(g("gk_masks")),
+        list(g("gk_maskeds")), int(g("conj_el")), g("conj_masks"), g("conj_maskeds"),
+        K=float(g("K")), deg=int(g("deg")), plan=(int(g("n")), radix) if radix else None,
+        arcsin=bool(g("arcsin")), double_angle=int(g("double_angle")),
+        scale_limbs=int(g("sl")), device=device)
+    cts = [I.ciphertext(params, params.ring_cipher.select(range(int(g(f"ct{i}_nl")))),
+                        g(f"ct{i}_duals"), _frac(g(f"ct{i}_scale")), device=device)
+           for i in range(int(g("cts")))]
+    return params, ctx, cts
+
+
+class CallCounts:
+    """While active, count the rotations ``rlwe.rotate_many`` makes and the
+    calls of ``rlwe.rotate_sum``: one ModDown contraction each."""
+
+    def __enter__(self):
+        from toyfhe_tpu_torch.core import rlwe
+        self.rlwe, self.orig = rlwe, (rlwe.rotate_many, rlwe.rotate_sum)
+        self.many = self.sums = 0
+        many, sums = self.orig
+
+        def counted_many(gks, c, elements):
+            self.many += len(list(elements))
+            return many(gks, c, elements)
+
+        def counted_sum(gks, terms):
+            self.sums += 1
+            return sums(gks, terms)
+
+        rlwe.rotate_many, rlwe.rotate_sum = counted_many, counted_sum
+        return self
+
+    def __exit__(self, *exc):
+        self.rlwe.rotate_many, self.rlwe.rotate_sum = self.orig
+
+
+def _reset_counts(mesh):
+    from toyfhe_tpu_torch.core import rlwe
+    from toyfhe_tpu_torch.utils import metrics
+    metrics.reset()
+    for k in rlwe.hoist_counts:
+        rlwe.hoist_counts[k] = 0
+    mesh.comm.reset()
+
+
+def predicted(calls: CallCounts, gathers: int) -> dict:
+    """The collectives the counters of the same call predict: per unhoisted
+    hybrid key switch one digit share and one ModDown exchange; per hoisted
+    decomposition one digit share; per rotation of ``rotate_many`` and per
+    ``rotate_sum`` one ModDown exchange (site ``rescale_broadcast``); per
+    rescale one ``rescale_broadcast``; ``gathers`` level_gathers."""
+    from toyfhe_tpu_torch.core import rlwe
+    from toyfhe_tpu_torch.utils import metrics
+    m, h = metrics.snapshot(), rlwe.hoist_counts
+    unhoisted = m.get("keyswitch", 0) - h["key_product_calls"]
+    return {"keyswitch_digit_share": unhoisted + h["decompose_calls"],
+            "rescale_broadcast": unhoisted + calls.many + calls.sums + m.get("rescale", 0),
+            "level_gather": gathers}
+
+
+def _rows_held(sctx, rp) -> dict:
+    """Each key and plain-cache tensor of this rank holds exactly its
+    strided rows, at most ⌈rows/rp⌉ of its tower; their bytes."""
+    from toyfhe_tpu_torch.core import ring as R
+    ok, kb, cb = True, 0, 0
+    for k in [sctx.ek.key, sctx.gk_conj.key] + [g.key for g in sctx.gks.keys]:
+        for comp in k.key:
+            for e in (comp.mask, comp.masked):
+                for t in (e.primal, e.dual):
+                    if t is not None:
+                        ok &= t.shape[-2] == len(k.ring.held) <= -(-k.ring.nlimbs // rp)
+                        kb += t.numel() * t.element_size()
+    for key, e in sctx.plain_cache.items():
+        ring = next(x for x in key if isinstance(x, R.RingContext))
+        for t in (e.primal, e.dual):
+            if t is not None:
+                ok &= t.shape[-2] == len(ring.held) <= -(-ring.nlimbs // rp)
+                cb += t.numel() * t.element_size()
+    return {"rows_ok": bool(ok), "key_bytes": kb, "cache_bytes": cb,
+            "cache_entries": len(sctx.plain_cache)}
+
+
+def _ct_arrays(c):
+    return I.ciphertext_to_numpy(c).astype(np.int64)
+
+
+def _refresh(inp, prefix, rp, which="single"):
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.parallel import sharding as S
+    mesh = S.make_mesh(rp, 1, device=DEV, ranks=range(rp))
+    if not mesh.member:
+        return None, {}
+    _, ctx, cts = boot_setup(inp, prefix)
+    sctx = S.shard_limbwise(ctx, mesh)
+    scts = [S.shard_limbwise(c, mesh) for c in cts]
+    _reset_counts(mesh)
+    with CallCounts() as calls:
+        if which == "single":
+            out = {"out": B.bootstrap(sctx, scts[0])}
+        elif which == "batched":
+            out = {"out": B.bootstrap_batched(sctx, T.ct_stack(scts[:2]))}
+        else:
+            lo, hi = B.bootstrap_phase1(sctx, scts[0])
+            out = {"lo": lo, "hi": hi}
+    whole = {k: S.gather_limbwise(v) for k, v in out.items()}
+    info = {"counts": {k: [v["kind"], v["count"]] for k, v in mesh.comm.snapshot().items()},
+            "predicted": predicted(calls, 1 + len(out)),
+            "held": list(out[next(iter(out))].ring.held),
+            "scale": {k: str(v.enc.scale) for k, v in whole.items()},
+            "nlimbs": {k: v.ring.nlimbs for k, v in whole.items()}, **_rows_held(sctx, rp)}
+    return {k: _ct_arrays(v) for k, v in whole.items()}, info
+
+
+def _engine_ops(inp, rp):
+    """keyswitch, rotate, rotate_many, rotate_sum, ct_mul + relinearize,
+    ct_rescale and ct_modswitch_drop on a full-tower ciphertext."""
+    from toyfhe_tpu_torch.parallel import sharding as S
+    mesh = S.make_mesh(rp, 1, device=DEV, ranks=range(rp))
+    if not mesh.member:
+        return None, {}
+    _, ctx, cts = boot_setup(inp, "par")
+    x = cts[-1]
+    sctx, sx = S.shard_limbwise(ctx, mesh), S.shard_limbwise(x, mesh)
+    _reset_counts(mesh)
+    with CallCounts() as calls:
+        out = engine_ops(sctx, sx)
+    info = {"counts": {k: [v["kind"], v["count"]] for k, v in mesh.comm.snapshot().items()},
+            "predicted": predicted(calls, 0)}
+    return {k: _ct_arrays(S.gather_limbwise(v)) for k, v in out.items()}, info
+
+
+def engine_ops(ctx, x) -> dict:
+    """The engine operations the sharded tests hold, on ``ctx``'s keys."""
+    from toyfhe_tpu_torch.core import rlwe
+    gks = ctx.gks
+    els = [k.galois_element for k in gks.keys]
+    sq = T.ct_mul(x, x)
+    many = rlwe.rotate_many(gks, x, els[:3])
+    return {"keyswitch": T.keyswitch(ctx.ek, sq), "rotate": T.rotate(gks.keys[0], x),
+            "conjugate": T.rotate(ctx.gk_conj, x),
+            **{f"rotate_many_{e}": many[e] for e in els[:3]},
+            "rotate_sum": rlwe.rotate_sum(gks, [(None, x), (els[0], x), (els[1], x)]),
+            "mul_relin": T.ct_rescale(T.keyswitch(ctx.ek, sq)),
+            "rescale": T.ct_rescale(x), "drop": T.ct_modswitch_drop(x)}
+
+
+def case_boot_windowed_rp2(inp):
+    """A multi-rank mesh on the windowed and per-limb gadgets raises."""
+    from toyfhe_tpu_torch.parallel import sharding as S
+    mesh = S.make_mesh(2, 1, device=DEV, ranks=range(2))
+    if not mesh.member:
+        return None, {}
+    raised = {}
+    for window in (4, 0):
+        params = T.CKKSParams(T.make_rns_ring(32, (30, 26, 26, 26)), window, 3.2)
+        gen = torch.Generator().manual_seed(3)
+        kp = T.keygen(params, gen)
+        ek, gk = T.keygen_eval_mult(gen, kp.priv), T.keygen_galois(gen, kp.priv, steps=1)
+        c = T.encrypt(kp, T.make_plaintext(params.ring_cipher, np.ones(16) * 0.5, 2 ** 26), gen)
+        sc, sek, sgk = (S.shard_limbwise(v, mesh) for v in (c, ek, gk))
+        for name, fn in (("keyswitch", lambda: T.keyswitch(sek, T.ct_mul(sc, sc))),
+                         ("rotate", lambda: T.rotate(sgk, sc)),
+                         ("rotate_many", lambda: T.rotate_many(T.GaloisKeys([sgk]), sc,
+                                                               [sgk.galois_element]))):
+            try:
+                fn()
+                raised[f"{name}_w{window}"] = False
+            except NotImplementedError:
+                raised[f"{name}_w{window}"] = True
+    return None, {"raised": raised}
+
+
+for _r in (2, 3, 4):
+    globals()[f"case_boot_refresh_rp{_r}"] = (lambda r: lambda inp: _refresh(inp, "par", r))(_r)
+for _r in (2, 3):
+    globals()[f"case_boot_ops_rp{_r}"] = (lambda r: lambda inp: _engine_ops(inp, r))(_r)
+
+
+def case_boot_batched_rp3(inp):
+    return _refresh(inp, "par", 3, "batched")
+
+
+def case_boot_phase1_rp4(inp):
+    return _refresh(inp, "dry", 4, "phase1")
+
+
+def case_boot_composite_rp2(inp):
+    return _refresh(inp, "cmp", 2)
+
+
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
 for _c in (2, 4, 8):
     CASES[f"coeff_fwd_{_c}"] = (lambda c: lambda inp: _coeff_forward(inp, c))(_c)

@@ -513,41 +513,43 @@ def mod_raise(c: CipherText) -> CipherText:
     X = Σᵢ yᵢ·q̂ᵢ − v·q₀ with yᵢ = xᵢ·q̂ᵢ⁻¹ mod qᵢ and v = round(Σ yᵢ/qᵢ)
     estimated in float32 — a wrong v near a half-integer adds ±q₀, i.e. ±1
     to the overflow I, which the sine removes anyway. More limbs: the exact
-    host CRT lift."""
-    top = c.params.ring_cipher
+    host CRT lift. On a sharded tower every rank gathers the short input
+    whole (one all-gather, site ``level_gather``) and lifts it into the rows
+    of the full tower it holds."""
     ring = c.ring
-    if ring is top:
+    if R.whole(ring) is c.params.ring_cipher:
         raise ValueError("ciphertext already at the full tower")
-    cs = []
-    for x in c.cs:
-        xp = R.ensure_primal(ring, x).primal
-        dev = xp.device
-        if ring.nlimbs == 1:
-            lift = modmath.centered(xp, ring.mp)                     # [.., 1, N]
-            arr = modmath.from_signed(lift.expand(xp.shape[:-2] + (top.nlimbs, ring.n)),
-                                      top.mp)
-        elif ring.nlimbs <= 4:
-            q = list(ring.primes)
-            q0 = math.prod(q)
-            qhat = [q0 // qi for qi in q]
-            inv_col = modmath.as_residues([[pow(h % p, -1, p)] for h, p in zip(qhat, q)], dev)
-            y = modmath.mul_mod(xp, inv_col, ring.mp)                # [.., L0, N]
-            consts = modmath.as_residues([[h % pt for pt in top.primes] for h in qhat], dev)
-            prod = modmath.mul_mod(y[..., :, None, :], consts[:, :, None], top.mp)
-            arr = modmath.mod_sum(prod, top.mp, axis=-3)             # [.., T, N]
-            v = _crt_estimate(y, q)
-            q0_res = modmath.as_residues([[q0 % pt] for pt in top.primes], dev)
-            corr = modmath.mul_mod(v[..., None, :], q0_res, top.mp)
-            arr = modmath.sub_mod(arr, corr, top.mp)
-        else:                       # general tower: exact host CRT lift
-            host = xp.cpu().numpy().reshape(-1, ring.nlimbs, ring.n)
-            qm = ring.modulus
-            rows = [top.from_bigint([v - qm if v > qm // 2 else v for v in ring.to_bigint(h)])
-                    for h in host]
-            arr = torch.as_tensor(np.stack(rows).reshape(xp.shape[:-2] + (top.nlimbs, ring.n)),
-                                  device=dev)
-        cs.append(R.RingElt(primal=arr))
-    return CipherText(c.params, tuple(cs), top, enc=c.enc)
+    top = R.like(ring, c.params.ring_cipher)
+    tl = top.local                                   # the rows this process lifts into
+    xp = R.gather(ring, torch.stack([R.ensure_primal(ring, x).primal for x in c.cs]),
+                  "level_gather")                    # [cs, .., L0, N] whole
+    ring = R.whole(ring)
+    dev = xp.device
+    if ring.nlimbs == 1:
+        lift = modmath.centered(xp, ring.mp)                         # [.., 1, N]
+        arr = modmath.from_signed(lift.expand(xp.shape[:-2] + (tl.nlimbs, ring.n)), tl.mp)
+    elif ring.nlimbs <= 4:
+        q = list(ring.primes)
+        q0 = math.prod(q)
+        qhat = [q0 // qi for qi in q]
+        inv_col = modmath.as_residues([[pow(h % p, -1, p)] for h, p in zip(qhat, q)], dev)
+        y = modmath.mul_mod(xp, inv_col, ring.mp)                    # [.., L0, N]
+        consts = modmath.as_residues([[h % pt for pt in tl.primes] for h in qhat], dev)
+        prod = modmath.mul_mod(y[..., :, None, :], consts[:, :, None], tl.mp)
+        arr = modmath.mod_sum(prod, tl.mp, axis=-3)                  # [.., T, N]
+        v = _crt_estimate(y, q)
+        q0_res = modmath.as_residues([[q0 % pt] for pt in tl.primes], dev)
+        corr = modmath.mul_mod(v[..., None, :], q0_res, tl.mp)
+        arr = modmath.sub_mod(arr, corr, tl.mp)
+    else:                       # general tower: exact host CRT lift
+        host = xp.cpu().numpy().reshape(-1, ring.nlimbs, ring.n)
+        qm = ring.modulus
+        rows = [tl.from_bigint([v - qm if v > qm // 2 else v for v in ring.to_bigint(h)])
+                for h in host]
+        arr = torch.as_tensor(np.stack(rows).reshape(xp.shape[:-2] + (tl.nlimbs, ring.n)),
+                              device=dev)
+    return CipherText(c.params, tuple(R.RingElt(primal=a) for a in arr.unbind(0)), top,
+                      enc=c.enc)
 
 
 def sine_cheb_coeffs(K: float, deg: int) -> np.ndarray:

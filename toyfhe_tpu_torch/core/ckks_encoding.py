@@ -98,7 +98,8 @@ def make_plaintext(ring: RingContext, values, scale: ScaleLike) -> CKKSPlaintext
 def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
     """slots ∈ ℂ^{N/2} → ring element on ``device``: conjugate-symmetrize
     through the ℤm* permutation, inverse FFT, ψ-twist, then exact
-    big-integer quantization by the scale."""
+    big-integer quantization by the scale. On a sharded tower, the rows
+    this rank holds."""
     n = ring.n
     scale = Fraction(scale)
     slots = np.asarray(slots, dtype=np.complex128)
@@ -120,7 +121,7 @@ def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
             and float(np.max(np.abs(real), initial=0.0))
             * nt.frac_to_float(scale) < 2 ** 52):
         ints = np.rint(np.ldexp(real, scale.numerator.bit_length() - 1)).astype(np.int64)
-        out = np.stack([np.mod(ints, p) for p in ring.primes])
+        out = np.mod(ints[None, :], np.asarray(ring.local.primes, dtype=np.int64)[:, None])
     else:
         q = ring.modulus
         coeffs = []

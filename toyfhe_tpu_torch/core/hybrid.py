@@ -17,6 +17,13 @@ partitioned into ``dnum`` groups of α = ⌈L/dnum⌉ limbs:
 Fast base conversion is the plain (uncorrected) FBC: the lift
 D_j = Σ_i y_i·(Q_j/q_i) with y ∈ [0, q_i) equals x mod Q_j plus a multiple
 u·Q_j, u ∈ [0, α), which P absorbs.
+
+On a limb-sharded tower (``ring.ShardedRing``) each rank computes the
+digits, key products and ModDown on the rows of Q_t ∪ P it holds. Two
+steps cross limbs, one all-gather over 'rp' each: the decomposition hands
+every rank all ŷ rows (site ``keyswitch_digit_share``), and the ModDown
+hands every rank the k special rows of the accumulator after their
+inverse transform (site ``rescale_broadcast``).
 """
 
 from __future__ import annotations
@@ -141,17 +148,21 @@ class HybridRaised(PassthroughParams):
     def hybrid_decompose(self, ring: RingContext, x: RingElt
                          ) -> Tuple[RingContext, torch.Tensor]:
         """x (primal, Lt limbs) → digit tensor int64[dnum_t, ..., Lt+k, N]:
-        each group residue fast-base-converted to the full target."""
+        each group residue fast-base-converted to the full target. On a
+        sharded tower: the digits' held rows, after one all-gather of ŷ."""
         lt = ring.nlimbs
-        exp_ring, groups = self._tables(lt)
+        exp_whole, groups = self._tables(lt)
+        exp_ring = R.like(ring, exp_whole)
         xp = R.ensure_primal(ring, x).primal                  # [..., Lt, N]
         dev = xp.device
         mp3 = exp_ring.mp.expand()
+        inv = np.concatenate([inv for _, inv, _ in groups])   # [Lt, 1]
+        y = modmath.mont_mul(xp, as_residues(R.held_rows(ring, inv), dev), ring.mp)
+        y = R.gather(ring, y, "keyswitch_digit_share")        # [..., Lt, N] whole
         digs = []
-        for (lo, hi), inv, consts in groups:
-            y = modmath.mont_mul(xp[..., lo:hi, :], as_residues(inv, dev),
-                                 ring.mp.select(range(lo, hi)))
-            prod = modmath.mont_mul(y[..., None, :, :], as_residues(consts, dev), mp3)
+        for (lo, hi), _, consts in groups:
+            prod = modmath.mont_mul(y[..., None, lo:hi, :],
+                                    as_residues(R.held_rows(exp_ring, consts), dev), mp3)
             digs.append(modmath.mod_sum(prod, exp_ring.mp, axis=-2))
         return exp_ring, torch.stack(digs, dim=0)
 
@@ -163,14 +174,18 @@ class HybridRaised(PassthroughParams):
         rows. Saves Lt of the dnum·(Lt+k) digit transforms, bit-exactly."""
         exp_ring, digits = self.hybrid_decompose(ring, x)  # [ndig, ..., T, N]
         xd = R.ensure_dual(ring, x).dual                   # [..., Lt, N]
+        exp_held = list(R.held(exp_ring))
         rows = []
-        for j, (lo, hi, out_idx) in enumerate(self.digit_rows(ring.nlimbs)):
-            sub = exp_ring.select(out_idx)
+        for j, (lo, hi, _) in enumerate(self.digit_rows(ring.nlimbs)):
+            out_loc = [i for i, q in enumerate(exp_held) if not lo <= q < hi]
+            sub = R.whole(exp_ring).select([exp_held[i] for i in out_loc])
             res = nttmod.ntt(sub.tables, digits[j].index_select(
-                -2, torch.tensor(out_idx, device=digits.device)))
+                -2, torch.tensor(out_loc, dtype=torch.int64, device=digits.device)))
             metrics.count("ntt_limb_transform", math.prod(res.shape[:-1]))
+            a = R.held_below(exp_ring, lo)
             rows.append(torch.cat(
-                [res[..., :lo, :], xd[..., lo:hi, :], res[..., lo:, :]], dim=-2))
+                [res[..., :a, :], xd[..., a:R.held_below(ring, hi), :], res[..., a:, :]],
+                dim=-2))
         return exp_ring, torch.stack(rows, dim=0)
 
     def digit_rows(self, lt: int) -> List[Tuple[int, int, List[int]]]:
@@ -203,6 +218,7 @@ class HybridRaised(PassthroughParams):
         t = rlwe.bgv_plain_modulus(self)
         if t is None and a.dual is not None and a.primal is None:
             return self.hybrid_contract_fused(ring, a)
+        R.require_whole(ring, "the sequential ModDown")
         for _ in range(self.num_special):
             ring, a = (R.rescale_adapted(ring, a, t) if t is not None
                        else R.rescale(ring, a))
@@ -250,30 +266,36 @@ class HybridRaised(PassthroughParams):
         """Fused ModDown of a dual-domain accumulator [..., Lt+k, N]:
         bit-identical to ``num_special`` sequential :func:`ring.rescale`
         calls (the NTT is linear and exact, so NTT(b) = a_dual·P^{-1} −
-        NTT(C) with C the combined correction polynomial)."""
+        NTT(C) with C the combined correction polynomial). On a sharded
+        tower each rank transforms its special rows and one all-gather hands
+        all k to every rank, which computes C on its held ciphertext rows."""
         k = self.num_special
         lt = exp_ring.nlimbs - k
-        ct_ring, sp_ring, pinv, wts, dinvs = self._fused_tables(exp_ring)
+        ct_whole, sp_whole, pinv, wts, dinvs = self._fused_tables(R.whole(exp_ring))
+        ct_ring, sp_held = R.like(exp_ring, ct_whole), R.like(exp_ring, sp_whole)
+        nct = R.held_below(exp_ring, lt)
         dual = a.dual
         dev = dual.device
-        sp = nttmod.intt(sp_ring.tables, dual[..., lt:, :])   # [..., k, N]
+        sp = nttmod.intt(sp_held.tables, dual[..., nct:, :])  # [..., k, N]
         metrics.count("ntt_limb_transform", math.prod(sp.shape[:-1]))
+        sp = R.gather(sp_held, sp, "rescale_broadcast")       # all k rows
         mp_ct = ct_ring.mp
         corr = None
         for s in range(k):
             l = sp[..., -1:, :]                   # raw residue row, [.., 1, N]
             sp = sp[..., :-1, :]
             if sp.shape[-2]:
-                mp_rem = sp_ring.mp.select(range(sp.shape[-2]))
+                mp_rem = sp_whole.mp.select(range(sp.shape[-2]))
                 lm = modmath.umod(l, mp_rem.on(dev).p)
                 sp = modmath.mont_mul(modmath.sub_mod(sp, lm, mp_rem),
                                       as_residues(dinvs[s], dev), mp_rem)
             term = modmath.mont_mul(modmath.umod(l, mp_ct.on(dev).p),
-                                    as_residues(wts[s], dev), mp_ct)
+                                    as_residues(R.held_rows(ct_ring, wts[s]), dev), mp_ct)
             corr = term if corr is None else modmath.add_mod(corr, term, mp_ct)
         corr_dual = nttmod.ntt(ct_ring.tables, corr)
         metrics.count("ntt_limb_transform", math.prod(corr.shape[:-1]))
         out = modmath.sub_mod(
-            modmath.mont_mul(dual[..., :lt, :], as_residues(pinv, dev), mp_ct),
+            modmath.mont_mul(dual[..., :nct, :], as_residues(R.held_rows(ct_ring, pinv), dev),
+                             mp_ct),
             corr_dual, mp_ct)
         return ct_ring, RingElt(dual=out)

@@ -8,10 +8,21 @@ A :class:`RingElt` carries ``primal`` (coefficient domain) and/or ``dual``
 (NTT domain) tensors; ``ensure_primal`` / ``ensure_dual`` return a new
 element with the missing view computed. The device of an element is the
 device of its tensors.
+
+Limb sharding: a :class:`ShardedRing` is one rank's view of a tower on an
+'rp' mesh under the strided layout of ``parallel/sharding.py``. It keeps
+the tower's identity (``n``, ``primes``, ``nlimbs``, ``modulus``,
+``select``), so the scale algebra and the ``ring is`` checks of the engine
+read as they do on one device, while its per-row data (``mp``, ``tables``,
+``scalar_residues``, ``from_bigint``) are those of the rows the rank holds
+(``local``), so every per-limb operation runs unchanged on the rank's rows.
+The operations that cross limbs (:func:`rescale`, :func:`rescale_dual`)
+issue one counted collective each through :func:`gather`.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
@@ -24,7 +35,8 @@ from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import MontParams
 from ..utils import metrics, numtheory as nt
 
-__all__ = ["RingContext", "RingElt", "make_ring", "make_rns_ring"]
+__all__ = ["RingContext", "RingElt", "ShardedRing", "make_ring", "make_rns_ring",
+           "shard_view"]
 
 
 class RingContext:
@@ -90,6 +102,12 @@ class RingContext:
     def drop_last(self) -> "RingContext":
         return self.select(range(self.nlimbs - 1))
 
+    @property
+    def local(self) -> "RingContext":
+        """The tower of the rows this process holds: the tower itself (a
+        :class:`ShardedRing` holds some of them)."""
+        return self
+
     # ---- rescale constants (modswitch) ----
     def rescale_consts(self):
         """(q_last mod q_j, q_last^{-1} mod q_j in Montgomery form) for the
@@ -153,7 +171,124 @@ class RingContext:
 
     def scalar_residues(self, value: int) -> np.ndarray:
         """Python int → per-limb residue column int64[L, 1]."""
-        return np.array([[int(value) % p] for p in self.primes], dtype=np.int64)
+        return np.array([int(value) % p for p in self.primes], dtype=np.int64).reshape(-1, 1)
+
+
+class ShardedRing(RingContext):
+    """The rows of ``whole`` that one rank of ``mesh`` holds on ``axis``:
+    those whose key-tower index is ≡ the rank's coordinate (mod the axis
+    extent), ``held`` (positions in ``whole``, ascending; possibly none).
+
+    Global, as ``whole``'s: ``n``, ``primes``, ``nlimbs``, ``modulus`` and
+    :meth:`select` (whose result is again a view). Held: ``mp``, ``tables``,
+    :meth:`scalar_residues` and :meth:`from_bigint`, those of ``local`` =
+    ``whole.select(held)``. One view per (tower, mesh, axis)
+    (:func:`shard_view`), so views compare by identity as towers do."""
+
+    def __init__(self, whole: RingContext, mesh, axis: str):
+        from ..parallel import sharding as S
+        self.whole, self.mesh, self.axis = whole, mesh, axis
+        self.n = whole.n
+        self.primes = whole.primes
+        self.psis = whole.psis
+        self.held = S.strided_rows(whole._root_indices, mesh.shape[axis], mesh.index(axis))
+        self._local = whole.select(self.held)
+        self.tables = self._local.tables
+        self.mp = self._local.mp
+        self._index: dict = {}
+
+    def __repr__(self):
+        return (f"ShardedRing(N={self.n}, L={self.nlimbs}, held={self.held}, "
+                f"{self.axis}={self.mesh.shape[self.axis]})")
+
+    @property
+    def local(self) -> RingContext:
+        return self._local
+
+    def select(self, which: Sequence[int]) -> "ShardedRing":
+        return shard_view(self.whole.select(which), self.mesh, self.axis)
+
+    def scalar_residues(self, value: int) -> np.ndarray:
+        return self._local.scalar_residues(value)
+
+    def from_bigint(self, values: Sequence[int]) -> np.ndarray:
+        return self._local.from_bigint(values)
+
+    def galois_tables(self, g: int):
+        return self.whole.galois_tables(g)
+
+    def native(self):
+        raise NotImplementedError("decode a gathered ciphertext (rlwe.ct_gather)")
+
+    def to_bigint(self, primal):
+        raise NotImplementedError("CRT-reconstruct a gathered ciphertext (rlwe.ct_gather)")
+
+    def index_of(self, positions: Sequence[int], device) -> torch.Tensor:
+        """The held rows among ``positions`` (of ``whole``) as indices into
+        this rank's tensors, an int64 tensor on ``device``, cached."""
+        key = (tuple(positions), device)
+        if key not in self._index:
+            at = {q: i for i, q in enumerate(self.held)}
+            self._index[key] = torch.as_tensor([at[q] for q in positions if q in at],
+                                               dtype=torch.int64, device=device)
+        return self._index[key]
+
+
+def shard_view(ring: RingContext, mesh, axis: str = "rp") -> ShardedRing:
+    """The :class:`ShardedRing` of ``ring`` (a whole tower) on ``mesh``."""
+    if isinstance(ring, ShardedRing):
+        raise ValueError("the tower is sharded already")
+    views = ring.__dict__.setdefault("_views", {})
+    if (mesh, axis) not in views:
+        views[(mesh, axis)] = ShardedRing(ring, mesh, axis)
+    return views[(mesh, axis)]
+
+
+def whole(ring: RingContext) -> RingContext:
+    """The whole tower of a view (a whole tower itself)."""
+    return ring.whole if isinstance(ring, ShardedRing) else ring
+
+
+def like(ring: RingContext, other: RingContext) -> RingContext:
+    """``other`` (a whole tower) sharded as ``ring`` is."""
+    return shard_view(other, ring.mesh, ring.axis) if isinstance(ring, ShardedRing) else other
+
+
+def held(ring: RingContext) -> Sequence[int]:
+    """The positions of ``ring``'s rows this process holds, ascending."""
+    return ring.held if isinstance(ring, ShardedRing) else range(ring.nlimbs)
+
+
+def held_below(ring: RingContext, bound: int) -> int:
+    """How many of the held rows lie below position ``bound``."""
+    return bisect.bisect_left(held(ring), bound)
+
+
+def held_rows(ring: RingContext, x):
+    """This process's rows of ``x`` (a whole tower's ``[..., L, N]`` tensor,
+    or a host array with the rows on axis 0 when ``x`` is not a tensor)."""
+    if not isinstance(ring, ShardedRing):
+        return x
+    if not torch.is_tensor(x):
+        return np.asarray(x)[ring.held]
+    return x.index_select(-2, torch.as_tensor(ring.held, dtype=torch.int64, device=x.device))
+
+
+def gather(ring: RingContext, x: torch.Tensor, site: str) -> torch.Tensor:
+    """The whole tower's ``[..., L, N]`` on every rank from each rank's held
+    rows ``x``: one all-gather over the view's axis, counted at ``site``
+    (a whole tower's ``x`` as it is)."""
+    if not isinstance(ring, ShardedRing):
+        return x
+    from ..parallel import sharding as S
+    return S.gather_strided(x, ring.whole._root_indices, ring.mesh, ring.axis, site)
+
+
+def require_whole(ring: RingContext, what: str) -> None:
+    """Raise ``NotImplementedError`` for ``what`` on a sharded tower: an
+    operation with no sharded form is never computed whole on one rank."""
+    if isinstance(ring, ShardedRing):
+        raise NotImplementedError(f"{what} has no limb-sharded form")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,13 +415,17 @@ def apply_galois(ring: RingContext, a: RingElt, galois_element: int) -> RingElt:
 # ---------------------------------------------------------------------------
 
 def limb_select(ring: RingContext, a: RingElt, which: Sequence[int]) -> Tuple[RingContext, RingElt]:
-    """crtselect: restrict to a sub-tower."""
+    """crtselect: restrict to a sub-tower. On a sharded tower each rank
+    keeps the rows of ``which`` it holds: no row moves."""
     which = list(which)
     sub_ring = ring.select(which)
 
     def take(arr):
         if arr is None:
             return None
+        if isinstance(ring, ShardedRing):
+            return arr.index_select(-2, ring.index_of([which[q] for q in sub_ring.held],
+                                                      arr.device))
         return arr.index_select(-2, torch.tensor(which, device=arr.device))
 
     return sub_ring, RingElt(primal=take(a.primal), dual=take(a.dual))
@@ -297,22 +436,34 @@ def modswitch_drop(ring: RingContext, a: RingElt) -> Tuple[RingContext, RingElt]
     return limb_select(ring, a, range(ring.nlimbs - 1))
 
 
+def _rescale_parts(ring: RingContext, device):
+    """(the tower without its last limb, the tower of the last limb alone,
+    how many held rows survive, q_last⁻¹ in Montgomery form on the held
+    surviving rows as a tensor on ``device``). On a sharded tower the last
+    limb's rank holds its row; the other ranks hold none."""
+    _, inv_m = whole(ring).rescale_consts()
+    nsurv = held_below(ring, ring.nlimbs - 1)
+    inv = torch.as_tensor(np.asarray(inv_m, dtype=np.int64)[list(held(ring))[:nsurv]],
+                          device=device)
+    return ring.drop_last(), ring.select([ring.nlimbs - 1]), nsurv, inv
+
+
 def rescale(ring: RingContext, a: RingElt) -> Tuple[RingContext, RingElt]:
     """Exact divide-and-round by the last prime: for surviving limb j,
     a'_j = q_k^{-1} · (a_j − [a_k]_{q_j}) mod q_j.
 
     Uses the raw (non-centered) representative of the dropped limb, as the
-    reference does.
+    reference does. On a sharded tower the dropped row reaches every rank
+    in one all-gather (site ``rescale_broadcast``).
     """
     a = ensure_primal(ring, a)
-    sub_ring = ring.drop_last()
-    _, inv_m = ring.rescale_consts()
+    sub_ring, last_ring, nsurv, inv = _rescale_parts(ring, a.primal.device)
     mp = sub_ring.mp.on(a.device)
-    last = a.primal[..., -1:, :]                      # [..., 1, N] residues mod q_k
-    surv = a.primal[..., :-1, :]
+    last = gather(last_ring, a.primal[..., nsurv:, :],
+                  "rescale_broadcast")                # [..., 1, N] residues mod q_k
+    surv = a.primal[..., :nsurv, :]
     last_mod = modmath.umod(last, mp.p)               # raw [a_k] reduced mod q_j
     diff = modmath.sub_mod(surv, last_mod, mp)
-    inv = torch.as_tensor(inv_m.astype(np.int64), device=a.device)
     return sub_ring, RingElt(primal=modmath.mont_mul(diff, inv, mp))
 
 
@@ -320,20 +471,19 @@ def rescale_dual(ring: RingContext, a: RingElt) -> Tuple[RingContext, RingElt]:
     """Dual-domain rescale, bit-identical to :func:`rescale` (the NTT is
     linear and exact: NTT(b) = a_dual·q_k^{-1} − NTT([a_k]·q_k^{-1})), paying
     an INTT of one row and an NTT of L−1 rows instead of a full-tower INTT
-    and re-NTT."""
+    and re-NTT. On a sharded tower the last row's rank transforms it and
+    one all-gather hands it to every rank (site ``rescale_broadcast``)."""
     if a.dual is None:
         raise ValueError("rescale_dual needs the dual form")
-    sub_ring = ring.drop_last()
-    _, inv_m = ring.rescale_consts()
-    inv = torch.as_tensor(inv_m.astype(np.int64), device=a.device)
-    last_ring = ring.select([ring.nlimbs - 1])
-    last = nttmod.intt(last_ring.tables, a.dual[..., -1:, :])   # raw residues
+    sub_ring, last_ring, nsurv, inv = _rescale_parts(ring, a.device)
+    last = nttmod.intt(last_ring.tables, a.dual[..., nsurv:, :])   # raw residues
     metrics.count("ntt_limb_transform", math.prod(last.shape[:-1]))
+    last = gather(last_ring, last, "rescale_broadcast")
     mp = sub_ring.mp.on(a.device)
     corr = modmath.mont_mul(modmath.umod(last, mp.p), inv, mp)
     corr_dual = nttmod.ntt(sub_ring.tables, corr)
     metrics.count("ntt_limb_transform", math.prod(corr.shape[:-1]))
-    out = modmath.sub_mod(modmath.mont_mul(a.dual[..., :-1, :], inv, mp),
+    out = modmath.sub_mod(modmath.mont_mul(a.dual[..., :nsurv, :], inv, mp),
                           corr_dual, mp)
     return sub_ring, RingElt(dual=out)
 
@@ -345,6 +495,7 @@ def rescale_adapted(ring: RingContext, a: RingElt, t: int) -> Tuple[RingContext,
     d = r + q_k·v with r the centered last-limb residue and v ≡ −r·q_k⁻¹
     (mod t), centered; ‖d‖ ≤ q_k(t + 1)/2. The message is multiplied by
     q_k⁻¹ mod t (``bgv.BGVTag`` tracks it)."""
+    require_whole(ring, "the BGV rescale")
     a = ensure_primal(ring, a)
     sub_ring = ring.drop_last()
     qk = ring.primes[-1]

@@ -17,6 +17,13 @@ the encoder π⁻¹, decoder π, noise sampler 𝒩 and secret sampler 𝒢;
 
 Randomness comes from an explicit ``torch.Generator``: keys and ciphertexts
 are made on the generator's device.
+
+Placed limb-wise (``parallel.sharding.shard_limbwise``), a ciphertext and its
+keys live on ``ring.ShardedRing`` views and every CKKS operation here runs on
+each rank's rows as written: the hybrid gadget's cross-limb steps and the
+rescale are one collective each, decryption gathers the ciphertext first
+(:func:`ct_gather`), and an operation with no sharded form (the windowed and
+per-limb gadgets, the BFV and BGV arithmetic) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -307,8 +314,9 @@ def _aligned_secret(priv: PrivKey, ring: RingContext) -> RingElt:
 
 
 def decrypt_raw(key, c: CipherText) -> RingElt:
-    """b = Σ cᵢ·sⁱ without π."""
+    """b = Σ cᵢ·sⁱ without π (a sharded ciphertext is gathered first)."""
     priv = key.priv if isinstance(key, KeyPair) else key
+    c = ct_gather(c)
     ring = c.ring
     secret = _aligned_secret(priv, ring)
     b = c.cs[0]
@@ -323,6 +331,7 @@ def decrypt_raw(key, c: CipherText) -> RingElt:
 def decrypt(key, c: CipherText):
     """Σ cᵢ·sⁱ, then π, then the encoding's decode."""
     priv = key.priv if isinstance(key, KeyPair) else key
+    c = ct_gather(c)
     dec = priv.params.decode(decrypt_raw(priv, c), c.ring)
     if c.enc is not None:
         return c.enc.decode(priv.params, dec, c.ring)
@@ -383,6 +392,8 @@ def enc_mul(c1: CipherText, c2: CipherText) -> Tuple[RingContext, Tuple[RingElt,
         raise UsageError("Attempting to multiply ciphertexts with differing parameters")
     metrics.count("enc_mul")
     params = c1.params
+    if bgv_plain_modulus(params) is not None or _base(params).scheme_name() == "BFV":
+        R.require_whole(c1.ring, f"the {_base(params).scheme_name()} product")
     ring, (a, b) = params.mul_expand_pair(c1, c2)
     return params.mul_contract_pair(ring, tensor_product(ring, a, b))
 
@@ -430,6 +441,7 @@ def gadget_decompose(ring: RingContext, target: RingContext, x: RingElt,
     window == 0: centered RNS digits; window > 0: raw base-2^w digits of
     each residue. ``k_per_limb`` must match the digit count the key was
     generated with."""
+    R.require_whole(ring, "the per-limb and windowed RNS gadget")
     p = R.ensure_primal(ring, x).primal        # [..., L, N]
     shape = p.shape[:-2] + (target.nlimbs, ring.n)
     digs = []
@@ -558,6 +570,7 @@ def keyswitch(ek, c: CipherText) -> CipherText:
     if getattr(params, "hybrid_decompose", None) is not None:
         return _keyswitch_hybrid(params, ek, c)
     ring = c.ring
+    R.require_whole(ring, "the per-limb and windowed RNS gadget")
     expand = getattr(params, "keyswitch_expand", None)
     contract = getattr(params, "keyswitch_contract", None)
     if expand is not None:
@@ -868,13 +881,17 @@ def ct_modswitch_drop(c: CipherText) -> CipherText:
     return CipherText(c.params, tuple(cs), sub, enc=enc)
 
 
+def _base(params):
+    while isinstance(params, PassthroughParams):
+        params = params.params
+    return params
+
+
 def bgv_plain_modulus(params):
     """The plaintext modulus when the (possibly wrapped) base scheme is
     BGV, whose divide-and-round steps must keep the error ≡ 0 mod p
     (``ring.rescale_adapted``); None for every other scheme."""
-    base = params
-    while isinstance(base, PassthroughParams):
-        base = base.params
+    base = _base(params)
     return base.plain.p if base.scheme_name() == "BGV" else None
 
 
@@ -886,11 +903,10 @@ def ct_rescale(c: CipherText) -> CipherText:
     metrics.count("rescale")
     ring = c.ring
     t = bgv_plain_modulus(c.params)
-    cs = []
-    sub = None
-    for x in c.cs:
-        sub, y = R.rescale_adapted(ring, x, t) if t is not None else R.rescale(ring, x)
-        cs.append(y)
+    # every component in one call: on a sharded tower, one collective
+    x = RingElt(primal=torch.stack([R.ensure_primal(ring, x).primal for x in c.cs]))
+    sub, y = R.rescale_adapted(ring, x, t) if t is not None else R.rescale(ring, x)
+    cs = [RingElt(primal=v) for v in y.primal.unbind(0)]
     if t is not None:
         from .bgv import BGVTag
         enc = (c.enc if c.enc is not None else BGVTag(t)).rescale_by(ring.primes[-1])
@@ -931,6 +947,21 @@ def ct_stack(cts) -> CipherText:
         duals = [R.ensure_dual(c0.ring, c.cs[i]).dual for c in cts]
         cs.append(RingElt(dual=torch.stack(duals, dim=-3)))
     return CipherText(c0.params, tuple(cs), c0.ring, enc=c0.enc)
+
+
+def ct_gather(c: CipherText) -> CipherText:
+    """The whole ciphertext on every rank from a limb-sharded one (the
+    counterpart of reading a global ``jax.Array``): one all-gather over
+    'rp' of every component (site ``level_gather``), in the dual domain
+    when every component has it. A whole ciphertext as it is."""
+    ring = c.ring
+    if not isinstance(ring, R.ShardedRing):
+        return c
+    dual = all(x.dual is not None for x in c.cs)
+    t = torch.stack([x.dual if dual else R.ensure_primal(ring, x).primal for x in c.cs])
+    g = R.gather(ring, t, "level_gather").unbind(0)
+    cs = tuple(RingElt(dual=v) if dual else RingElt(primal=v) for v in g)
+    return CipherText(c.params, cs, R.whole(ring), enc=c.enc)
 
 
 def ct_index(c: CipherText, i: int) -> CipherText:

@@ -190,6 +190,8 @@ def intt_plain(tables: NttTables, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dispatch(tables: NttTables, x: torch.Tensor, inverse: bool):
+    if x.numel() == 0:              # a rank of a sharded tower holding none of its rows
+        return torch.empty_like(x)
     if x.device.type == "cuda":
         from . import ntt_cuda
         return ntt_cuda.launch(tables, x.contiguous(), inverse)

@@ -26,6 +26,18 @@ mesh's :class:`CollectiveCounter`, which stands in for the reference's
 compiled-HLO counts. A mesh of one rank needs no process group, and its
 collectives are identities (still counted).
 
+The limb-sharded engine (the refresh of ``core/bootstrap.py`` and every
+engine operation under it) uses a **strided limb layout** instead of
+contiguous blocks: rank r of 'rp' holds the rows of a tower whose index in
+the key tower (the root of ``RingContext.select``) is ≡ r (mod rp). A
+ciphertext at any level, its expanded tower Q_ℓ ∪ P, the keys, the encoded
+diagonals and the constants then place every row on the rank that holds the
+same key row, so keys never move; dropping the last limb removes one row on
+one rank, and the blocks differ by at most one row (:func:`gather_strided`
+pads them). :func:`shard_limbwise` places engine objects that way
+(``core.ring.ShardedRing`` is the rank's view of a tower), and
+:func:`gather_limbwise` turns a sharded ciphertext back into a whole one.
+
 Transports: gloo on the CPU and for several ranks on one GPU (NCCL refuses
 two ranks on one device); NCCL where each rank has its own GPU. Gloo takes
 the CUDA tensors of both collectives as they are (torch 2.11 on an H100),
@@ -35,7 +47,9 @@ arithmetic stays on the card.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import functools
 import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
@@ -49,6 +63,7 @@ from ..ops.modmath import MontParams
 
 __all__ = ["Mesh", "CollectiveCounter", "make_mesh", "all_gather", "all_to_all", "all_sum",
            "shard", "unshard", "shard_tree", "shard_ring_tensor", "shard_limbwise",
+           "strided_rows", "gather_strided", "gather_limbwise",
            "ntt_table_pytree", "table_specs", "ntt_p", "intt_p", "coeff_shard_layout",
            "mxu_table_pytree", "mxu_table_specs", "mxu2_ntt_local", "mxu2_intt_local",
            "coeff_sharded_ntt_fn", "coeff_sharded_intt_fn", "coeff_sharded_galois_plan",
@@ -261,13 +276,50 @@ def shard_ring_tensor(mesh: Mesh, x, batch: bool = False) -> torch.Tensor:
 
 
 def shard_limbwise(tree, mesh: Mesh, axis_name: str = "rp"):
-    """Every tensor leaf of a nested dict / list / tuple with its limb axis
-    (axis −2 of the [..., L, N] layout) cut to this rank's block wherever
-    the extent divides the axis, whole otherwise; other leaves as they
-    are."""
+    """Place a tree on ``mesh`` limb-wise: the reference's placement of
+    engine pytrees (keys, ciphertexts, whole bootstrap contexts).
+
+    A ``CipherText``, ``KeySwitchKey`` (also inside an ``EvalMultKey``, a
+    ``GaloisKey`` or ``GaloisKeys``) or ``BootstrapContext`` keeps, of each
+    ring element, the rows of the strided layout this rank holds, on its
+    tower's ``core.ring.ShardedRing`` (a sharded context starts with an
+    empty plain cache: each rank encodes its own rows); the engine then
+    runs on it as it is, each cross-limb step one counted collective. Other
+    tensor leaves of a dict / list / tuple have their limb axis (axis −2)
+    cut to this rank's contiguous block wherever the extent divides, whole
+    otherwise; other leaves stay as they are."""
+    from ..core import bootstrap as B, ring as R, rlwe
+
     size = mesh.shape[axis_name]
 
+    def elt(ring, x):
+        return R.RingElt(**{k: None if v is None else R.held_rows(ring, v).to(mesh.device)
+                            for k, v in (("primal", x.primal), ("dual", x.dual))})
+
+    def ksk(k):
+        view = R.shard_view(k.ring, mesh, axis_name)
+        return rlwe.KeySwitchKey(k.params, [rlwe.KeyComponent(elt(view, c.mask),
+                                                              elt(view, c.masked))
+                                            for c in k.key], view)
+
     def put(x):
+        if isinstance(x, rlwe.CipherText):
+            view = R.shard_view(x.ring, mesh, axis_name)
+            return rlwe.CipherText(x.params, tuple(elt(view, e) for e in x.cs), view, x.enc)
+        if isinstance(x, rlwe.KeySwitchKey):
+            return ksk(x)
+        if isinstance(x, rlwe.EvalMultKey):
+            return rlwe.EvalMultKey(ksk(x.key))
+        if isinstance(x, rlwe.GaloisKey):
+            return rlwe.GaloisKey(x.galois_element, ksk(x.key))
+        if isinstance(x, rlwe.GaloisKeys):
+            return rlwe.GaloisKeys([put(k) for k in x.keys])
+        if isinstance(x, B.BootstrapContext):
+            return dataclasses.replace(x, ek=put(x.ek), gks=put(x.gks),
+                                       gk_conj=put(x.gk_conj), plain_cache={})
+        if isinstance(x, R.RingElt):
+            raise TypeError("a ring element's rows follow its tower: place it inside its "
+                            "ciphertext or key")
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
@@ -280,6 +332,68 @@ def shard_limbwise(tree, mesh: Mesh, axis_name: str = "rp"):
         return shard(x, spec, mesh)
 
     return put(tree)
+
+
+def gather_limbwise(tree):
+    """The whole ciphertexts of a tree (a ciphertext, or a dict / list /
+    tuple of them) on every rank, from limb-sharded ones: one all-gather
+    over 'rp' a ciphertext (``rlwe.ct_gather``, site ``level_gather``);
+    whole ciphertexts and other leaves as they are."""
+    from ..core import rlwe
+
+    if isinstance(tree, rlwe.CipherText):
+        return rlwe.ct_gather(tree)
+    if isinstance(tree, dict):
+        return {k: gather_limbwise(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_limbwise(v) for v in tree)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the strided limb layout of the sharded engine
+# ---------------------------------------------------------------------------
+
+def strided_rows(roots: Sequence[int], size: int, index: int) -> list:
+    """The positions of a tower's rows that rank ``index`` of ``size``
+    holds: those whose key-tower index (``roots``) is ≡ ``index`` (mod
+    ``size``)."""
+    return [q for q, g in enumerate(roots) if g % size == index]
+
+
+@functools.lru_cache(maxsize=None)
+def _strided_plan(roots: Tuple[int, ...], size: int):
+    """(the largest block, each row's position in the padded gather)."""
+    blocks = [strided_rows(roots, size, s) for s in range(size)]
+    width = max(len(b) for b in blocks)
+    perm = [0] * len(roots)
+    for s, rows in enumerate(blocks):
+        for j, q in enumerate(rows):
+            perm[q] = s * width + j
+    return width, tuple(perm)
+
+
+_PERMS: dict = {}
+
+
+def gather_strided(x: torch.Tensor, roots: Sequence[int], mesh: Mesh, axis: str,
+                   site: str) -> torch.Tensor:
+    """The whole tower ``[..., len(roots), N]`` on every rank from each
+    rank's strided rows ``x`` (:func:`strided_rows`): one all-gather over
+    ``axis``, every block padded with zero rows to the largest, the padding
+    dropped after."""
+    roots = tuple(int(g) for g in roots)
+    size = mesh.shape[axis]
+    width, perm = _strided_plan(roots, size)
+    if x.shape[-2] < width:
+        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (width - x.shape[-2], x.shape[-1]))], -2)
+    g = all_gather(x, mesh, axis, -2, site)
+    if size == 1:
+        return g
+    key = (roots, size, g.device)
+    if key not in _PERMS:
+        _PERMS[key] = torch.as_tensor(perm, dtype=torch.int64, device=g.device)
+    return g.index_select(-2, _PERMS[key])
 
 
 # ---------------------------------------------------------------------------

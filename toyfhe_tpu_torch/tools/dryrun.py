@@ -7,8 +7,11 @@
 tiny shapes, every sharded flavour over a ('dp', 'rp') mesh — the per-limb
 step, the hybrid step in both schedules, the sharded MNIST pipeline — and
 the ('dp', 'rp', 'cp') step when 4 divides N; each is held bit-equal to
-the single-device step, which every rank computes too. The sharded
-refresh is not ported. ``dryrun_multihost(h, r)`` runs h "hosts" of r
+the single-device step, which every rank computes too; and the refresh
+flavour: ``bootstrap_phase1`` (ModRaise → CoeffToSlot) at N = 16 on 8 + 4
+limbs with keys and ciphertext placed limb-wise over rp 4 (all ranks when
+fewer), bit-equal to the single-device phase. ``dryrun_multihost(h, r)``
+runs h "hosts" of r
 ranks each (``LOCAL_WORLD_SIZE`` = r), 'dp' across the hosts and 'rp'
 inside each, and holds the per-limb step bit-equal to the single-device
 step.
@@ -137,6 +140,45 @@ def _three_axis(n, device):
     return {"ok": bool(torch.equal(nat, want)), "mesh": [n_dp, n_rp, n_cp], "N": nr, "L": L}
 
 
+REFRESH_N = 16          # the reference dry run's refresh: N = 16, 8 + 4 limbs of 30 bits
+REFRESH_SEED = 5
+
+
+def _refresh(n: int, device) -> dict:
+    """``bootstrap_phase1`` with keys and ciphertext placed limb-wise over
+    rp 4 (the first ``n`` ranks when fewer): both halves bit-equal to the
+    single-device phase. The keys come from one seed, alike on every rank."""
+    from fractions import Fraction
+    from .. import CKKSParams, HybridRaised, encrypt, keygen, make_plaintext, make_rns_ring
+    from ..core import bootstrap as B, ckks_encoding as CE, ring as R
+    from ..parallel import sharding as S
+
+    rp = min(4, n)
+    mesh = S.make_mesh(rp, 1, device=device, ranks=range(rp))
+    if not mesh.member:
+        return {"ok": True, "member": False}
+    ring = make_rns_ring(REFRESH_N, (30,) * 12)
+    params = HybridRaised(CKKSParams(ring, 0, 3.2, secret="sparse", hamming_weight=4), 4, 4)
+    gen = torch.Generator(device).manual_seed(REFRESH_SEED)
+    kp = keygen(params, gen)
+    ctx = B.setup_bootstrap(gen, kp.priv, K=5.0, deg=8)
+    rng = np.random.default_rng(REFRESH_SEED)
+    vals = (rng.uniform(-1, 1, REFRESH_N // 2) + 1j * rng.uniform(-1, 1, REFRESH_N // 2)) * 0.7
+    c = CE.ct_drop_to(encrypt(kp, make_plaintext(params.ring_cipher, vals, Fraction(2) ** 27),
+                              gen), 1)
+    want = B.bootstrap_phase1(ctx, c)
+    mesh.comm.reset()
+    got = S.gather_limbwise(B.bootstrap_phase1(S.shard_limbwise(ctx, mesh),
+                                               S.shard_limbwise(c, mesh)))
+    counts = mesh.comm.snapshot()
+    dual = lambda c: [R.ensure_dual(c.ring, x).dual for x in c.cs]
+    ok = all(a.ring is b.ring and a.enc == b.enc
+             and all(torch.equal(x, y) for x, y in zip(dual(a), dual(b)))
+             for a, b in zip(got, want))
+    return {"ok": ok, "member": True, "rp": rp, "limbs": ring.nlimbs,
+            "held": list(R.shard_view(params.ring_cipher, mesh).held), "counts": counts}
+
+
 def multichip_rank(workdir: str, n: int, device: str) -> dict:
     """One rank of :func:`dryrun_multichip`."""
     import torch.distributed as dist
@@ -151,7 +193,8 @@ def multichip_rank(workdir: str, n: int, device: str) -> dict:
     report = {"rank": dist.get_rank(), "mesh": [n_dp, n_rp],
               "per_limb": _per_limb(mesh, n_rp, n_dp, 0, device),
               "hybrid": _hybrid(mesh, n_rp, n_dp, device),
-              "pipeline": _pipeline(mesh, device)}
+              "pipeline": _pipeline(mesh, device),
+              "refresh": _refresh(n, device)}
     if n % 4 == 0:
         report["three_axis"] = _three_axis(n, device)
     after = _k1_launches()
@@ -199,7 +242,7 @@ def dryrun_multichip(n_devices: int, *, device) -> list:
     ranks' reports (each flavour's ``ok``, collective counts, K1 launches)."""
     reports = _run("toyfhe_tpu_torch.tools.dryrun:multichip_rank", n_devices,
                    {"n": n_devices}, str(device))
-    _check(reports, ("per_limb", "hybrid", "pipeline", "three_axis"))
+    _check(reports, ("per_limb", "hybrid", "pipeline", "three_axis", "refresh"))
     return reports
 
 
