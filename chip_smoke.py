@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the toyfhe_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--compiled-only]
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
 source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
@@ -121,7 +121,22 @@ replaced). Then, for each path:
   counter equal to the communication model, K1 counted per rank; the
   encrypted-MNIST pipeline at ``MNISTConfig()`` (BSGS + dual flow) over dp 2
   x rp 2, its logits ciphertext on every rank bit-equal to the
-  single-device pipeline's; and ``tools.dryrun.dryrun_multihost(2)``.
+  single-device pipeline's; and ``tools.dryrun.dryrun_multihost(2)``;
+* the compiled front-end (phase 40, ``utils/graphs.py``): every unit the
+  reference jits on the serving path, captured into a CUDA graph and
+  replayed, against the same call eager (the earlier phases run their
+  builders with ``eager=True``) at full width — the single-device step, the
+  three hybrid steps (K3 in the fused one), the five layers, both MNIST
+  serving schedules stage by stage, the whole refresh, the batched refresh
+  and the bootstrapped pipeline (the exhaust and the refresh's three phases
+  among its stages), and the windowed rotation through K5 + K6: each replay
+  bit-equal to the eager call under ``torch.cuda.set_sync_debug_mode
+  ("error")``, a kept result intact across the next replay, the launch and
+  hoist censuses equal, two encryptor replays with fresh noise that both
+  decrypt; eager and replay ms as interleaved pairs, capture + instantiate
+  ms, the pool MiB, and the idle share of a replayed BSGS batch and of a
+  replayed refresh. ``python3 chip_smoke.py --compiled-only`` builds the
+  kernels and runs this phase alone on fixtures of its own.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -139,9 +154,12 @@ non-zero, printing no result, when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -341,7 +359,7 @@ def phase_entry_step(dev):
     outs = {}
     for d in (dev, "cpu"):
         step = pops.make_single_chip_step(ring.tables, I.tensor(masks, d),
-                                          I.tensor(maskeds, d))
+                                          I.tensor(maskeds, d), eager=True)
         outs[d] = step(I.tensor(cts, d)).cpu()
     if not torch.equal(outs[dev], outs["cpu"]):
         raise AssertionError("CUDA step differs from the CPU step")
@@ -349,7 +367,7 @@ def phase_entry_step(dev):
         raise AssertionError("dropped limb not zeroed")
     log(f"step on {dev} == step on cpu, shape {tuple(outs[dev].shape)}, dropped limb zero")
     step = pops.make_single_chip_step(ring.tables, I.tensor(masks, dev),
-                                      I.tensor(maskeds, dev))
+                                      I.tensor(maskeds, dev), eager=True)
     return step, I.tensor(cts, dev)
 
 
@@ -375,7 +393,7 @@ def phase_real_keys(dev):
         c = T.encrypt(kp, T.make_plaintext(ring, vals * (i + 1), scale), gen)
         cts.append(torch.stack([T.ringops.ensure_dual(ring, x).dual for x in c.cs]))
     batch = torch.stack(cts)
-    step = pops.make_single_chip_step(ring.tables, masks, maskeds)
+    step = pops.make_single_chip_step(ring.tables, masks, maskeds, eager=True)
     torch.cuda.synchronize()
     log(f"keygen + eval key + {B} encryptions: {time.perf_counter() - t0:.2f} s (host clock)")
 
@@ -476,7 +494,8 @@ def synthetic_eval_key(params, seed, device):
 def flavour_steps(params, ek, ct_ring):
     """The three single-device hybrid steps on the key's device."""
     from toyfhe_tpu_torch.parallel import ops as pops
-    mk = lambda **kw: pops.make_hybrid_sharded_step(None, params, ek, ct_ring=ct_ring, **kw)[0]
+    mk = lambda **kw: pops.make_hybrid_sharded_step(None, params, ek, ct_ring=ct_ring,
+                                                    eager=True, **kw)[0]
     return {"v1": mk(), "fused_k3": mk(fused=True), "fused_schedule": mk(fused_schedule=True)}
 
 
@@ -891,9 +910,9 @@ def _layers_card_vs_cpu(label, params, gk, ek, rot_ring, sq_ring, d, gen):
     from toyfhe_tpu_torch.parallel import layers as TL
 
     dev = gen.device
-    rot = {dv: TL.RotateMatmulLayer(params, k, gk.galois_element, d, rot_ring)
+    rot = {dv: TL.RotateMatmulLayer(params, k, gk.galois_element, d, rot_ring, eager=True)
            for dv, k in ((dev, gk), ("cpu", to_device(gk, "cpu")))}
-    sq = {dv: TL.SquareRelinLayer(params, k, sq_ring)
+    sq = {dv: TL.SquareRelinLayer(params, k, sq_ring, eager=True)
           for dv, k in ((dev, ek), ("cpu", to_device(ek, "cpu")))}
     x = [random_residues(rot_ring.primes, (), rot_ring.n, gen, dev) for _ in range(2)]
     diag = random_residues(rot_ring.primes, (d,), rot_ring.n, gen, dev)
@@ -988,14 +1007,15 @@ def phase_mnist_pipeline(dev, smi, cfg=None):
     imgs = np.random.default_rng(17).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
     plain = M.model_forward(cfg, weights, imgs)
     t0 = time.perf_counter()
-    M.encrypted_inference_fast(setup, weights, imgs, gen)
+    M.encrypted_inference_fast(setup, weights, imgs, gen, eager=True)
     sync(dev)
     log(f"build (layers, {cfg.channels * cfg.positions + cfg.positions} diagonal encodings) + "
         f"first batch: {time.perf_counter() - t0:.2f} s (host clock)")
 
     reset_launches()
     logits = M.encrypted_inference_fast(                                  # the main path
-        setup, weights, imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)).T
+        setup, weights, imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED),
+        eager=True).T
     sync(dev)
     launches = read_launches()
     transforms = dict(ntt_cuda.transforms)
@@ -1602,7 +1622,7 @@ def phase_bsgs_pipeline(dev, smi, base):
     log(f"keygen_matmul_bsgs: {len(gks.keys)} keys, {key_mb:.1f} MiB as int64, "
         f"{time.perf_counter() - t0:.2f} s (host clock)")
     t0 = time.perf_counter()
-    M.encrypted_inference_fast(setup, weights, imgs, gen, gks_bsgs=gks)
+    M.encrypted_inference_fast(setup, weights, imgs, gen, gks_bsgs=gks, eager=True)
     sync(dev)
     log(f"build (layers, diagonal encodings) + first batch: {time.perf_counter() - t0:.2f} s "
         f"(host clock)")
@@ -1612,7 +1632,7 @@ def phase_bsgs_pipeline(dev, smi, base):
     reset_launches()
     logits = M.encrypted_inference_fast(                                  # the main path
         setup, weights, imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED),
-        gks_bsgs=gks).T
+        gks_bsgs=gks, eager=True).T
     sync(dev)
     launches, counts = read_launches(), dict(rlwe.hoist_counts)
     transforms = dict(ntt_cuda.transforms)
@@ -1921,7 +1941,9 @@ def phase_boot_mnist(dev, smi, boot):
     mem = lambda: torch.cuda.memory_allocated(dev) if torch.device(dev).type == "cuda" else 0
     mem0 = mem()
     t0 = time.perf_counter()
-    run = M.build_bootstrapped_pipeline(setup, ctx, weights, prescale=M.BOOTSTRAPPED_PRESCALE)
+    compiled = M.build_bootstrapped_pipeline(setup, ctx, weights,
+                                             prescale=M.BOOTSTRAPPED_PRESCALE)
+    run = compiled.eager                  # this phase runs the stages eagerly; phase 40 replays
     sync(dev)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1975,7 +1997,8 @@ def phase_boot_mnist(dev, smi, boot):
         ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f" [{smi}]")
     return dict(launches=launches, transforms=transforms, err=err, depth_out=depth_out,
                 ms=ms, cold_ms=cold_ms, build_s=build_s, stages=stages, built=built,
-                agree=int(agree.sum()), clear=int(clear.sum()))
+                agree=int(agree.sum()), clear=int(clear.sum()), run=compiled,
+                weights=weights, imgs=imgs, plain=plain)
 
 
 # ---------------------------------------------------------------------------
@@ -2526,7 +2549,7 @@ def phase_serialization(dev, smi, base, bsgs):
 
     # the BSGS pipeline does not use the iterated schedule's Galois key
     setup2 = M.FHESetup(cfg, params, kp2, ek2, None, setup.scale)
-    run2 = M.build_inference_pipeline(setup2, base["weights"], gks2)
+    run2 = M.build_inference_pipeline(setup2, base["weights"], gks2, eager=True)
     enc = lambda: torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
     sync(dev)
     reset_launches()
@@ -2604,12 +2627,12 @@ def phase_training(dev, smi, base, bsgs, seed):
     n = min(len(imgs), 2048)
     held = imgs[(n * 4) // 5:n][:cfg.batch]
     plain = M.model_forward(cfg, trained, held)
-    M.encrypted_inference_fast(setup, trained, held, gen, gks_bsgs=gks)     # build
+    M.encrypted_inference_fast(setup, trained, held, gen, gks_bsgs=gks, eager=True)  # build
     sync(dev)
     reset_launches()
     logits = M.encrypted_inference_fast(                                  # the main path
         setup, trained, held, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED),
-        gks_bsgs=gks).T
+        gks_bsgs=gks, eager=True).T
     sync(dev)
     launches = read_launches()
     if logits.shape != (cfg.batch, cfg.classes) or not np.all(np.isfinite(logits)):
@@ -2680,7 +2703,7 @@ def sharded_step_case(mesh, dev, n_rp, n_dp) -> dict:
     on_device = block.device == mesh.device == out.device
     got = S.unshard(out, pops.DATA_SPEC, mesh)
     want = pops.make_single_chip_step(ring.tables, torch.as_tensor(km, device=dev),
-                                      torch.as_tensor(kd, device=dev))(
+                                      torch.as_tensor(kd, device=dev), eager=True)(
         torch.as_tensor(batch, device=dev))
     model = D.sharded_step_comm_model(SHARD_N, L, n_rp, SHARD_B // n_dp)
     return {"equal": bool(torch.equal(got, want)), "dropped_zero": bool((got[:, :, -1] == 0).all()),
@@ -2709,7 +2732,7 @@ def hybrid_sharded_case(mesh, dev, n_rp, fused_schedule) -> dict:
     on_device = block.device == mesh.device == out.device
     got = S.unshard(out, (None, None, "rp", None), mesh)
     single, splace = pops.make_hybrid_sharded_step(None, params, ek, ct_ring=ring,
-                                                   fused_schedule=fused_schedule)
+                                                   fused_schedule=fused_schedule, eager=True)
     want = single(splace(batch))
     model = D.sharded_step_comm_model(SHARD_N, ring.nlimbs, n_rp, SHARD_B,
                                       ncomp=4 if fused_schedule else 2)
@@ -2742,7 +2765,7 @@ def two_axis_case(mesh, dev, n_rp, n_cp) -> dict:
     nat = torch.zeros_like(got)
     nat[..., torch.as_tensor(out_nat, device=got.device)] = got
     want = pops.make_single_chip_step(ring.tables, torch.as_tensor(km, device=dev),
-                                      torch.as_tensor(kd, device=dev))(
+                                      torch.as_tensor(kd, device=dev), eager=True)(
         torch.as_tensor(batch, device=dev))
     model = D.step2axis_comm_model(SHARD_N, L, n_rp, n_cp, SHARD_2AXIS_B)
     return {"equal": bool(torch.equal(nat, want)), "counter_is_model": _counts_match(counts, model),
@@ -2851,7 +2874,8 @@ def phase_sharded_one_rank(dev):
     cfg = M.MNISTConfig(image=8, kernel=4, stride=4, channels=2, classes=4, ring_logn=6)
     setup, gks, weights, imgs = sharded_pipeline_setup(dev, cfg)
     gen = lambda: torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
-    want = M.build_inference_pipeline(setup, weights, gks)(imgs, gen(), _return_ct=True)
+    want = M.build_inference_pipeline(setup, weights, gks, eager=True)(imgs, gen(),
+                                                                     _return_ct=True)
     got = M.build_inference_pipeline(setup, weights, gks, mesh=one)(imgs, gen(), _return_ct=True)
     rows["pipeline_tiny"] = {"equal": all(torch.equal(a.dual, b.dual)
                                           for a, b in zip(got.cs, want.cs)),
@@ -2876,7 +2900,7 @@ def phase_sharded_ranks(dev, smi, cfg=None):
     log(f"== phase 37 (its single-device side, in this process): MNISTConfig() with BSGS + dual "
         f"flow on keys from seed {SHARD_PIPE_SEED}")
     setup, gks, weights, imgs = sharded_pipeline_setup(dev, cfg)
-    ct = M.build_inference_pipeline(setup, weights, gks)(
+    ct = M.build_inference_pipeline(setup, weights, gks, eager=True)(
         imgs, torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED), _return_ct=True)
     want = [x.dual.cpu().numpy() for x in ct.cs]
     logits = M.decrypt(setup.kp, ct).real.reshape(cfg.positions, cfg.batch)[:cfg.classes].T
@@ -3194,6 +3218,552 @@ def phase_boot_sharded(dev, smi, boot, cfg=None, small_logn: int = BOOT_SMALL_LO
 
 
 # ---------------------------------------------------------------------------
+# phase 40: the compiled front-end (CUDA graphs of the reference's jit units)
+# ---------------------------------------------------------------------------
+
+COMPILED_PAIRS = 5          # interleaved (eager, replay) pairs a path is timed over
+COMPILED_BIG_PAIRS = 3      # for the refresh and the pipelines
+COMPILED_SEED = 40
+# a fresh encryption's decoded slot against the preprocessed image, at the
+# serving scale 2^28 and N=2^13: measured at most 1.5e-3 on the H100 (two
+# encryptions of a batch); the limit leaves about three times that
+ENC_DECODE_ATOL = 5e-3
+
+
+def _leaves(out) -> list:
+    from torch.utils import _pytree as pytree
+    return [x for x in pytree.tree_leaves(out) if isinstance(x, torch.Tensor)]
+
+
+def _bit_equal(a, b) -> bool:
+    """Same pytree of tensors, every leaf equal (the metadata compared by
+    the caller)."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _all_counts() -> list:
+    from toyfhe_tpu_torch.utils import graphs
+    return [dict(c) for c in graphs.counters()]
+
+
+def _zero_counts() -> None:
+    from toyfhe_tpu_torch.utils import graphs
+    for c in graphs.counters():
+        for k in list(c):
+            c[k] = 0
+
+
+def _census_of(fn) -> list:
+    """Every call-time counter's increments over one call of ``fn``."""
+    _zero_counts()
+    fn()
+    return [{k: v for k, v in c.items() if v} for c in _all_counts()]
+
+
+def _kernel_census(census: list) -> dict:
+    """The kernels' part of a census (:func:`_census_of`), keyed as
+    ``profile_mnist.kernel_launches`` keys a trace: K1 by direction, K3,
+    K5, K6."""
+    k1, k3, k5, k6 = census[0], census[2], census[3], census[5]
+    out = {**{d: k1[d] for d in ("fwd", "inv") if k1.get(d)},
+           **{k: c[k] for k, c in (("k3", k3), ("k5", k5), ("k6", k6)) if c.get(k)}}
+    return out
+
+
+# the kernels of the compiled paths, by the names ``libcuda`` gives them
+# (mangled) or a tracer gives them (demangled); K1's direction is its
+# kInverse template argument
+_K1_DIRECTION = (re.compile(r"ntt_cluster_kernel<\s*\d+\s*,\s*(true|false)"),
+                 re.compile(r"ntt_radix2_kernel<\s*(true|false)"),
+                 re.compile(r"ntt_cluster_kernelILi\d+ELb([01])"),
+                 re.compile(r"ntt_radix2_kernelILb([01])"))
+_K1 = re.compile(r"(?<![A-Za-z_])ntt_(cluster|radix2)_kernel")
+_KERNEL_NAMES = (("k3", re.compile(r"(?<![A-Za-z_])hybrid_ks_(cluster|loop)_kernel")),
+                 ("k5", re.compile(r"(?<![A-Za-z_])ntt_bitrev_radix2?_kernel")),
+                 ("k6", re.compile(r"(?<![A-Za-z_])keyswitch_(cluster|loop)_kernel")))
+
+
+def kernel_of(name: str):
+    """``"fwd"`` / ``"inv"`` for K1, ``"k3"``, ``"k5"``, ``"k6"``, or None;
+    ``"k1?"`` for a K1 whose direction the name does not show."""
+    if _K1.search(name):
+        for pat in _K1_DIRECTION:
+            m = pat.search(name)
+            if m:
+                return "inv" if m.group(1) in ("true", "1") else "fwd"
+        return "k1?"
+    for key, pat in _KERNEL_NAMES:
+        if pat.search(name):
+            return key
+    return None
+
+
+def _pool_of(compiled):
+    """The graph pool of a compiled function, layer or pipeline (None for an
+    eager one)."""
+    pool = getattr(compiled, "pool", None)
+    return pool if pool is not None else getattr(getattr(compiled, "_compiled", None), "pool", None)
+
+
+def _replay_census(dev, fn, pool):
+    """One call of ``fn`` with every counter at 0 before it: the counters'
+    increments (for a compiled path, the capture's deltas that
+    :mod:`graphs` adds at each replay) and, on the card, the kernels that
+    the call's replays launched. Each graph of ``pool`` replayed during the
+    call adds its kernel nodes once a replay, read from the captured graph
+    through ``libcuda`` and counted by name (None off the card)."""
+    if torch.device(dev).type != "cuda":
+        return _census_of(fn), None
+    if pool is None:
+        raise AssertionError("a compiled path without a graph pool on the card")
+    before = [(g, g.replays) for g in pool.graphs]
+    census = _census_of(fn)
+    if len(pool.graphs) != len(before):
+        raise AssertionError("the call captured a new graph")
+    launched = collections.Counter()
+    for g, replays in before:
+        for name in g.kernel_names():
+            key = kernel_of(name)
+            if key is not None:
+                launched[key] += g.replays - replays
+    return census, {k: v for k, v in launched.items() if v}
+
+
+def _census_line(ce, cc, launched) -> str:
+    want = _kernel_census(ce)
+    return (f"replayed deltas == eager census {ce == cc}, kernel nodes of the replayed "
+            f"graphs {launched if launched is not None else '(no graphs off the card)'} == eager "
+            f"{want} {launched is None or launched == want}")
+
+
+def timed_pair(dev, fn_a, fn_b, pairs: int) -> dict:
+    """Interleaved pairs (a, b, then b, a, ...): each call's device time
+    between CUDA events and its host time with the device synchronised
+    before and after; the medians, ms."""
+    out = {"a": {"event": [], "host": []}, "b": {"event": [], "host": []}}
+    cuda = torch.device(dev).type == "cuda"
+    for i in range(pairs):
+        for name in (("a", "b") if i % 2 == 0 else ("b", "a")):
+            fn = fn_a if name == "a" else fn_b
+            sync(dev)
+            t0 = time.perf_counter()
+            if cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            fn()
+            if cuda:
+                end.record()
+            sync(dev)
+            out[name]["host"].append((time.perf_counter() - t0) * 1e3)
+            out[name]["event"].append(start.elapsed_time(end) if cuda else float("nan"))
+    return {k: {m: float(np.median(v)) for m, v in d.items()} for k, d in out.items()}
+
+
+@contextlib.contextmanager
+def sync_errors(dev):
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block (on the card)."""
+    if torch.device(dev).type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def check_compiled(dev, smi, name, eager, compiled, args1, args2, pairs=COMPILED_PAIRS,
+                   time_it=True) -> dict:
+    """One compiled path against its eager twin: the first call (warm-up,
+    capture, replay), replays of two inputs bit-equal to the eager calls
+    under the sync check, a result kept across the next replay unchanged,
+    the census of a replay equal to an eager call's, the interleaved
+    times, capture + instantiate ms and the pool MiB."""
+    pool = _pool_of(compiled)
+    ncap = len(pool.captures) if pool is not None else 0
+    sync(dev)
+    t0 = time.perf_counter()
+    compiled(*args1)
+    sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pool = _pool_of(compiled)                   # a layer makes its graphs at the first call
+    want1, want2 = eager(*args1), eager(*args2)
+    with sync_errors(dev):
+        got1 = compiled(*args1)
+        kept = [x.clone() for x in _leaves(got1)]
+        got2 = compiled(*args2)
+    sync(dev)
+    equal = _bit_equal(got1, want1) and _bit_equal(got2, want2)
+    intact = all(torch.equal(a, b) for a, b in zip(kept, _leaves(got1)))
+    ce = _census_of(lambda: eager(*args1))
+    cc, launched = _replay_census(dev, lambda: compiled(*args1), pool)
+    rep = dict(name=name, equal=equal, intact=intact, census_equal=ce == cc,
+               launched=launched,
+               launched_equal=launched is None or launched == _kernel_census(ce),
+               census=ce[0], k3=ce[2], k5=ce[3], k6=ce[5], hoist=ce[7], first_ms=first_ms)
+    if pool is not None:
+        caps = pool.captures[ncap:]
+        rep.update(capture_ms=sum(c["capture_ms"] for c in caps),
+                   instantiate_ms=sum(c["instantiate_ms"] for c in caps),
+                   graphs=len(caps), pool_mib=pool.mib())
+    if time_it:
+        t = timed_pair(dev, lambda: eager(*args1), lambda: compiled(*args1), pairs)
+        rep.update(eager_ms=t["a"], replay_ms=t["b"])
+    ok = equal and intact and rep["census_equal"] and rep["launched_equal"]
+    log(f"  {name}: replay == eager {equal}, kept result intact {intact}, "
+        + _census_line(ce, cc, launched) + (f", hoist {ce[7]}" if ce[7] else "")
+        + (f"; eager {rep['eager_ms']['event']:.3f} / {rep['eager_ms']['host']:.3f} ms, "
+           f"replay {rep['replay_ms']['event']:.3f} / {rep['replay_ms']['host']:.3f} ms "
+           f"(events / host, median of {pairs} pairs)" if time_it else "")
+        + (f"; first call {first_ms:.1f} ms, {rep['graphs']} graph(s): capture "
+           f"{rep['capture_ms']:.1f} ms + instantiate {rep['instantiate_ms']:.1f} ms, pool "
+           f"{rep['pool_mib']:.1f} MiB" if pool is not None else "") + f" [{smi}]")
+    if not ok:
+        raise AssertionError(f"compiled {name}: {rep}")
+    return rep
+
+
+def _serving_fixture(dev, cfg):
+    from toyfhe_tpu_torch.models import mnist as M
+    gen = torch.Generator(device=dev).manual_seed(17)
+    setup = M.fhe_setup(cfg, gen)
+    weights = M.init_params(cfg, 17)
+    imgs = np.random.default_rng(17).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
+    return dict(cfg=cfg, setup=setup, weights=weights, imgs=imgs, gen=gen,
+                plain=M.model_forward(cfg, weights, imgs)), M.keygen_matmul_bsgs(setup, gen)
+
+
+def _kpath_fixture(dev, n):
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.parallel import layers as TL
+    params = modraise_params(n, K6_TOWER, K6_WINDOW)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    kp = T.keygen(params, gen)
+    gk = T.keygen_galois(gen, kp.priv, steps=K6_STEPS)
+    ring = params.ring_cipher
+    c = T.encrypt(kp, T.make_plaintext(ring, np.linspace(0.1, 1.0, n // 2), Fraction(2) ** 40),
+                  gen)
+    g = T.apply_galois_ct(c, gk.galois_element)
+    c1p, c2p = (T.ringops.ensure_primal(ring, x).primal for x in g.cs)
+    ka = TL.build_modraise_key_arrays(params, gk.key)
+    return dict(ka=ka, fk=TL.build_fused_keyswitch(ka), c1p=c1p, c2p=c2p)
+
+
+def phase_compiled(dev, smi, pipe=None, bsgs=None, boot=None, bmn=None, kpath=None,
+                   cfg=None, hybrid_n=HYBRID_N) -> dict:
+    """Phase 40: every reference ``jit`` unit on the serving path, compiled
+    (``utils.graphs.jit``: one CUDA graph, replayed) against the same call
+    eager, at full width: (a) the single-device step, (b) the hybrid steps
+    and the fused step (K3), (c) the five layers, (d) both MNIST serving
+    schedules, stage by stage, (e) the whole refresh, the batched refresh
+    and the bootstrapped pipeline (exhaust and the refresh's three phases
+    among its stages), (f) the windowed rotation (K5 + K6). The fixtures of
+    earlier phases are reused when given."""
+    import functools
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.core.ckks_encoding import CKKSTag
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.parallel import layers as TL, ops as pops
+    from toyfhe_tpu_torch.tools.profile_mnist import profile_batch
+    from toyfhe_tpu_torch.utils import graphs
+
+    t_phase = time.perf_counter()
+    cfg = M.MNISTConfig() if cfg is None else cfg
+    log(f"== phase 40: the compiled front-end: each reference jit unit as a CUDA graph against "
+        f"the same call eager (N=2^{cfg.ring_logn})")
+    gen = torch.Generator(device=dev).manual_seed(COMPILED_SEED)
+    rows = {}
+
+    # ---- (a) the single-device step ----
+    ring = T.make_rns_ring(hybrid_n, (28,) * 7)
+    km, kd = (random_residues(ring.primes, (ring.nlimbs,), ring.n, gen, dev) for _ in range(2))
+    x1, x2 = (random_residues(ring.primes, (HYBRID_B, 2), ring.n, gen, dev) for _ in range(2))
+    rows["a_single_chip_step"] = check_compiled(
+        dev, smi, f"(a) make_single_chip_step, 7 x {hybrid_n}, batch {HYBRID_B}",
+        pops.make_single_chip_step(ring.tables, km, kd, eager=True),
+        pops.make_single_chip_step(ring.tables, km, kd), (x1,), (x2,))
+
+    # ---- (b) the hybrid steps at the serving gadget ----
+    _, tower, dnum, k, lc = HYBRID_CONFIGS[0]
+    params = hybrid_params(hybrid_n, tower, dnum, k)
+    ek = synthetic_eval_key(params, 40, dev)
+    hr = params.ring_cipher
+    x1, x2 = (random_residues(hr.primes, (HYBRID_B, 2), hr.n, gen, dev) for _ in range(2))
+    for fl, kw in (("v1", {}), ("fused_k3", dict(fused=True)),
+                   ("fused_schedule", dict(fused_schedule=True))):
+        rows[f"b_{fl}"] = check_compiled(
+            dev, smi, f"(b) hybrid step {fl}, HybridRaised({dnum}, {k}), {lc} x {hybrid_n}, "
+                      f"batch {HYBRID_B}",
+            pops.make_hybrid_sharded_step(None, params, ek, eager=True, **kw)[0],
+            pops.make_hybrid_sharded_step(None, params, ek, **kw)[0], (x1,), (x2,))
+    if rows["b_fused_k3"]["k3"] != {"k3": 1}:
+        raise AssertionError(f"the compiled fused step did not reach K3: {rows['b_fused_k3']}")
+
+    # ---- (c) the layers at the serving pipeline's levels ----
+    if pipe is None:
+        pipe, gks = _serving_fixture(dev, cfg)
+    else:
+        gks = bsgs["gks"]
+    setup = pipe["setup"]
+    sp = setup.params
+    r0 = sp.ring_cipher
+    r1, d = r0.drop_last(), cfg.positions
+    r2 = r1.drop_last()
+    runs = {"iterated": M.build_inference_pipeline(setup, pipe["weights"]),
+            "bsgs_dual_flow": M.build_inference_pipeline(setup, pipe["weights"], gks)}
+    pts = runs["iterated"].encode(pipe["imgs"])
+    enc_e = TL.BatchEncryptor(sp, setup.kp.pub, eager=True)
+    enc_c = TL.BatchEncryptor(sp, setup.kp.pub)
+    seeded = lambda s: torch.Generator(device=dev).manual_seed(s)
+    enc_c(pts, seeded(400))                                  # warm-up + capture
+    pool_c = enc_c._compiled.pool
+    ncap, mib = len(pool_c.captures), pool_c.mib()
+    g_c, g_e = seeded(401), seeded(401)                      # fresh: never seen by the graph
+    with sync_errors(dev):
+        e1 = enc_c(pts, g_c)
+        e2 = enc_c(pts, g_c)
+    fresh = not torch.equal(e1, e2)
+    same_seed = (torch.equal(e1, enc_e(pts, g_e)) and torch.equal(e2, enc_e(pts, g_e))
+                 and torch.equal(g_c.get_state(), g_e.get_state()))
+    one_graph = len(pool_c.captures) == ncap and pool_c.mib() == mib
+    dec = []
+    for e in (e1, e2):
+        ct = T.CipherText(sp, (T.RingElt(dual=e[0, 0]), T.RingElt(dual=e[0, 1])), r0,
+                          enc=CKKSTag(setup.scale))
+        dec.append(T.decrypt(setup.kp, ct).real)
+    want0 = M.public_preprocess(cfg, pipe["imgs"])[0, 0]
+    enc_err = max(float(np.max(np.abs(v - want0))) for v in dec)
+    ce = _census_of(lambda: enc_e(pts, g_c))
+    cc, launched = _replay_census(dev, lambda: enc_c(pts, g_c), pool_c)
+    t = timed_pair(dev, lambda: enc_e(pts, g_c), lambda: enc_c(pts, g_c), COMPILED_PAIRS)
+    cap = (pool_c.captures or [dict(capture_ms=0.0, instantiate_ms=0.0)])[0]
+    rows["c_encrypt"] = dict(fresh=fresh, equal_seeded=same_seed, one_graph=one_graph,
+                             decode_err=enc_err, census_equal=ce == cc, census=ce[0],
+                             launched=launched,
+                             launched_equal=launched is None or launched == _kernel_census(ce),
+                             eager_ms=t["a"], replay_ms=t["b"],
+                             capture_ms=cap["capture_ms"], instantiate_ms=cap["instantiate_ms"],
+                             pool_mib=pool_c.mib())
+    log(f"  (c) BatchEncryptor, {pts.shape[0]} ciphertexts: two replays on one generator "
+        f"differ {fresh}; on a fresh generator, both == the eager calls on the same seed and "
+        f"the generator advanced alike {same_seed}; no new capture and the pool unchanged "
+        f"{one_graph}; both decrypt (max abs error {enc_err:.3e}, limit {ENC_DECODE_ATOL}); "
+        + _census_line(ce, cc, launched) + "; "
+        f"eager {t['a']['event']:.3f} / {t['a']['host']:.3f} ms, replay {t['b']['event']:.3f} / "
+        f"{t['b']['host']:.3f} ms; capture {rows['c_encrypt']['capture_ms']:.1f} + instantiate "
+        f"{rows['c_encrypt']['instantiate_ms']:.1f} ms, pool {rows['c_encrypt']['pool_mib']:.1f} "
+        f"MiB [{smi}]")
+    r = rows["c_encrypt"]
+    if not (fresh and same_seed and one_graph and enc_err < ENC_DECODE_ATOL
+            and r["census_equal"] and r["launched_equal"]):
+        raise AssertionError(f"compiled BatchEncryptor: {rows['c_encrypt']}")
+    cts = enc_e(pts, seeded(402))
+    cts2 = enc_e(pts, seeded(403))
+    wq = random_residues(r0.primes, (cfg.channels, cts.shape[0]), 1, gen, dev)
+    bias = random_residues(r0.primes, (cfg.channels,), r0.n, gen, dev)
+    layers = {
+        "conv": (TL.ConvLayer(sp, r0, cfg.channels, eager=True).to(dev),
+                 TL.ConvLayer(sp, r0, cfg.channels).to(dev), (cts, wq, bias), (cts2, wq, bias)),
+    }
+    co1, co2 = layers["conv"][0](cts, wq, bias), layers["conv"][0](cts2, wq, bias)
+    sq_e, sq_c = TL.SquareRelinLayer(sp, setup.ek, r1, eager=True), TL.SquareRelinLayer(
+        sp, setup.ek, r1)
+    layers["square"] = (sq_e, sq_c, (co1[:, 0], co1[:, 1]), (co2[:, 0], co2[:, 1]))
+    o1, o2 = sq_e(co1[:, 0], co1[:, 1])
+    diag = random_residues(r2.primes, (d,), r2.n, gen, dev)
+    layers["rotate_matmul"] = (
+        TL.RotateMatmulLayer(sp, setup.gk, setup.gk.galois_element, d, r2, eager=True),
+        TL.RotateMatmulLayer(sp, setup.gk, setup.gk.galois_element, d, r2),
+        (o1[0], o2[0], diag), (o1[1], o2[1], diag))
+    layers["bias_rescale"] = (TL.BiasRescaleLayer(r2, eager=True).to(dev),
+                              TL.BiasRescaleLayer(r2).to(dev), (o1[0], o2[0], diag[0]),
+                              (o1[1], o2[1], diag[1]))
+    for nm, (le, lc_, a1, a2) in layers.items():
+        rows[f"c_{nm}"] = check_compiled(dev, smi, f"(c) {type(le).__name__}", le, lc_, a1, a2)
+
+    # ---- (d) the serving pipelines, stage by stage ----
+    for sched, run_c in runs.items():
+        run_e = run_c.eager
+        g_c = seeded(PIPE_ENC_SEED + 1)
+        sync(dev)
+        t0 = time.perf_counter()
+        run_c.forward(pts, g_c)
+        sync(dev)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ncap, mib = len(run_c.pool.captures), run_c.pool.mib()
+        with sync_errors(dev):
+            got = run_c.forward(pts, seeded(PIPE_ENC_SEED))      # a fresh generator
+            kept = [x.dual.clone() for x in got.cs]
+            run_c.forward(pts, seeded(PIPE_ENC_SEED + 2))
+        want = run_e.forward(pts, seeded(PIPE_ENC_SEED))
+        equal = all(torch.equal(a.dual, b.dual) for a, b in zip(got.cs, want.cs)) and \
+            got.enc == want.enc and got.ring is want.ring
+        intact = all(torch.equal(a, x.dual) for a, x in zip(kept, got.cs))
+        one_graph = len(run_c.pool.captures) == ncap and run_c.pool.mib() == mib
+        ce = _census_of(lambda: run_e.forward(pts, g_c))
+        cc, launched = _replay_census(dev, lambda: run_c.forward(pts, g_c), run_c.pool)
+        logits = T.decrypt(setup.kp, got).real.reshape(cfg.positions, cfg.batch)[:cfg.classes].T
+        err = float(np.max(np.abs(logits - pipe["plain"])))
+        t = timed_pair(dev, lambda: run_e.forward(pts, g_c), lambda: run_c.forward(pts, g_c),
+                       COMPILED_BIG_PAIRS)
+        stages = {"eager": [], "compiled": []}
+        for i in range(COMPILED_BIG_PAIRS):
+            for which, run in (("eager", run_e), ("compiled", run_c))[::1 if i % 2 == 0 else -1]:
+                lt = {}
+                run(pipe["imgs"], g_c, layer_times=lt)
+                stages[which].append(lt)
+        stages = {w: {k: float(np.median([lt[k] for lt in v])) for k in v[0]}
+                  for w, v in stages.items()}
+        caps = run_c.pool.captures
+        rows[f"d_{sched}"] = dict(
+            equal=equal, intact=intact, one_graph=one_graph, census_equal=ce == cc,
+            census=ce[0], launched=launched,
+            launched_equal=launched is None or launched == _kernel_census(ce), hoist=ce[7],
+            logit_err=err, first_ms=first_ms, eager_ms=t["a"], replay_ms=t["b"],
+            capture_ms=sum(c["capture_ms"] for c in caps),
+            instantiate_ms=sum(c["instantiate_ms"] for c in caps), graphs=len(caps),
+            pool_mib=run_c.pool.mib(), stages=stages)
+        r = rows[f"d_{sched}"]
+        log(f"  (d) MNIST {sched}: logits ciphertext replay on a fresh generator == eager "
+            f"{equal}, kept intact {intact}, fresh generators capture nothing new and leave "
+            f"the pool as it was {one_graph}, " + _census_line(ce, cc, launched)
+            + (f", hoist {ce[7]}" if ce[7] else "") + f", logit error {err:.3e} (limit 0.5); "
+            f"encrypt..dense2 eager {t['a']['event']:.2f} / {t['a']['host']:.2f} ms, replay "
+            f"{t['b']['event']:.2f} / {t['b']['host']:.2f} ms (events / host, median of "
+            f"{COMPILED_BIG_PAIRS} pairs); first call {first_ms:.1f} ms, {len(caps)} graphs: "
+            f"capture {r['capture_ms']:.1f} + instantiate {r['instantiate_ms']:.1f} ms, pool "
+            f"{r['pool_mib']:.1f} MiB [{smi}]")
+        log("      per stage, eager / compiled (median ms of the whole batch, synchronised "
+            "between stages): " + ", ".join(f"{k} {v:.2f} / {stages['compiled'][k]:.2f}"
+                                            for k, v in stages["eager"].items()))
+        if not (equal and intact and one_graph and r["census_equal"] and r["launched_equal"]
+                and err < 0.5):
+            raise AssertionError(f"compiled MNIST {sched}: {r}")
+        if sched == "bsgs_dual_flow" and torch.device(dev).type == "cuda":
+            prof = profile_batch(run_c, pipe["imgs"], g_c, dev)
+            r["profile"] = prof
+            log(f"      one replayed batch under torch.profiler: {prof['wall_ms']:.1f} ms, "
+                f"{prof['kernels']} device kernels, busy {prof['busy_ms']:.2f} ms, idle "
+                f"{100 - 100 * prof['busy_ms'] / prof['wall_ms']:.1f}%")
+
+    # ---- (e) the refresh and the bootstrapped pipeline ----
+    if boot is None:
+        bgen, bsetup, ctx = boot_full_keys(dev, cfg)
+    else:
+        bgen, bsetup, ctx = boot["gen"], boot["setup"], boot["ctx"]
+    bcfg = bsetup.cfg
+    vals = boot_vals(1 << (bcfg.ring_logn - 1), COMPILED_SEED)
+    c1 = boot_exhausted(bsetup.params, bsetup.kp, vals, bgen)
+    c2 = boot_exhausted(bsetup.params, bsetup.kp, boot_vals(1 << (bcfg.ring_logn - 1),
+                                                             COMPILED_SEED + 1), bgen)
+    refresh_e = functools.partial(B.bootstrap, ctx)
+    refresh_c = graphs.jit(refresh_e, name="bootstrap")
+    if not ctx.plain_cache:
+        B.bootstrap(ctx, c1)                                 # the context's plain cache
+    rows["e_refresh"] = check_compiled(dev, smi, "(e) bootstrap, the whole refresh", refresh_e,
+                                       refresh_c, (c1,), (c2,), pairs=COMPILED_BIG_PAIRS)
+    rows["e_refresh"]["err"] = float(np.max(np.abs(T.decrypt(bsetup.kp, refresh_c(c1)) - vals)))
+    both = T.ct_stack([c1, c2])
+    rows["e_batched"] = check_compiled(
+        dev, smi, "(e) bootstrap_batched on 2", functools.partial(B.bootstrap_batched, ctx),
+        graphs.jit(functools.partial(B.bootstrap_batched, ctx), name="bootstrap_batched"),
+        (both,), (T.ct_stack([c2, c1]),), pairs=2)
+    if torch.device(dev).type == "cuda":
+        prof = profile_batch(lambda *_: refresh_c(c1), None, None, dev)
+        rows["e_refresh"]["profile"] = prof
+        log(f"      one replayed refresh under torch.profiler: {prof['wall_ms']:.1f} ms, "
+            f"{prof['kernels']} device kernels, busy {prof['busy_ms']:.2f} ms, idle "
+            f"{100 - 100 * prof['busy_ms'] / prof['wall_ms']:.1f}%")
+    if bmn is None:
+        bweights = M.init_params(bcfg, 27)
+        bimgs = np.random.default_rng(27).uniform(0.0, 1.0, (bcfg.batch, bcfg.image, bcfg.image))
+        brun_c = M.build_bootstrapped_pipeline(bsetup, ctx, bweights,
+                                               prescale=M.BOOTSTRAPPED_PRESCALE)
+    else:
+        bweights, bimgs, brun_c = bmn["weights"], bmn["imgs"], bmn["run"]
+    brun_e = brun_c.eager
+    bpts = brun_e.encode(bimgs)
+    g_c = seeded(PIPE_ENC_SEED + 1)
+    brun_e.forward(bpts, g_c)                                # dense 2, built lazily
+    sync(dev)
+    t0 = time.perf_counter()
+    brun_c.forward(bpts, g_c)
+    sync(dev)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ncap, mib = len(brun_c.pool.captures), brun_c.pool.mib()
+    with sync_errors(dev):
+        got = brun_c.forward(bpts, seeded(PIPE_ENC_SEED))    # a fresh generator
+        kept = [x.dual.clone() for x in got.cs]
+        brun_c.forward(bpts, seeded(PIPE_ENC_SEED + 2))
+    want = brun_e.forward(bpts, seeded(PIPE_ENC_SEED))
+    equal = all(torch.equal(a.dual, b.dual) for a, b in zip(got.cs, want.cs)) and \
+        got.enc == want.enc and got.ring is want.ring
+    intact = all(torch.equal(a, x.dual) for a, x in zip(kept, got.cs))
+    one_graph = len(brun_c.pool.captures) == ncap and brun_c.pool.mib() == mib
+    ce = _census_of(lambda: brun_e.forward(bpts, g_c))
+    cc, launched = _replay_census(dev, lambda: brun_c.forward(bpts, g_c), brun_c.pool)
+    logits = M._decrypt_logits(bsetup, got).T
+    err = float(np.max(np.abs(logits - M.model_forward(bcfg, bweights, bimgs))))
+    t = timed_pair(dev, lambda: brun_e.forward(bpts, g_c), lambda: brun_c.forward(bpts, g_c),
+                   COMPILED_BIG_PAIRS)
+    stages = {"eager": [], "compiled": []}
+    for i in range(2):
+        for which, run in (("eager", brun_e), ("compiled", brun_c))[::1 if i % 2 == 0 else -1]:
+            lt = {}
+            run(bimgs, g_c, layer_times=lt)
+            stages[which].append(lt)
+    stages = {w: {k: float(np.median([lt[k] for lt in v])) for k in v[0]}
+              for w, v in stages.items()}
+    caps = brun_c.pool.captures
+    by_stage = {c["name"]: (c["capture_ms"], c["instantiate_ms"]) for c in caps}
+    rows["e_bootstrapped"] = dict(
+        equal=equal, intact=intact, one_graph=one_graph, census_equal=ce == cc, census=ce[0],
+        launched=launched,
+        launched_equal=launched is None or launched == _kernel_census(ce),
+        logit_err=err,
+        depth_out=got.ring.nlimbs, first_ms=first_ms, eager_ms=t["a"], replay_ms=t["b"],
+        capture_ms=sum(c["capture_ms"] for c in caps),
+        instantiate_ms=sum(c["instantiate_ms"] for c in caps), graphs=len(caps),
+        by_stage=by_stage, stages=stages, pool_mib=brun_c.pool.mib())
+    r = rows["e_bootstrapped"]
+    log(f"  (e) bootstrapped MNIST: logits ciphertext replay on a fresh generator == eager "
+        f"{equal}, kept intact {intact}, fresh generators capture nothing new and leave the "
+        f"pool as it was {one_graph}, " + _census_line(ce, cc, launched)
+        + f", depth_out {got.ring.nlimbs}, "
+        f"logit error {err:.3e} (limit 5e-2); encrypt..dense2 eager {t['a']['event']:.1f} / "
+        f"{t['a']['host']:.1f} ms, replay {t['b']['event']:.1f} / {t['b']['host']:.1f} ms "
+        f"(events / host, median of {COMPILED_BIG_PAIRS} pairs); first call {first_ms:.1f} ms, "
+        f"{len(caps)} graphs: capture {r['capture_ms']:.1f} + instantiate "
+        f"{r['instantiate_ms']:.1f} ms, pool {r['pool_mib']:.1f} MiB [{smi}]")
+    log("      capture + instantiate ms by stage: " + ", ".join(
+        f"{k} {a:.1f} + {b:.1f}" for k, (a, b) in by_stage.items()))
+    log("      per stage, eager / compiled (median ms of 2 batches, synchronised between "
+        "stages): " + ", ".join(f"{k} {v:.2f} / {stages['compiled'][k]:.2f}"
+                                for k, v in stages["eager"].items()))
+    if not (equal and intact and one_graph and r["census_equal"] and r["launched_equal"]
+            and err < 5e-2 and got.ring.nlimbs >= 13):
+        raise AssertionError(f"compiled bootstrapped MNIST: {r}")
+
+    # ---- (f) the windowed rotation through K5 + K6 ----
+    if kpath is None:
+        kpath = _kpath_fixture(dev, hybrid_n)
+    ka, fk = kpath["ka"], kpath["fk"]
+    wrot_e = functools.partial(TL._modraise_keyswitch_fused, ka, fk)
+    c1p, c2p = kpath["c1p"], kpath["c2p"]
+    rows["f_windowed_rotation"] = check_compiled(
+        dev, smi, "(f) K5 + K6 + rescale, window 8", wrot_e,
+        graphs.jit(wrot_e, name="windowed_rotation"), (c1p, c2p), (c2p, c1p))
+    if (rows["f_windowed_rotation"]["k5"], rows["f_windowed_rotation"]["k6"]) != (
+            {"k5": 1}, {"k6": 1}):
+        raise AssertionError(f"the compiled rotation did not reach K5 and K6")
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 40 took {rows['seconds']:.1f} s (host clock)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the least time the card could take (the kernels line's bound_ms)
 # ---------------------------------------------------------------------------
 
@@ -3265,10 +3835,20 @@ def bound_k6(fk, lead: int = 1) -> dict:
     return bound(nbytes, ops)
 
 
+def _compiled_launches(comp: dict, k: str) -> dict:
+    """``compiled_<path>``: the launches of kernel ``k`` in one call of each
+    compiled path of phase 40, counted on the kernel nodes of the graphs
+    that the call replayed (held there equal to the eager call's census)."""
+    return {f"compiled_{path}": rep["launched"][k] for path, rep in comp.items()
+            if isinstance(rep, dict) and rep.get("launched") and k in rep["launched"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="On-card smoke run of toyfhe_tpu_torch.")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the exact schemes' keys, slot vectors and encryptions")
+    parser.add_argument("--compiled-only", action="store_true",
+                        help="build the kernels and run phase 40 alone, on its own fixtures")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3279,6 +3859,9 @@ def main() -> int:
 
     smi = phase_environment()
     phase_build()
+    if args.compiled_only:
+        phase_compiled(dev, smi)
+        return 0
     err = phase_kernel_vs_plain(dev)
     entry = phase_entry_step(dev)
     step, batch, launches = phase_real_keys(dev)
@@ -3334,6 +3917,7 @@ def main() -> int:
     phase_multihost(dev)
     log(f"phases 35-38 took {time.perf_counter() - t0:.1f} s (host clock)")
     sboot = phase_boot_sharded(dev, smi, boot)
+    comp = phase_compiled(dev, smi, pipe, bsgs, boot, bmn, kpath)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -3362,7 +3946,8 @@ def main() -> int:
                               **{f"refresh_n2^10_sharded_rp4_rank{r}": v["k1"][k]
                                  for r, v in sboot["small"].items()},
                               **{f"refresh_n2^13_sharded_rp2_rank{r}": v["k1"][k]
-                                 for r, v in sboot["full"].items()}},
+                                 for r, v in sboot["full"].items()},
+                              **_compiled_launches(comp, k)},
          "max_abs_err": max(err[k], exact_err[k]),
          "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],
@@ -3380,6 +3965,7 @@ def main() -> int:
         {"name": "k3_hybrid_ks", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/hybrid_ks.cu",
          "replaces": "toyfhe_tpu/ops/pallas_hybrid_ks.py:47",
          "launches": hybrid_launches["k3"], "max_abs_err": k3_err,
+         "launches_by_path": _compiled_launches(comp, "k3"),
          "ms": k3_times["mnist"]["kernel"],
          "device_ms": dtime["k3"]["MNIST serving shape"]["new"]["device_ms"],
          "plain_ms": k3_times["mnist"]["plain"],
@@ -3397,6 +3983,7 @@ def main() -> int:
         {"name": "k5_ntt_bitrev", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/ntt_bitrev.cu",
          "replaces": "toyfhe_tpu/ops/ntt_pallas.py:246",
          "launches": kpath["launches"]["k5"], "max_abs_err": k5_err,
+         "launches_by_path": _compiled_launches(comp, "k5"),
          "ms": k5_row["kernel"],
          "device_ms": dtime["k5"]["path (b), 8 x 2^13"]["new"]["device_ms"],
          "plain_ms": k5_row["plain"],
@@ -3405,6 +3992,7 @@ def main() -> int:
         {"name": "k6_fused_keyswitch", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/keyswitch.cu",
          "replaces": "toyfhe_tpu/ops/pallas_keyswitch.py:40",
          "launches": kpath["launches"]["k6"], "max_abs_err": k6_err,
+         "launches_by_path": _compiled_launches(comp, "k6"),
          "ms": k56["k6"]["kernel"], "device_ms": dtime["k6"]["new"]["device_ms"],
          "plain_ms": k56["k6"]["plain"],
          **bound_k6(kpath["fk"]), "library_ms": None})

@@ -22,7 +22,10 @@ reference-literal parameters in ``core/refparams.py`` and the golden-vector
 scenarios in ``core/golden.py``), the C++ CRT of the decodes
 (``native/fhe_host.cpp``, built with g++ at first use), key and ciphertext
 files (``utils/serialization.py``), op counters (``utils/metrics.py``) and
-plaintext training of the MNIST model (``models/mnist.py``). The fused kernels beside the plain
+plaintext training of the MNIST model (``models/mnist.py``). The reference's
+``jax.jit`` becomes ``utils/graphs.py``: the engine's types are torch
+pytrees, and the steps, layers, pipeline stages and the refresh replay
+CUDA graphs on the card. The fused kernels beside the plain
 paths: the four-step digit transform K2 (``csrc/ntt_mxu.cu``), the hybrid
 key switch K3 (``csrc/hybrid_ks.cu``), the fused polynomial product K4
 (``csrc/polymul.cu``), the bit-reversed DIF transform K5
@@ -35,7 +38,8 @@ Layer map: ops/ = modular arithmetic, NTTs, sampling and the fused
 kernels; core/ = ring, RLWE engine, the schemes and the key-switch modifiers;
 parallel/ = the steps and the layers; models/ = encrypted MNIST and its
 training; native/ = the C++ host CRT; tools/ = command-line tools; utils/ =
-host number theory, numpy interop, serialization and metrics.
+host number theory, numpy interop, serialization, metrics and the CUDA-graph
+front-end.
 """
 
 from .core.ring import RingContext, RingElt, make_ring, make_rns_ring

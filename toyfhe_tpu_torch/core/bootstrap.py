@@ -41,9 +41,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..ops import modmath
-from ..utils import numtheory as nt
+from ..utils import graphs, numtheory as nt
 from . import ckks_encoding as CE
 from . import ring as R
 from . import rlwe
@@ -497,8 +498,7 @@ def _crt_estimate(y: torch.Tensor, primes) -> torch.Tensor:
     half-integer rounds the same way."""
     acc = None
     for i, p in enumerate(primes):
-        t = y[..., i, :].to(torch.float32) / torch.tensor(float(p), dtype=torch.float32,
-                                                          device=y.device)
+        t = y[..., i, :].to(torch.float32) / modmath.const(float(p), y.device, torch.float32)
         acc = t if acc is None else acc + t
     return torch.round(acc).to(torch.int64)
 
@@ -532,16 +532,20 @@ def mod_raise(c: CipherText) -> CipherText:
         q = list(ring.primes)
         q0 = math.prod(q)
         qhat = [q0 // qi for qi in q]
-        inv_col = modmath.as_residues([[pow(h % p, -1, p)] for h, p in zip(qhat, q)], dev)
+        inv_col = modmath.const([[pow(h % p, -1, p)] for h, p in zip(qhat, q)], dev)
         y = modmath.mul_mod(xp, inv_col, ring.mp)                    # [.., L0, N]
-        consts = modmath.as_residues([[h % pt for pt in tl.primes] for h in qhat], dev)
+        consts = modmath.const([[h % pt for pt in tl.primes] for h in qhat], dev)
         prod = modmath.mul_mod(y[..., :, None, :], consts[:, :, None], tl.mp)
         arr = modmath.mod_sum(prod, tl.mp, axis=-3)                  # [.., T, N]
         v = _crt_estimate(y, q)
-        q0_res = modmath.as_residues([[q0 % pt] for pt in tl.primes], dev)
+        q0_res = modmath.const([[q0 % pt] for pt in tl.primes], dev)
         corr = modmath.mul_mod(v[..., None, :], q0_res, tl.mp)
         arr = modmath.sub_mod(arr, corr, tl.mp)
     else:                       # general tower: exact host CRT lift
+        if graphs.capturing():
+            raise graphs.CaptureError(
+                f"mod_raise of a {ring.nlimbs}-limb input lifts on the host: it cannot be "
+                "captured (inputs of up to 4 limbs lift on the device)")
         host = xp.cpu().numpy().reshape(-1, ring.nlimbs, ring.n)
         qm = ring.modulus
         rows = [tl.from_bigint([v - qm if v > qm // 2 else v for v in ring.to_bigint(h)])
@@ -598,6 +602,35 @@ class BootstrapContext:
             self.cheb = cos_cheb_coeffs(self.K, self.deg, self.double_angle)
         else:
             self.cheb = sine_cheb_coeffs(self.K, self.deg)
+
+
+class _Shared:
+    """A reference in pytree metadata that compares by the identity of what
+    it holds: every copy of a context unflattened from its leaves shares the
+    original's plain cache."""
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __eq__(self, other):
+        return isinstance(other, _Shared) and other.obj is self.obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+
+# Keys are leaves; the EvalMod plan and the scale algebra are static, as in
+# the reference (its plain cache carried by reference), so
+# ``utils.graphs.jit(bootstrap)`` compiles the whole refresh.
+pytree.register_pytree_node(
+    BootstrapContext,
+    lambda ctx: ([ctx.ek, ctx.gks, ctx.gk_conj],
+                 (ctx.K, ctx.deg, ctx.plan, ctx.arcsin, ctx.double_angle,
+                  ctx.scale_limbs, ctx.base_scale, _Shared(ctx.plain_cache))),
+    lambda ch, aux: BootstrapContext(
+        ek=ch[0], gks=ch[1], gk_conj=ch[2], K=aux[0], deg=aux[1], plan=aux[2],
+        arcsin=aux[3], double_angle=aux[4], scale_limbs=aux[5], base_scale=aux[6],
+        plain_cache=aux[7].obj))
 
 
 def _arcsin_correct(ek, s: CipherText, sl: int = 1) -> CipherText:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import modmath, ntt as nttmod
-from ..ops.modmath import as_residues
+from ..ops.modmath import const
 from ..utils import metrics
 from . import ring as R
 from .ring import RingContext, RingElt
@@ -157,12 +157,12 @@ class HybridRaised(PassthroughParams):
         dev = xp.device
         mp3 = exp_ring.mp.expand()
         inv = np.concatenate([inv for _, inv, _ in groups])   # [Lt, 1]
-        y = modmath.mont_mul(xp, as_residues(R.held_rows(ring, inv), dev), ring.mp)
+        y = modmath.mont_mul(xp, const(R.held_rows(ring, inv), dev), ring.mp)
         y = R.gather(ring, y, "keyswitch_digit_share")        # [..., Lt, N] whole
         digs = []
         for (lo, hi), _, consts in groups:
             prod = modmath.mont_mul(y[..., None, lo:hi, :],
-                                    as_residues(R.held_rows(exp_ring, consts), dev), mp3)
+                                    const(R.held_rows(exp_ring, consts), dev), mp3)
             digs.append(modmath.mod_sum(prod, exp_ring.mp, axis=-2))
         return exp_ring, torch.stack(digs, dim=0)
 
@@ -180,7 +180,7 @@ class HybridRaised(PassthroughParams):
             out_loc = [i for i, q in enumerate(exp_held) if not lo <= q < hi]
             sub = R.whole(exp_ring).select([exp_held[i] for i in out_loc])
             res = nttmod.ntt(sub.tables, digits[j].index_select(
-                -2, torch.tensor(out_loc, dtype=torch.int64, device=digits.device)))
+                -2, const(out_loc, digits.device)))
             metrics.count("ntt_limb_transform", math.prod(res.shape[:-1]))
             a = R.held_below(exp_ring, lo)
             rows.append(torch.cat(
@@ -288,14 +288,14 @@ class HybridRaised(PassthroughParams):
                 mp_rem = sp_whole.mp.select(range(sp.shape[-2]))
                 lm = modmath.umod(l, mp_rem.on(dev).p)
                 sp = modmath.mont_mul(modmath.sub_mod(sp, lm, mp_rem),
-                                      as_residues(dinvs[s], dev), mp_rem)
+                                      const(dinvs[s], dev), mp_rem)
             term = modmath.mont_mul(modmath.umod(l, mp_ct.on(dev).p),
-                                    as_residues(R.held_rows(ct_ring, wts[s]), dev), mp_ct)
+                                    const(R.held_rows(ct_ring, wts[s]), dev), mp_ct)
             corr = term if corr is None else modmath.add_mod(corr, term, mp_ct)
         corr_dual = nttmod.ntt(ct_ring.tables, corr)
         metrics.count("ntt_limb_transform", math.prod(corr.shape[:-1]))
         out = modmath.sub_mod(
-            modmath.mont_mul(dual[..., :nct, :], as_residues(R.held_rows(ct_ring, pinv), dev),
+            modmath.mont_mul(dual[..., :nct, :], const(R.held_rows(ct_ring, pinv), dev),
                              mp_ct),
             corr_dual, mp_ct)
         return ct_ring, RingElt(dual=out)

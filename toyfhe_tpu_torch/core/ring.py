@@ -29,11 +29,12 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import native as crt_native
 from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import MontParams
-from ..utils import metrics, numtheory as nt
+from ..utils import graphs, metrics, numtheory as nt
 
 __all__ = ["RingContext", "RingElt", "ShardedRing", "make_ring", "make_rns_ring",
            "shard_view"]
@@ -229,8 +230,8 @@ class ShardedRing(RingContext):
         key = (tuple(positions), device)
         if key not in self._index:
             at = {q: i for i, q in enumerate(self.held)}
-            self._index[key] = torch.as_tensor([at[q] for q in positions if q in at],
-                                               dtype=torch.int64, device=device)
+            self._index[key] = modmath.as_residues([at[q] for q in positions if q in at],
+                                                   device)
         return self._index[key]
 
 
@@ -271,7 +272,7 @@ def held_rows(ring: RingContext, x):
         return x
     if not torch.is_tensor(x):
         return np.asarray(x)[ring.held]
-    return x.index_select(-2, torch.as_tensor(ring.held, dtype=torch.int64, device=x.device))
+    return x.index_select(-2, modmath.const(ring.held, x.device))
 
 
 def gather(ring: RingContext, x: torch.Tensor, site: str) -> torch.Tensor:
@@ -291,6 +292,9 @@ def require_whole(ring: RingContext, what: str) -> None:
         raise NotImplementedError(f"{what} has no limb-sharded form")
 
 
+_VIEWS = ("primal", "dual")
+
+
 @dataclasses.dataclass(frozen=True)
 class RingElt:
     """Element of a negacyclic RNS ring: int64[..., L, N] in one or both
@@ -308,6 +312,15 @@ class RingElt:
     def device(self) -> torch.device:
         arr = self.primal if self.primal is not None else self.dual
         return arr.device
+
+
+# the views held are the leaves, which ones are held is static (as in the
+# reference): a missing view stays None
+pytree.register_pytree_node(
+    RingElt,
+    lambda x: ([getattr(x, k) for k in _VIEWS if getattr(x, k) is not None],
+               tuple(k for k in _VIEWS if getattr(x, k) is not None)),
+    lambda ch, keys: RingElt(**dict(zip(keys, ch))))
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +409,9 @@ def scalar_mul(ring: RingContext, s, a: RingElt) -> RingElt:
     converted on the host). Linear: applies in whichever domains exist."""
     if isinstance(s, (int, np.integer)):
         s = ring.scalar_residues(int(s))
-    s = torch.as_tensor(np.asarray(s, dtype=np.int64), device=a.device)
+    # the scalar is data (a user's value times the scale, say): uploaded per
+    # call, and kept only while a graph that reads it is recorded
+    s = (modmath.const if graphs.tracing() else modmath.as_residues)(s, a.device)
     mp = ring.mp
     return RingElt(
         primal=None if a.primal is None else modmath.mul_mod(a.primal, s, mp),
@@ -426,7 +441,7 @@ def limb_select(ring: RingContext, a: RingElt, which: Sequence[int]) -> Tuple[Ri
         if isinstance(ring, ShardedRing):
             return arr.index_select(-2, ring.index_of([which[q] for q in sub_ring.held],
                                                       arr.device))
-        return arr.index_select(-2, torch.tensor(which, device=arr.device))
+        return arr.index_select(-2, modmath.const(which, arr.device))
 
     return sub_ring, RingElt(primal=take(a.primal), dual=take(a.dual))
 
@@ -443,8 +458,7 @@ def _rescale_parts(ring: RingContext, device):
     limb's rank holds its row; the other ranks hold none."""
     _, inv_m = whole(ring).rescale_consts()
     nsurv = held_below(ring, ring.nlimbs - 1)
-    inv = torch.as_tensor(np.asarray(inv_m, dtype=np.int64)[list(held(ring))[:nsurv]],
-                          device=device)
+    inv = modmath.const(np.asarray(inv_m, dtype=np.int64)[list(held(ring))[:nsurv]], device)
     return ring.drop_last(), ring.select([ring.nlimbs - 1]), nsurv, inv
 
 
@@ -512,7 +526,7 @@ def rescale_adapted(ring: RingContext, a: RingElt, t: int) -> Tuple[RingContext,
     vin = torch.remainder(torch.remainder(r, t) * neg_inv, t)
     v = torch.where(vin > t // 2, vin - t, vin)
     dj = modmath.add_mod(modmath.from_signed(r, mp),
-                         modmath.mul_mod(modmath.as_residues(qk_mod, dev),
+                         modmath.mul_mod(modmath.const(qk_mod, dev),
                                          modmath.from_signed(v, mp), mp), mp)
     diff = modmath.sub_mod(a.primal[..., :-1, :], dj, mp)
-    return sub_ring, RingElt(primal=modmath.mont_mul(diff, modmath.as_residues(inv_m, dev), mp))
+    return sub_ring, RingElt(primal=modmath.mont_mul(diff, modmath.const(inv_m, dev), mp))

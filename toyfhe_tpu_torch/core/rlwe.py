@@ -32,6 +32,7 @@ import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..ops import modmath, ntt as nttmod, sampling
 from ..utils import metrics
@@ -234,6 +235,47 @@ class CipherText:
 
     def __getitem__(self, i):
         return self.cs[i]
+
+
+# Keys and ciphertexts are pytrees (``torch.utils._pytree``): ring elements
+# are the leaves; params, rings, the enc tag (its exact ``Fraction`` scale)
+# and the Galois element are static metadata, as in the reference, so a
+# pipeline written against the public API compiles under
+# ``utils.graphs.jit`` and replays bit-equal to the eager call.
+
+def _register(cls, fields, aux_fields):
+    def flatten(obj):
+        return ([getattr(obj, f) for f in fields],
+                tuple(getattr(obj, f) for f in aux_fields))
+
+    def unflatten(children, aux):
+        return cls(**dict(zip(aux_fields, aux)), **dict(zip(fields, children)))
+
+    pytree.register_pytree_node(cls, flatten, unflatten)
+
+
+def _register_list(cls, list_field, aux_fields):
+    def flatten(obj):
+        return (list(getattr(obj, list_field)),
+                tuple(getattr(obj, f) for f in aux_fields))
+
+    def unflatten(children, aux):
+        return cls(**dict(zip(aux_fields, aux)), **{list_field: list(children)})
+
+    pytree.register_pytree_node(cls, flatten, unflatten)
+
+
+_register(PrivKey, ("secret",), ("params",))
+_register(KeyComponent, ("mask", "masked"), ())
+_register(PubKey, ("key",), ("params",))
+_register_list(KeySwitchKey, "key", ("params", "ring"))
+_register(EvalMultKey, ("key",), ())
+_register(GaloisKey, ("key",), ("galois_element",))
+_register_list(GaloisKeys, "keys", ())
+_register(KeyPair, ("priv", "pub"), ())
+pytree.register_pytree_node(
+    CipherText, lambda c: (list(c.cs), (c.params, c.ring, c.enc)),
+    lambda cs, aux: CipherText(aux[0], tuple(cs), aux[1], enc=aux[2]))
 
 
 # ---------------------------------------------------------------------------

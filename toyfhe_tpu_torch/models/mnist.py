@@ -65,6 +65,7 @@ from ..ops import modmath
 from ..parallel import layers as JL
 from ..parallel import ops as pops
 from ..parallel.sharding import Mesh
+from ..utils import graphs
 
 
 # ---------------------------------------------------------------------------
@@ -808,8 +809,25 @@ class _LayerClock:
         self.t = now
 
 
+def _stager(compiled: bool, pool):
+    """``stage(fn, name)``: ``fn`` compiled into ``pool`` (one CUDA graph a
+    pipeline stage, captured at its first call on the card) or, when not
+    ``compiled``, ``fn`` itself."""
+    if not compiled:
+        return lambda fn, name: fn
+    return lambda fn, name: graphs.jit(fn, pool=pool, name=name)
+
+
+def _pick(eager: bool):
+    """How a runner calls a stage: as built, or, for the eager twin of a
+    compiled pipeline, the function under its graph."""
+    if not eager:
+        return lambda st: st
+    return lambda st: st.fn if isinstance(st, graphs.Compiled) else st
+
+
 def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
-                             dual_flow=None, mesh=None):
+                             dual_flow=None, mesh=None, eager: bool = False):
     """Build the serving pipeline once (layers, weight and diagonal
     encodings, on the keys' device) and return ``run(batch, gen) ->
     logits [classes, B]``.
@@ -830,6 +848,16 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     milliseconds on the host clock, the device synchronised between
     stages.
 
+    Each stage after the host encode — encrypt, conv, square 1, dense 1
+    (with BSGS keys, the reference's ``jax.jit(_dense1_bsgs)``), bias +
+    rescale, square 2, dense 2 — is compiled as the reference jits it
+    (:func:`..utils.graphs.jit`: on the card a CUDA graph a stage,
+    captured at the first batch, all in one memory pool, ``run.pool``);
+    ``eager=True`` runs them eagerly. ``run.encode(batch)`` is the host
+    encode and ``run.forward(pts, gen)`` the stages from the encryption to
+    the logits ciphertext; ``run.eager`` is the same pipeline (the same
+    layers and constants) with every stage eager, as ``run`` is.
+
     ``mesh`` (a ('dp', 'rp') :class:`..parallel.sharding.Mesh` whose
     device holds the keys): the sharded pipeline, run by every rank of the
     mesh with the same arguments (``gen`` seeded alike on every rank). The
@@ -842,7 +870,7 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     dropped-row sites) and gathers its result's rows. The dense layers'
     rotations run on whole rows. Every sum is a modular sum, exact in any
     order, so the logits are bit-equal to the single-device pipeline's,
-    on every rank."""
+    on every rank; it runs eagerly (its collectives cannot be captured)."""
     hybrid = getattr(setup.params, "hybrid_decompose", None) is not None
     if dual_flow is None:
         dual_flow = hybrid and gks_bsgs is not None
@@ -864,8 +892,10 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     s0 = setup.scale
 
     encode_dual = lambda ring, slots, scale: _encode_dual(ring, slots, scale, device)
+    pool = graphs.Pool()
+    stage = _stager(not eager and mesh is None, pool)
 
-    enc = JL.BatchEncryptor(params, setup.kp.pub, sigma=3.2)
+    enc = JL.BatchEncryptor(params, setup.kp.pub, sigma=3.2, eager=True)
 
     # ---- conv + bias + rescale ----
     w = np.asarray(model_params["conv_w"])
@@ -880,7 +910,8 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     s_conv = s0 * s0
     bias_dual = torch.stack([encode_dual(ring0, np.full(n // 2, float(bconv[c])), s_conv)
                              for c in range(cfg.channels)], 0)
-    conv = JL.ConvLayer(params, ring0, cfg.channels, dual_out=dual_flow).to(device)
+    conv = JL.ConvLayer(params, ring0, cfg.channels, dual_out=dual_flow,
+                        eager=True).to(device)
     ring1 = ring0.drop_last()
     s1 = s_conv / ring0.primes[-1]
 
@@ -900,17 +931,17 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
                 return out if dual_flow else JL._intt_t(out, sub)
             return sharded
         if dual_flow:
-            fn = pops.make_hybrid_fused_step(params, setup.ek, ring)[0]
+            fn = pops.make_hybrid_fused_step(params, setup.ek, ring, eager=True)[0]
             whole = lambda x: fn(x)[..., :L - 1, :]
         else:
-            layer = JL.SquareRelinLayer(params, setup.ek, ring)
+            layer = JL.SquareRelinLayer(params, setup.ek, ring, eager=True)
             whole = lambda x: torch.stack(layer(x[:, 0], x[:, 1]), 1)
         if place is None:
             return whole
         return lambda x: whole(place.gather_rows(x, L))
 
     # ---- square 1 ----
-    sq1 = square_layer(ring1)
+    sq1 = stage(square_layer(ring1), "square1")
     ring2 = ring1.drop_last()
     s2 = s1 * s1 / ring1.primes[-1]
 
@@ -920,7 +951,8 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     blocks1 = [w1[:, ci * d:(ci + 1) * d] for ci in range(cfg.channels)]
     if gks_bsgs is None:
         # iterated-rotation layer: d pre-encoded diagonals per channel
-        mat1 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring2)
+        mat1 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring2,
+                                    eager=True)
         diags1 = [torch.stack([
             encode_dual(ring2, _rep_inner(np.diag(np.roll(blk, k, axis=1)), cfg.batch), s2)
             for k in range(d)], 0) for blk in blocks1]
@@ -928,12 +960,12 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
         dense1_bsgs = _BsgsDense(params, ring2, s2, blocks1, cfg.batch, device)
     s_fq1 = s2 * s2
     b1_dual = encode_dual(ring2, _rep_inner(np.asarray(model_params["b1"]), cfg.batch), s_fq1)
-    br = JL.BiasRescaleLayer(ring2, dual_out=dual_flow).to(device)
+    br = JL.BiasRescaleLayer(ring2, dual_out=dual_flow, eager=True).to(device)
     ring3 = ring2.drop_last()
     s3 = s_fq1 / ring2.primes[-1]
 
     # ---- square 2 ----
-    sq2 = square_layer(ring3)
+    sq2 = stage(square_layer(ring3), "square2")
     ring4 = ring3.drop_last()
     s4 = s3 * s3 / ring3.primes[-1]
 
@@ -941,7 +973,8 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     w2 = np.asarray(model_params["w2"])
     wpad = np.vstack([w2, np.zeros((d - w2.shape[0], d))])
     if gks_bsgs is None:
-        mat2 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring4)
+        mat2 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring4,
+                                    eager=True)
         diag2 = torch.stack([
             encode_dual(ring4, _rep_inner(np.diag(np.roll(wpad, k, axis=1)), cfg.batch), s4)
             for k in range(d)], 0)
@@ -952,80 +985,108 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     b2_dual = encode_dual(ring4, _rep_inner(b2pad, cfg.batch), s5)
     mp2, mp4 = ring2.mp, ring4.mp
 
-    def run(batch: np.ndarray, gen: torch.Generator, _return_ct: bool = False,
-            layer_times: Optional[dict] = None):
-        clock = _LayerClock(device, layer_times)
-        # ---- per request: encode the inputs + batched encryption ----
-        I = public_preprocess(cfg, batch)
-        pts = torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
-                           for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
-        clock("encode")
-        cts = enc(pts, gen)                                # (G, 2, L0, N) dual
-        clock("encrypt")
-        if place is None:
-            conv_out = conv(cts, wq, bias_dual)            # (C, 2, L1, N)
-        else:                                              # the rank's block of the grid
-            blk = cts[place.batch(cts.shape[0])][..., place.rows(ring0.nlimbs), :]
-            conv_out = conv(blk, wq, bias_dual, place)     # its channels and L1 rows
-        clock("conv")
-        o = sq1(conv_out)                                  # (C, 2, L2, N), dual or primal
-        o1, o2 = o[:, 0], o[:, 1]
-        clock("square1")
+    def dense1(o1, o2):
         if gks_bsgs is not None:
-            fq1_1, fq1_2 = dense1_bsgs(gks_bsgs, o1, o2, dual_flow, place)   # dual at s2²
-        else:
-            chans = range(cfg.channels)
-            if place is not None:
-                chans = chans[place.batch(cfg.channels)]
-            fq1_1 = fq1_2 = None
-            for i, ci in enumerate(chans):
-                r1, r2 = mat1(o1[i], o2[i], diags1[ci])    # dual at s2²
-                fq1_1 = r1 if fq1_1 is None else modmath.add_mod(fq1_1, r1, mp2)
-                fq1_2 = r2 if fq1_2 is None else modmath.add_mod(fq1_2, r2, mp2)
-            if place is not None:
-                fq1_1, fq1_2 = place.dp_sum(torch.stack([fq1_1, fq1_2]), cfg.channels, mp2,
-                                            "dense_channel_sum")
-        clock("dense1")
-        f1p, f2p = br(fq1_1, fq1_2, b1_dual)               # (L3, N)
-        clock("bias_rescale")
-        sq2_in = torch.stack([f1p, f2p], 0)[None]
+            return dense1_bsgs(gks_bsgs, o1, o2, dual_flow, place)   # dual at s2²
+        chans = range(cfg.channels)
         if place is not None:
-            sq2_in = place.cut_rows(sq2_in, ring3.nlimbs)
-        g = sq2(sq2_in)[0]
-        g1, g2 = g[0], g[1]                                # (L4, N)
-        clock("square2")
+            chans = chans[place.batch(cfg.channels)]
+        fq1_1 = fq1_2 = None
+        for i, ci in enumerate(chans):
+            r1, r2 = mat1(o1[i], o2[i], diags1[ci])    # dual at s2²
+            fq1_1 = r1 if fq1_1 is None else modmath.add_mod(fq1_1, r1, mp2)
+            fq1_2 = r2 if fq1_2 is None else modmath.add_mod(fq1_2, r2, mp2)
+        if place is not None:
+            fq1_1, fq1_2 = place.dp_sum(torch.stack([fq1_1, fq1_2]), cfg.channels, mp2,
+                                        "dense_channel_sum")
+        return fq1_1, fq1_2
+
+    def dense2(g1, g2):
         if gks_bsgs is not None:
             r1, r2 = dense2_bsgs(gks_bsgs, g1[None], g2[None], dual_flow)  # dual at s4²
         else:
             r1, r2 = mat2(g1, g2, diag2)                   # dual at s4²
-        r1 = modmath.add_mod(r1, b2_dual, mp4)
-        clock("dense2")
-        out = CipherText(params, (RingElt(dual=r1), RingElt(dual=r2)), ring4,
-                         enc=CKKSTag(Fraction(s5)))
-        if _return_ct:
-            return out
-        dec = decrypt(setup.kp, out).real
-        clock("decrypt")
-        mat = dec.reshape(cfg.positions, cfg.batch)
-        return mat[:cfg.classes, :]
+        return modmath.add_mod(r1, b2_dual, mp4), r2
 
+    if place is None:
+        conv_stage = lambda cts: conv(cts, wq, bias_dual)  # (C, 2, L1, N)
+    else:                                                  # the rank's block of the grid
+        conv_stage = lambda cts: conv(cts[place.batch(cts.shape[0])][
+            ..., place.rows(ring0.nlimbs), :], wq, bias_dual, place)
+    encrypt_stage = stage(enc, "encrypt")
+    conv_stage = stage(conv_stage, "conv")
+    dense1 = stage(dense1, "dense1")
+    bias_rescale = stage(lambda a, b: br(a, b, b1_dual), "bias_rescale")
+    dense2 = stage(dense2, "dense2")
+
+    def encode(batch: np.ndarray) -> torch.Tensor:
+        """The host encode of a batch: the k×k grid's slot vectors as primal
+        plaintexts [G, L0, N] on the keys' device."""
+        I = public_preprocess(cfg, batch)
+        return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
+                            for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+
+    def forward(pts: torch.Tensor, gen: torch.Generator, clock, S) -> CipherText:
+        cts = S(encrypt_stage)(pts, gen)                   # (G, 2, L0, N) dual
+        clock("encrypt")
+        conv_out = S(conv_stage)(cts)                      # its channels and L1 rows
+        clock("conv")
+        o = S(sq1)(conv_out)                               # (C, 2, L2, N), dual or primal
+        clock("square1")
+        fq1_1, fq1_2 = S(dense1)(o[:, 0], o[:, 1])         # dual at s2²
+        clock("dense1")
+        f1p, f2p = S(bias_rescale)(fq1_1, fq1_2)           # (L3, N)
+        clock("bias_rescale")
+        sq2_in = torch.stack([f1p, f2p], 0)[None]
+        if place is not None:
+            sq2_in = place.cut_rows(sq2_in, ring3.nlimbs)
+        g = S(sq2)(sq2_in)[0]                              # (2, L4, N)
+        clock("square2")
+        r1, r2 = S(dense2)(g[0], g[1])                     # dual at s4², with the bias
+        clock("dense2")
+        return CipherText(params, (RingElt(dual=r1), RingElt(dual=r2)), ring4,
+                          enc=CKKSTag(Fraction(s5)))
+
+    def runner(S):
+        def run(batch: np.ndarray, gen: torch.Generator, _return_ct: bool = False,
+                layer_times: Optional[dict] = None):
+            clock = _LayerClock(device, layer_times)
+            # ---- per request: encode the inputs, then the compiled stages ----
+            pts = encode(batch)
+            clock("encode")
+            out = forward(pts, gen, clock, S)
+            if _return_ct:
+                return out
+            dec = decrypt(setup.kp, out).real
+            clock("decrypt")
+            mat = dec.reshape(cfg.positions, cfg.batch)
+            return mat[:cfg.classes, :]
+
+        run.encode = encode
+        run.forward = lambda pts, gen: forward(pts, gen, _LayerClock(device, None), S)
+        run.pool = pool
+        return run
+
+    run = runner(_pick(False))
+    run.eager = runner(_pick(True))
     return run
 
 
 def encrypted_inference_fast(setup: FHESetup, model_params, batch: np.ndarray,
                              gen: torch.Generator, gks_bsgs=None, dual_flow=None,
-                             mesh=None):
+                             mesh=None, eager: bool = False):
     """Encrypted forward pass through the compiled layers: the decrypted
     logits matrix [classes, B]. The built pipeline is cached on ``setup``
-    so repeat calls serve at the warm rate."""
+    so repeat calls serve at the warm rate (its stages replay their CUDA
+    graphs on the card; ``eager=True`` builds it eager)."""
     pipe = getattr(setup, "_pipeline", None)
     prev = getattr(setup, "_pipeline_key", None)
     if (pipe is None or prev is None or prev[0] is not model_params
-            or prev[1] is not gks_bsgs or prev[2:] != (dual_flow, mesh)):
+            or prev[1] is not gks_bsgs or prev[2:] != (dual_flow, mesh, eager)):
         pipe = build_inference_pipeline(setup, model_params, gks_bsgs,
-                                        dual_flow=dual_flow, mesh=mesh)
+                                        dual_flow=dual_flow, mesh=mesh, eager=eager)
         setup._pipeline = pipe
-        setup._pipeline_key = (model_params, gks_bsgs, dual_flow, mesh)
+        setup._pipeline_key = (model_params, gks_bsgs, dual_flow, mesh, eager)
     return pipe(batch, gen)
 
 
@@ -1120,7 +1181,7 @@ def encrypted_inference_bootstrapped(setup: FHESetup, boot_ctx, model_params,
 
 
 def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
-                                prescale: float = 4.0):
+                                prescale: float = 4.0, eager: bool = False):
     """The bootstrapped pipeline on the compiled layers, each at its tower
     level — conv → square → dense 1 → square → exhaust → bootstrap → dense 2 —
     built once (layers, weights and the dense-1 diagonals encoded on the
@@ -1133,7 +1194,18 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
     depth_out)``; ``layer_times`` (a dict) collects each stage's milliseconds
     on the host clock, the device synchronised between stages, the refresh
     as ``modraise_c2s``, ``evalmod`` and ``s2c``. ``run.exhaust(ct)`` and
-    ``run.dense2(refreshed)`` are the two stages around the refresh."""
+    ``run.dense2(refreshed)`` are the two stages around the refresh.
+
+    Each stage after the host encode is compiled as the reference jits it
+    (:func:`..utils.graphs.jit`, one CUDA graph a stage on the card, all in
+    one memory pool, ``run.pool``): the layers, the exhaust
+    (``jax.jit(_exhaust)``), the refresh as its three phases (ModRaise +
+    CoeffToSlot, EvalMod, SlotToCoeff: the reference's phased form, so that
+    the stage clock keeps them apart), dense 2. ``eager=True`` runs them
+    eagerly. ``run.encode(batch)`` is the host encode and
+    ``run.forward(pts, gen)`` the stages from the encryption to the
+    logits ciphertext; ``run.eager`` is the same pipeline with every
+    stage eager, as ``run`` is."""
     cfg = setup.cfg
     params = setup.params
     device = setup.kp.pub.key.mask.device
@@ -1143,8 +1215,10 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
     d = cfg.positions
 
     encode_dual = lambda ring, slots, scale: _encode_dual(ring, slots, scale, device)
+    pool = graphs.Pool()
+    stage = _stager(not eager, pool)
 
-    enc = JL.BatchEncryptor(params, setup.kp.pub, sigma=3.2)
+    enc = JL.BatchEncryptor(params, setup.kp.pub, sigma=3.2, eager=True)
 
     # ---- conv + bias + rescale at the full deep tower ----
     w = np.asarray(model_params["conv_w"])
@@ -1159,30 +1233,31 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
     s_conv = s0 * s0
     bias_dual = torch.stack([encode_dual(ring0, np.full(n // 2, float(bconv[c])), s_conv)
                              for c in range(cfg.channels)], 0)
-    conv = JL.ConvLayer(params, ring0, cfg.channels).to(device)
+    conv = JL.ConvLayer(params, ring0, cfg.channels, eager=True).to(device)
     ring1 = ring0.drop_last()
     s1 = s_conv / ring0.primes[-1]
 
     # ---- square 1 ----
-    sq1 = JL.SquareRelinLayer(params, setup.ek, ring1)
+    sq1 = JL.SquareRelinLayer(params, setup.ek, ring1, eager=True)
     ring2 = ring1.drop_last()
     s2 = s1 * s1 / ring1.primes[-1]
 
     # ---- dense 1: iterated-rotation diagonal matmul per channel ----
     w1 = np.asarray(model_params["w1"])
-    mat1 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring2)
+    mat1 = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element, d, ring2,
+                                eager=True)
     diags1 = [torch.stack([
         encode_dual(ring2, _rep_inner(np.diag(np.roll(w1[:, ci * d:(ci + 1) * d], k, axis=1)),
                                       cfg.batch), s2)
         for k in range(d)], 0) for ci in range(cfg.channels)]
     s_fq1 = s2 * s2
     b1_dual = encode_dual(ring2, _rep_inner(np.asarray(model_params["b1"]), cfg.batch), s_fq1)
-    br = JL.BiasRescaleLayer(ring2).to(device)
+    br = JL.BiasRescaleLayer(ring2, eager=True).to(device)
     ring3 = ring2.drop_last()
     s3 = s_fq1 / ring2.primes[-1]
 
     # ---- square 2 ----
-    sq2 = JL.SquareRelinLayer(params, setup.ek, ring3)
+    sq2 = JL.SquareRelinLayer(params, setup.ek, ring3, eager=True)
     ring4 = ring3.drop_last()
     s4 = s3 * s3 / ring3.primes[-1]
 
@@ -1197,7 +1272,7 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
         if lazy2.get("key") != (ringr, sr):
             lazy2["key"] = (ringr, sr)
             lazy2["mat"] = JL.RotateMatmulLayer(params, setup.gk, setup.gk.galois_element,
-                                                d, ringr)
+                                                d, ringr, eager=True)
             lazy2["diag"] = torch.stack([
                 encode_dual(ringr, _rep_inner(np.diag(np.roll(wpad2, k, axis=1)), cfg.batch), sr)
                 for k in range(d)], 0)
@@ -1209,48 +1284,84 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
         return CipherText(params, (RingElt(dual=r1), RingElt(dual=r2)), ringr,
                           enc=CKKSTag(sr * sr))
 
-    def refresh(ct: CipherText, clock) -> CipherText:
-        lo, hi = B.bootstrap_phase1(boot_ctx, ct)
-        clock("modraise_c2s")
-        ev = B.bootstrap_phase2(boot_ctx, lo, hi)
-        clock("evalmod")
-        out = B.bootstrap_phase3(boot_ctx, ev, *B._phase3_statics(boot_ctx, ct))
-        clock("s2c")
-        return out
-
-    def run(batch: np.ndarray, gen: torch.Generator, layer_times: Optional[dict] = None):
-        clock = _LayerClock(device, layer_times)
-        I = public_preprocess(cfg, batch)
-        pts = torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
-                           for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
-        clock("encode")
-        cts = enc(pts, gen)                                # (G, 2, L0, N) dual
-        clock("encrypt")
-        conv_out = conv(cts, wq, bias_dual)                # (C, 2, L1, N) primal
-        clock("conv")
-        o1, o2 = sq1(conv_out[:, 0], conv_out[:, 1])       # (C, L2, N) primal
-        clock("square1")
+    def dense1(o1, o2):
         fq1_1 = fq1_2 = None
         for ci in range(cfg.channels):
             r1, r2 = mat1(o1[ci], o2[ci], diags1[ci])      # dual at s2²
             fq1_1 = r1 if fq1_1 is None else modmath.add_mod(fq1_1, r1, ring2.mp)
             fq1_2 = r2 if fq1_2 is None else modmath.add_mod(fq1_2, r2, ring2.mp)
-        clock("dense1")
-        f1p, f2p = br(fq1_1, fq1_2, b1_dual)               # (L3, N) primal
-        clock("bias_rescale")
-        g1, g2 = sq2(f1p, f2p)                             # (L4, N) primal
-        clock("square2")
+        return fq1_1, fq1_2
+
+    def to_exhausted(g1, g2):
         ct4 = CipherText(params, (RingElt(primal=g1), RingElt(primal=g2)), ring4,
                          enc=CKKSTag(s4))
-        exhausted = _exhaust(boot_ctx, ct4, prescale)
-        clock("exhaust")
-        refreshed = refresh(exhausted, clock)
-        out = dense2(refreshed)
-        clock("dense2")
-        logits = _decrypt_logits(setup, out)
-        clock("decrypt")
-        return logits, refreshed.ring.nlimbs
+        return _exhaust(boot_ctx, ct4, prescale)
 
-    run.exhaust = lambda ct: _exhaust(boot_ctx, ct, prescale)
-    run.dense2 = dense2
+    encrypt_stage = stage(enc, "encrypt")
+    conv_stage = stage(lambda cts: conv(cts, wq, bias_dual), "conv")
+    sq1_stage = stage(sq1, "square1")
+    dense1 = stage(dense1, "dense1")
+    bias_rescale = stage(lambda a, b: br(a, b, b1_dual), "bias_rescale")
+    sq2_stage = stage(sq2, "square2")
+    exhaust = stage(to_exhausted, "exhaust")
+    phase1 = stage(lambda ct: B.bootstrap_phase1(boot_ctx, ct), "modraise_c2s")
+    phase2 = stage(lambda lo, hi: B.bootstrap_phase2(boot_ctx, lo, hi), "evalmod")
+    phase3 = stage(lambda ev, factor, pin: B.bootstrap_phase3(boot_ctx, ev, factor, pin),
+                   "s2c")
+    dense2_stage = stage(dense2, "dense2")
+
+    def refresh(ct: CipherText, clock, S) -> CipherText:
+        lo, hi = S(phase1)(ct)
+        clock("modraise_c2s")
+        ev = S(phase2)(lo, hi)
+        clock("evalmod")
+        out = S(phase3)(ev, *B._phase3_statics(boot_ctx, ct))
+        clock("s2c")
+        return out
+
+    def encode(batch: np.ndarray) -> torch.Tensor:
+        """The host encode of a batch (as :func:`build_inference_pipeline`'s)."""
+        I = public_preprocess(cfg, batch)
+        return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
+                            for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+
+    def forward(pts: torch.Tensor, gen: torch.Generator, clock, S) -> CipherText:
+        cts = S(encrypt_stage)(pts, gen)                   # (G, 2, L0, N) dual
+        clock("encrypt")
+        conv_out = S(conv_stage)(cts)                      # (C, 2, L1, N) primal
+        clock("conv")
+        o1, o2 = S(sq1_stage)(conv_out[:, 0], conv_out[:, 1])  # (C, L2, N) primal
+        clock("square1")
+        fq1_1, fq1_2 = S(dense1)(o1, o2)                   # dual at s2²
+        clock("dense1")
+        f1p, f2p = S(bias_rescale)(fq1_1, fq1_2)           # (L3, N) primal
+        clock("bias_rescale")
+        g1, g2 = S(sq2_stage)(f1p, f2p)                    # (L4, N) primal
+        clock("square2")
+        exhausted = S(exhaust)(g1, g2)
+        clock("exhaust")
+        refreshed = refresh(exhausted, clock, S)
+        out = S(dense2_stage)(refreshed)
+        clock("dense2")
+        return out
+
+    def runner(S):
+        def run(batch: np.ndarray, gen: torch.Generator, layer_times: Optional[dict] = None):
+            clock = _LayerClock(device, layer_times)
+            pts = encode(batch)
+            clock("encode")
+            out = forward(pts, gen, clock, S)
+            logits = _decrypt_logits(setup, out)
+            clock("decrypt")
+            return logits, out.ring.nlimbs
+
+        run.exhaust = lambda ct: _exhaust(boot_ctx, ct, prescale)
+        run.dense2 = dense2
+        run.encode = encode
+        run.forward = lambda pts, gen: forward(pts, gen, _LayerClock(device, None), S)
+        run.pool = pool
+        return run
+
+    run = runner(_pick(False))
+    run.eager = runner(_pick(True))
     return run

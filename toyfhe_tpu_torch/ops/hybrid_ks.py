@@ -78,7 +78,7 @@ class FusedHybridKS:
     def premultiply(self, xp: torch.Tensor) -> torch.Tensor:
         """ct-limb residues int64[..., lt, N] primal → ŷ (per-limb multiply
         by [(Q_{j(i)}/q_i)⁻¹]_{q_i})."""
-        return modmath.mont_mul(xp, as_residues(self.inv_col, xp.device),
+        return modmath.mont_mul(xp, modmath.const(self.inv_col, xp.device),
                                 self.ct_ring.mp)
 
     def __call__(self, y: torch.Tensor):

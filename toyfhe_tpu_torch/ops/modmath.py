@@ -82,7 +82,7 @@ class MontParams:
                 return self
             raise ValueError("device constants move only from the host form")
         if dev not in self._dev:
-            t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+            t = lambda a: const(a, dev)
             self._dev[dev] = MontParams(t(self.p), t(self.ninv), t(self.r2),
                                         t(self.r1), t(self.half), t(self.rinv))
         return self._dev[dev]
@@ -102,10 +102,37 @@ class MontParams:
                           f(self.half), f(self.rinv))
 
 
-def as_residues(a, device) -> torch.Tensor:
+def as_residues(a, device, dtype=torch.int64) -> torch.Tensor:
     """Host integer array (e.g. a ``uint32`` constant column) → ``int64``
-    tensor on ``device``."""
-    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+    (or ``dtype``) tensor on ``device``: an upload, made anew at every call
+    (:func:`const` keeps what it uploads)."""
+    return torch.as_tensor(np.asarray(a, dtype=_NP_TYPES[dtype]), device=device)
+
+
+_NP_TYPES = {torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_,
+             torch.float32: np.float32}
+_CONSTS: dict = {}
+
+
+def const(a, device, dtype=torch.int64) -> torch.Tensor:
+    """A host constant fixed by a ring or a plan (a table, a CRT column, an
+    index list; never a value that comes with the data) as a tensor on
+    ``device``, uploaded once per content, dtype and device and kept for the
+    life of the process: a repeated call builds nothing from host data, so
+    the code around it can be captured into a CUDA graph
+    (:mod:`..utils.graphs`), whose replays read the kept tensor at its fixed
+    address. Callers never write to the result. A miss inside a capture
+    raises: the upload cannot be captured."""
+    arr = np.ascontiguousarray(np.asarray(a, dtype=_NP_TYPES[dtype]))
+    dev = canonical_device(device)
+    key = (dev, arr.dtype.str, arr.shape, arr.tobytes())
+    hit = _CONSTS.get(key)
+    if hit is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"constant {arr.shape} not on {dev} before the capture: "
+                               "run the function eagerly once first")
+        hit = _CONSTS[key] = as_residues(arr, dev, dtype)
+    return hit
 
 
 def _dev(mp: MontParams, x: torch.Tensor) -> MontParams:

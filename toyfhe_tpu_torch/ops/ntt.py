@@ -24,7 +24,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .modmath import MontParams, canonical_device, mont_mul_raw
+from .modmath import MontParams, as_residues, canonical_device, const, mont_mul_raw
 
 __all__ = ["NttTables", "ntt", "intt", "ntt_plain", "intt_plain",
            "galois_perm_tables", "apply_galois", "galois_dual_perm",
@@ -142,7 +142,7 @@ class NttTables:
         dev = canonical_device(device)
 
         def build():
-            t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+            t = lambda a: as_residues(a, dev)
             mp = self.mp.on(dev)
             return {
                 "p": mp.p, "rinv": mp.rinv,
@@ -231,9 +231,10 @@ def galois_perm_tables(n: int, galois_element: int):
 
 def apply_galois(mp: MontParams, x: torch.Tensor, src, neg) -> torch.Tensor:
     """Apply a precomputed Galois permutation to int64[..., L, N] primal
-    residues (``src`` / ``neg`` as host arrays or tensors)."""
-    src = torch.as_tensor(src, device=x.device)
-    neg = torch.as_tensor(neg, device=x.device)
+    residues (``src`` / ``neg`` as host arrays, kept on the device by
+    :func:`.modmath.const`, or tensors)."""
+    if not torch.is_tensor(src):
+        src, neg = const(src, x.device), const(neg, x.device, torch.bool)
     y = x.index_select(-1, src)
     return torch.where(neg, torch.remainder(-y, mp.on(x.device).p), y)
 
@@ -256,8 +257,7 @@ def galois_dual_perm_dev(n: int, galois_element: int, device) -> torch.Tensor:
     with the same few permutations on every call."""
     key = (n, int(galois_element), canonical_device(device))
     if key not in _DUAL_PERMS:
-        _DUAL_PERMS[key] = torch.as_tensor(galois_dual_perm(n, galois_element),
-                                           device=key[2])
+        _DUAL_PERMS[key] = as_residues(galois_dual_perm(n, galois_element), key[2])
     return _DUAL_PERMS[key]
 
 

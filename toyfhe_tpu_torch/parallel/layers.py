@@ -1,9 +1,11 @@
 """The compiled encrypted layers — the serving path.
 
 Port of ``toyfhe_tpu/parallel/layers.py``. Each layer is an ``nn.Module``
-whose key and constant tensors are registered buffers on the key's device;
-the reference's ``jax.jit`` programs become eager PyTorch, its
-``lax.fori_loop`` a Python loop. Every transform goes through
+whose key and constant tensors are registered buffers on the key's device.
+The reference's ``jax.jit`` of each layer becomes :func:`..utils.graphs.jit`:
+on CUDA inputs a layer replays a CUDA graph of its forward, captured at its
+first call; ``eager=True`` keeps it eager, and on CPU inputs it runs eagerly.
+Its ``lax.fori_loop`` is a Python loop. Every transform goes through
 :func:`..ops.ntt.ntt` / :func:`..ops.ntt.intt`: the CUDA kernel K1 for CUDA
 tensors, the plain radix-2 twin for CPU tensors.
 
@@ -35,6 +37,7 @@ from ..core import ring as R
 from ..core.ring import RingContext
 from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import MontParams, as_residues
+from ..utils import graphs
 from . import sharding as S
 
 
@@ -327,11 +330,35 @@ def _modraise_keyswitch_pair(ka: ModRaiseKeyArrays, d1_dual, d2_dual, d3p):
 # layers
 # ---------------------------------------------------------------------------
 
-class _RescaleBy(nn.Module):
+class _Compiled(nn.Module):
+    """A layer whose forward is compiled, as the reference's
+    ``jax.jit(self._build())``: on CUDA inputs :meth:`forward` replays a
+    CUDA graph of :meth:`compute` (:func:`..utils.graphs.jit`), on CPU
+    inputs it runs it eagerly; ``eager=True`` runs it eagerly on the card
+    too. Moving the layer (``.to``) drops its graphs."""
+
+    def __init__(self, eager: bool = False):
+        super().__init__()
+        self.eager = bool(eager)
+        self._compiled = None
+
+    def forward(self, *args):
+        if self.eager:
+            return self.compute(*args)
+        if self._compiled is None:
+            self._compiled = graphs.jit(self.compute, name=type(self).__name__)
+        return self._compiled(*args)
+
+    def _apply(self, fn, *args, **kwargs):
+        self._compiled = None
+        return super()._apply(fn, *args, **kwargs)
+
+
+class _RescaleBy(_Compiled):
     """Holds the rescale-by-the-last-prime constants of ``ct_ring``."""
 
-    def __init__(self, ct_ring: RingContext, device):
-        super().__init__()
+    def __init__(self, ct_ring: RingContext, device, eager: bool = False):
+        super().__init__(eager)
         qk = ct_ring.primes[-1]
         sub = ct_ring.drop_last()
         self.ct_ring, self.sub_ring = ct_ring, sub
@@ -342,7 +369,7 @@ class _RescaleBy(nn.Module):
         return _rescale_last(xp, self.sub_ring.mp, self.inv_q_mont)
 
 
-class RotateMatmulLayer(nn.Module):
+class RotateMatmulLayer(_Compiled):
     """Rotation-based diagonal matmul: d−1 Galois rotations with key
     switches and diagonal plaintext multiplies.
 
@@ -351,8 +378,9 @@ class RotateMatmulLayer(nn.Module):
     scale and NTT'd. The output ciphertext is dual-domain at scale².
     """
 
-    def __init__(self, params, gk, galois_element: int, d: int, ct_ring=None):
-        super().__init__()
+    def __init__(self, params, gk, galois_element: int, d: int, ct_ring=None,
+                 eager: bool = False):
+        super().__init__(eager)
         self.ka = build_key_arrays(params, gk.key, ct_ring)
         src, neg = self.ka.ct_ring.galois_tables(galois_element)
         dev = self.ka.masks.device
@@ -363,7 +391,7 @@ class RotateMatmulLayer(nn.Module):
     def galois(self, x: torch.Tensor) -> torch.Tensor:
         return nttmod.apply_galois(self.ka.ct_ring.mp, x, self.src, self.neg)
 
-    def forward(self, c1p, c2p, diag_dual):
+    def compute(self, c1p, c2p, diag_dual):
         ka = self.ka
         mp = ka.ct_ring.mp
         cd = _ntt_t(torch.stack([c1p, c2p], 0), ka.ct_ring)
@@ -382,12 +410,12 @@ class SquareRelinLayer(_RescaleBy):
     (..., Lc, N) components; output primal at the dropped tower
     (..., Lc−1, N) with scale²/q_last."""
 
-    def __init__(self, params, ek, ct_ring=None):
+    def __init__(self, params, ek, ct_ring=None, eager: bool = False):
         ka = build_key_arrays(params, ek.key, ct_ring)
-        super().__init__(ka.ct_ring, ka.masks.device)
+        super().__init__(ka.ct_ring, ka.masks.device, eager)
         self.ka = ka
 
-    def forward(self, c1p, c2p):
+    def compute(self, c1p, c2p):
         ka = self.ka
         mp = ka.ct_ring.mp
         cd = _ntt_t(torch.stack([c1p, c2p], 0), ka.ct_ring)
@@ -439,14 +467,14 @@ class ConvLayer(_RescaleBy):
     them."""
 
     def __init__(self, params, ct_ring=None, channels: int = 4,
-                 dual_out: bool = False):
+                 dual_out: bool = False, eager: bool = False):
         ct = ct_ring if ct_ring is not None else params.ring_cipher
-        super().__init__(ct, "cpu")
+        super().__init__(ct, "cpu", eager)
         self.channels = channels
         self.dual_out = dual_out
         self.dual_rescale = DualRescale(ct) if dual_out else None
 
-    def forward(self, cts_dual, w_res, bias_dual, place: "MeshPlacement" = None):
+    def compute(self, cts_dual, w_res, bias_dual, place: "MeshPlacement" = None):
         """With ``place``: ``cts_dual`` is this rank's block of the grid
         (its grid rows on 'dp', its limb rows on 'rp' where the level
         divides it) and the weights and biases are whole; the grid sum is
@@ -480,11 +508,11 @@ class BiasRescaleLayer(_RescaleBy):
     when ``dual_out``). Its constants are made on the CPU; ``.to(device)``
     moves them."""
 
-    def __init__(self, ct_ring: RingContext, dual_out: bool = False):
-        super().__init__(ct_ring, "cpu")
+    def __init__(self, ct_ring: RingContext, dual_out: bool = False, eager: bool = False):
+        super().__init__(ct_ring, "cpu", eager)
         self.dual_rescale = DualRescale(ct_ring) if dual_out else None
 
-    def forward(self, c1d, c2d, bias_dual):
+    def compute(self, c1d, c2d, bias_dual):
         c1d = modmath.add_mod(c1d, bias_dual, self.ct_ring.mp)
         stack = torch.stack([c1d, c2d], 0)
         if self.dual_rescale is not None:          # dual-domain boundary
@@ -546,7 +574,7 @@ class MeshPlacement:
         return S.all_sum(x, self.mesh, "dp", mp, site)
 
 
-class BatchEncryptor(nn.Module):
+class BatchEncryptor(_Compiled):
     """Batched CKKS public-key encryption under raising params: sample at the
     full tower, drop the raising limbs, add the plaintexts.
     ``forward(pts_primal (B, Lc, N), gen)`` → ct duals (B, 2, Lc, N) on the
@@ -558,8 +586,8 @@ class BatchEncryptor(nn.Module):
     limb's NTT depends on that limb alone, so this equals transforming the
     full tower and dropping the raising rows."""
 
-    def __init__(self, params, pub, sigma: float = 3.2):
-        super().__init__()
+    def __init__(self, params, pub, sigma: float = 3.2, eager: bool = False):
+        super().__init__(eager)
         full = params.params.ring_cipher
         ct = params.ring_cipher
         if full.primes[:ct.nlimbs] != ct.primes:
@@ -577,7 +605,7 @@ class BatchEncryptor(nn.Module):
                         device=self.mask_d.device) * self.sigma
         return torch.round(g).to(torch.int64)
 
-    def forward(self, pts_primal, gen: torch.Generator):
+    def compute(self, pts_primal, gen: torch.Generator):
         ct = self.ct_ring
         mp = ct.mp
         B, lc, n = pts_primal.shape

@@ -19,6 +19,12 @@ gadget are replicated on every rank, so its P-division needs no
 collective. A rank transforms its limbs with their own tables
 (``NttTables.select``), cut once when the step is built.
 
+On one device each builder returns its step compiled, as the reference's
+``jax.jit``: :func:`..utils.graphs.jit` replays a CUDA graph of the step on
+CUDA inputs (and runs it eagerly on CPU inputs); ``eager=True`` returns the
+plain step. The steps over a mesh stay eager: gloo collectives cannot be
+captured.
+
 The transforms go through :func:`..ops.ntt.ntt` / :func:`..ops.ntt.intt`:
 the CUDA kernel K1 for CUDA tensors, the plain radix-2 version for CPU
 tensors (the coefficient-sharded four-step is plain torch on the digit
@@ -37,6 +43,7 @@ from ..core.hybrid import _mont_col
 from ..core.rlwe import _hybrid_key_stack
 from ..ops import modmath, ntt as nttmod
 from ..ops.modmath import MontParams
+from ..utils import graphs
 from . import sharding as S
 from .sharding import Mesh
 
@@ -125,9 +132,14 @@ def rescale_inverses(primes) -> np.ndarray:
                      for p in primes], dtype=np.int64)
 
 
+def _compiled(step, eager: bool, name: str):
+    return step if eager else graphs.jit(step, name=name)
+
+
 def make_single_chip_step(tables: nttmod.NttTables, key_masks: torch.Tensor,
-                          key_maskeds: torch.Tensor):
-    """The square→relin→rescale step on the keys' device.
+                          key_maskeds: torch.Tensor, eager: bool = False):
+    """The square→relin→rescale step on the keys' device, compiled unless
+    ``eager``.
 
     ``key_masks`` / ``key_maskeds`` are the relinearization key stacks
     int64[L, L, N] (dual domain, digit-major). Returns ``step(c)`` on
@@ -137,13 +149,13 @@ def make_single_chip_step(tables: nttmod.NttTables, key_masks: torch.Tensor,
     if key_maskeds.device != device:
         raise ValueError("key stacks on different devices")
     tabs = full_table_pytree(tables, device)
-    rescale_inv = torch.as_tensor(rescale_inverses(tables.primes), device=device)
+    rescale_inv = modmath.as_residues(rescale_inverses(tables.primes), device)
 
     def step(c: torch.Tensor) -> torch.Tensor:
         return _square_relin_rescale_local(c, key_masks, key_maskeds,
                                            rescale_inv, tabs, tables)
 
-    return step
+    return _compiled(step, eager, "single_chip_step")
 
 
 def make_sharded_step(mesh: Mesh, tables: nttmod.NttTables, key_masks, key_maskeds):
@@ -343,7 +355,8 @@ def _placer(device):
 
 
 def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
-                             fused_schedule: bool = False, ct_ring=None, dp: bool = True):
+                             fused_schedule: bool = False, ct_ring=None, dp: bool = True,
+                             eager: bool = False):
     """The square→relin→rescale step for a HybridRaised parameter set, on
     the device of the eval key ``ek`` (an EvalMultKey), or over ``mesh``.
 
@@ -359,12 +372,12 @@ def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
     (:func:`make_hybrid_fused_step` on one device). ``ct_ring`` (default:
     the full ct tower) runs the step on a shortened tower, as the MNIST
     square layers do — an addition of the port, so that every flavour runs
-    at those levels."""
+    at those levels. On one device the step is compiled unless ``eager``."""
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a sharding.Mesh or None, got {type(mesh).__name__}")
     if fused_schedule:
         if mesh is None:
-            return make_hybrid_fused_step(params, ek, ct_ring)
+            return make_hybrid_fused_step(params, ek, ct_ring, eager=eager)
         return _make_hybrid_fused_sharded_step(mesh, params, ek, ct_ring, dp)
 
     ct_ring = ct_ring if ct_ring is not None else params.ring_cipher
@@ -413,7 +426,8 @@ def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
                                             rescale_inv, mps, bounds, tables, fks, mesh)
 
     if mesh is None:
-        return step, _placer(device)
+        return _compiled(step, eager, "hybrid_step_fused_k3" if fused else "hybrid_step"), \
+            _placer(device)
     return step, _mesh_placer(mesh, dp)
 
 
@@ -560,7 +574,8 @@ def _make_hybrid_fused_sharded_step(mesh: Mesh, params, ek, ct_ring, dp: bool):
     return step, _mesh_placer(mesh, dp)
 
 
-def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True):
+def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True,
+                           eager: bool = False):
     """Single-device square → hybrid relinearize → rescale with the fused
     transform schedule — bit-identical to :func:`make_hybrid_sharded_step`
     and to the engine, with fewer limb transforms:
@@ -580,7 +595,7 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True):
     transforms every group's digit rows in one call and merges the special
     and last-data-row inverse transforms into one call (derived towers with
     repeated primes). Returns (step, place) as
-    :func:`make_hybrid_sharded_step`.
+    :func:`make_hybrid_sharded_step`, the step compiled unless ``eager``.
     """
     ct_ring = ct_ring if ct_ring is not None else params.ring_cipher
     L, k = ct_ring.nlimbs, params.num_special
@@ -603,7 +618,7 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True):
     grp_out = []
     for (lo, hi) in bounds:
         out_idx = list(range(lo)) + list(range(hi, T))
-        grp_out.append((torch.tensor(out_idx, device=device),
+        grp_out.append((modmath.as_residues(out_idx, device),
                         exp_ring.select(out_idx).tables))
 
     # merged-call schedule: the FBC computes only the out-of-group rows,
@@ -727,4 +742,4 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True):
                            device=out.device)
         return torch.cat([out, zero], dim=-2)
 
-    return step, _placer(device)
+    return _compiled(step, eager, "hybrid_fused_step"), _placer(device)

@@ -61,7 +61,7 @@ def _per_limb(mesh, n_rp, n_dp, seed, device):
     counts = mesh.comm.snapshot()
     got = S.unshard(out, pops.DATA_SPEC, mesh)
     single = pops.make_single_chip_step(ring.tables, torch.as_tensor(km, device=device),
-                                        torch.as_tensor(kd, device=device))
+                                        torch.as_tensor(kd, device=device), eager=True)
     want = single(torch.as_tensor(batch, device=device))
     ok = bool(torch.equal(got, want)) and bool((got[:, :, -1] == 0).all())
     return {"ok": ok and bool(got[:, :, :L - 1].any()), "L": L, "shape": list(got.shape),
@@ -83,7 +83,7 @@ def _hybrid(mesh, n_rp, n_dp, device):
     ek = I.eval_mult_key(params, _synthetic(shape, kr.primes, 11), _synthetic(shape, kr.primes, 12),
                          device=device)
     batch = _synthetic((2 * n_dp, 2, L, DRY_N), params.ring_cipher.primes, 13)
-    single, splace = pops.make_hybrid_sharded_step(None, params, ek)
+    single, splace = pops.make_hybrid_sharded_step(None, params, ek, eager=True)
     want = single(splace(batch))
     out = {}
     for name, fused in (("v1", False), ("fused_schedule", True)):
@@ -103,7 +103,7 @@ def _pipeline(mesh, device):
     gks = M.keygen_matmul_bsgs(setup, torch.Generator(device).manual_seed(9))
     params = M.init_params(cfg, 3)
     imgs = np.random.default_rng(4).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
-    run = lambda **kw: M.build_inference_pipeline(setup, params, gks, **kw)(
+    run = lambda **kw: M.build_inference_pipeline(setup, params, gks, eager=True, **kw)(
         imgs, torch.Generator(device).manual_seed(6), _return_ct=True)
     ref = run()
     mesh.comm.reset()
@@ -135,7 +135,7 @@ def _three_axis(n, device):
     nat = torch.zeros_like(got)
     nat[..., torch.as_tensor(out_nat, device=got.device)] = got
     want = pops.make_single_chip_step(ring.tables, torch.as_tensor(km, device=device),
-                                      torch.as_tensor(kd, device=device))(
+                                      torch.as_tensor(kd, device=device), eager=True)(
         torch.as_tensor(batch, device=device))
     return {"ok": bool(torch.equal(nat, want)), "mesh": [n_dp, n_rp, n_cp], "N": nr, "L": L}
 

@@ -1,6 +1,7 @@
 """Where one encrypted-MNIST batch spends its time on the card.
 
     python3 -m toyfhe_tpu_torch.tools.profile_mnist [--schedule iterated|bsgs|both|bootstrapped]
+                                                    [--compiled]
 
 Builds the serving pipeline at ``MNISTConfig()`` with seeded random weights
 and images, warms it up, and runs one batch under ``torch.profiler``. For
@@ -9,7 +10,10 @@ dual flow, or the bootstrapped pipeline of ``mnist.BOOTSTRAPPED_RECIPE``)
 it prints the batch's wall time without the profiler, the profiled window,
 the number of device kernels, the device-busy time and its share of the
 unprofiled batch, and the kernels grouped by name; for the bootstrapped
-pipeline, the same for one refresh alone. Needs a CUDA device.
+pipeline, the same for one refresh alone. The pipelines run eagerly;
+``--compiled`` runs their compiled stages (one CUDA graph a stage,
+replayed) and the refresh as one compiled ``bootstrap``. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -69,6 +73,8 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule", choices=("iterated", "bsgs", "both", "bootstrapped"),
                     default="both")
     ap.add_argument("--seed", type=int, default=17)
+    ap.add_argument("--compiled", action="store_true",
+                    help="replay the pipelines' CUDA graphs instead of running them eagerly")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_mnist: no CUDA device available")
@@ -80,21 +86,27 @@ def main(argv=None) -> int:
     weights = M.init_params(cfg, args.seed)
     imgs = np.random.default_rng(args.seed).uniform(0.0, 1.0, (cfg.batch, cfg.image, cfg.image))
     print(f"device={torch.cuda.get_device_name(device)} N=2^{cfg.ring_logn} "
-          f"batch={cfg.batch}", flush=True)
+          f"batch={cfg.batch} {'compiled' if args.compiled else 'eager'}", flush=True)
+    eager = not args.compiled
     if args.schedule == "bootstrapped":
+        import functools
+
         from ..core import bootstrap as B
+        from ..utils import graphs
         setup, ctx = M.fhe_setup_bootstrapped(cfg, gen, **M.BOOTSTRAPPED_RECIPE)
         run = M.build_bootstrapped_pipeline(setup, ctx, weights,
-                                            prescale=M.BOOTSTRAPPED_PRESCALE)
+                                            prescale=M.BOOTSTRAPPED_PRESCALE, eager=eager)
         report("bootstrapped batch", profile_batch(run, imgs, gen, device))
         vals = np.random.default_rng(args.seed).uniform(-0.7, 0.7, cfg.positions * cfg.batch)
         c = encrypt_exhausted(setup, vals, gen)
-        report("one refresh", profile_batch(lambda *_: B.bootstrap(ctx, c), None, None, device))
+        refresh = functools.partial(B.bootstrap, ctx)
+        refresh = refresh if eager else graphs.jit(refresh)
+        report("one refresh", profile_batch(lambda *_: refresh(c), None, None, device))
         return 0
     setup = M.fhe_setup(cfg, gen)
     for schedule in (("iterated", "bsgs") if args.schedule == "both" else (args.schedule,)):
         gks = M.keygen_matmul_bsgs(setup, gen) if schedule == "bsgs" else None
-        run = M.build_inference_pipeline(setup, weights, gks_bsgs=gks)
+        run = M.build_inference_pipeline(setup, weights, gks_bsgs=gks, eager=eager)
         report(schedule, profile_batch(run, imgs, gen, device))
     return 0
 

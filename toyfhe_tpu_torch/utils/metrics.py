@@ -6,8 +6,9 @@ Port of ``toyfhe_tpu/utils/metrics.py``:
     and limb transforms (``ntt_limb_transform``, counted where the
     reference counts them) increment a process-wide counter: a per-workload
     op census without tracing. The reference counts while ``jit`` traces,
-    so a compiled function counts once however often it runs; the port is
-    eager and counts every call;
+    so a compiled function counts once however often it runs; the port
+    counts every call, eager or replayed (``utils.graphs`` adds a capture's
+    counts on each replay);
   * **timers** — :func:`timed` adds wall time under a name, synchronising
     the CUDA device (when one is in use) before it reads the clock at either
     end, so that the time covers the device work the block launched;
