@@ -203,4 +203,4 @@ def test_no_public_function_defaults_to_the_cpu():
             "golden.run_ckks_bootstrap", "golden.run_all", "host_engine.keyswitch",
             "generic_ring.GenericRing.mul", "polycrt.PolyCRTContext.encode",
             "refparams.bfv_reference_paramgen", "native.CrtNative.decode_bfv",
-            "metrics.timed", "ring.RingContext.native"} <= names
+            "metrics.span", "ring.RingContext.native"} <= names

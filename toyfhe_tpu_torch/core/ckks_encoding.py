@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..utils import numtheory as nt
+from ..utils.metrics import span
 from . import ring as R
 from . import rlwe
 from .ring import RingContext, RingElt
@@ -105,32 +106,36 @@ def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
     slots = np.asarray(slots, dtype=np.complex128)
     if slots.shape != (n // 2,):
         raise ValueError(f"expected {n // 2} slots, got shape {slots.shape}")
-    r1, r2 = zmstar_indices(n)
-    cmplx = np.zeros(n, dtype=np.complex128)
-    cmplx[r1] = slots
-    cmplx[r2] = np.conj(slots)
-    ipoints = np.fft.ifft(cmplx)
-    k = np.arange(n)
-    nipoints = ipoints * np.exp(2j * np.pi * k / (2 * n))
-    if not np.allclose(nipoints.imag, 0, atol=1e-9):
-        raise ValueError("CKKS encode: non-negligible imaginary part")
-    real = nipoints.real
-    # Fast path: when the scale is a power of two and the scaled magnitudes
-    # fit float64's integer range, ldexp+rint is exact.
-    if (scale.denominator == 1 and (scale.numerator & (scale.numerator - 1)) == 0
-            and float(np.max(np.abs(real), initial=0.0))
-            * nt.frac_to_float(scale) < 2 ** 52):
-        ints = np.rint(np.ldexp(real, scale.numerator.bit_length() - 1)).astype(np.int64)
-        out = np.mod(ints[None, :], np.asarray(ring.local.primes, dtype=np.int64)[:, None])
-    else:
-        q = ring.modulus
-        coeffs = []
-        for x in real:
-            v = Fraction(x) * scale
-            m = (2 * v.numerator + v.denominator) // (2 * v.denominator)  # round half up
-            coeffs.append(m % q)
-        out = ring.from_bigint(coeffs)
-    return RingElt(primal=torch.as_tensor(out, dtype=torch.int64, device=device))
+    with span("toyfhe.encode.slots"):
+        r1, r2 = zmstar_indices(n)
+        cmplx = np.zeros(n, dtype=np.complex128)
+        cmplx[r1] = slots
+        cmplx[r2] = np.conj(slots)
+    with span("toyfhe.encode.fft"):
+        ipoints = np.fft.ifft(cmplx)
+        k = np.arange(n)
+        nipoints = ipoints * np.exp(2j * np.pi * k / (2 * n))
+        if not np.allclose(nipoints.imag, 0, atol=1e-9):
+            raise ValueError("CKKS encode: non-negligible imaginary part")
+        real = nipoints.real
+    with span("toyfhe.encode.quantize"):
+        # Fast path: when the scale is a power of two and the scaled
+        # magnitudes fit float64's integer range, ldexp+rint is exact.
+        if (scale.denominator == 1 and (scale.numerator & (scale.numerator - 1)) == 0
+                and float(np.max(np.abs(real), initial=0.0))
+                * nt.frac_to_float(scale) < 2 ** 52):
+            ints = np.rint(np.ldexp(real, scale.numerator.bit_length() - 1)).astype(np.int64)
+            out = np.mod(ints[None, :], np.asarray(ring.local.primes, dtype=np.int64)[:, None])
+        else:
+            q = ring.modulus
+            coeffs = []
+            for x in real:
+                v = Fraction(x) * scale
+                m = (2 * v.numerator + v.denominator) // (2 * v.denominator)  # round half up
+                coeffs.append(m % q)
+            out = ring.from_bigint(coeffs)
+    with span("toyfhe.encode.upload"):
+        return RingElt(primal=torch.as_tensor(out, dtype=torch.int64, device=device))
 
 
 def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
@@ -139,18 +144,22 @@ def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
     reference's decode), or the exact CRT on a tower it cannot hold."""
     n = ring.n
     scale = Fraction(scale)
-    re = R.ensure_primal(ring, re)
-    arr = re.primal.cpu().numpy()
-    nat = ring.native()
-    if nat is not None:
-        vals = nat.decode_centered_double(arr) / nt.frac_to_float(scale)
-    else:
-        vals = np.array([nt.frac_to_float(Fraction(x) / scale) for x in ring.centered_ints(arr)])
-    k = np.arange(n)
-    multed = vals * np.exp(-2j * np.pi * k / (2 * n))
-    f = np.fft.fft(multed)
-    r1, _ = zmstar_indices(n)
-    return f[r1]
+    with span("toyfhe.decrypt.download"):
+        re = R.ensure_primal(ring, re)
+        arr = re.primal.cpu().numpy()
+    with span("toyfhe.decrypt.crt"):
+        nat = ring.native()
+        if nat is not None:
+            vals = nat.decode_centered_double(arr) / nt.frac_to_float(scale)
+        else:
+            vals = np.array([nt.frac_to_float(Fraction(x) / scale)
+                             for x in ring.centered_ints(arr)])
+    with span("toyfhe.decrypt.fft"):
+        k = np.arange(n)
+        multed = vals * np.exp(-2j * np.pi * k / (2 * n))
+        f = np.fft.fft(multed)
+        r1, _ = zmstar_indices(n)
+        return f[r1]
 
 
 # ---------------------------------------------------------------------------

@@ -373,11 +373,14 @@ def decrypt_raw(key, c: CipherText) -> RingElt:
 def decrypt(key, c: CipherText):
     """Σ cᵢ·sⁱ, then π, then the encoding's decode."""
     priv = key.priv if isinstance(key, KeyPair) else key
-    c = ct_gather(c)
-    dec = priv.params.decode(decrypt_raw(priv, c), c.ring)
-    if c.enc is not None:
-        return c.enc.decode(priv.params, dec, c.ring)
-    return dec
+    with metrics.span("toyfhe.decrypt"):
+        c = ct_gather(c)
+        with metrics.span("toyfhe.decrypt.raw"):
+            raw = decrypt_raw(priv, c)
+        dec = priv.params.decode(raw, c.ring)
+        if c.enc is not None:
+            return c.enc.decode(priv.params, dec, c.ring)
+        return dec
 
 
 # ---------------------------------------------------------------------------

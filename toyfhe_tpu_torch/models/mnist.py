@@ -66,6 +66,7 @@ from ..parallel import layers as JL
 from ..parallel import ops as pops
 from ..parallel.sharding import Mesh
 from ..utils import graphs
+from ..utils.metrics import span
 
 
 # ---------------------------------------------------------------------------
@@ -856,7 +857,10 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     ``eager=True`` runs them eagerly. ``run.encode(batch)`` is the host
     encode and ``run.forward(pts, gen)`` the stages from the encryption to
     the logits ciphertext; ``run.eager`` is the same pipeline (the same
-    layers and constants) with every stage eager, as ``run`` is.
+    layers and constants) with every stage eager, as ``run`` is. Under a
+    running ``torch.profiler`` a call of ``run`` is a ``toyfhe.run`` span
+    holding ``toyfhe.encode``, ``toyfhe.forward`` (a ``toyfhe.stage.<name>``
+    a stage) and ``toyfhe.decrypt`` (:func:`..utils.metrics.span`).
 
     ``mesh`` (a ('dp', 'rp') :class:`..parallel.sharding.Mesh` whose
     device holds the keys): the sharded pipeline, run by every rank of the
@@ -1022,45 +1026,49 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
     def encode(batch: np.ndarray) -> torch.Tensor:
         """The host encode of a batch: the k×k grid's slot vectors as primal
         plaintexts [G, L0, N] on the keys' device."""
-        I = public_preprocess(cfg, batch)
-        return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
-                            for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+        with span("toyfhe.encode"):
+            with span("toyfhe.encode.preprocess"):
+                I = public_preprocess(cfg, batch)
+            return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
+                                for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
 
     def forward(pts: torch.Tensor, gen: torch.Generator, clock, S) -> CipherText:
-        cts = S(encrypt_stage)(pts, gen)                   # (G, 2, L0, N) dual
-        clock("encrypt")
-        conv_out = S(conv_stage)(cts)                      # its channels and L1 rows
-        clock("conv")
-        o = S(sq1)(conv_out)                               # (C, 2, L2, N), dual or primal
-        clock("square1")
-        fq1_1, fq1_2 = S(dense1)(o[:, 0], o[:, 1])         # dual at s2²
-        clock("dense1")
-        f1p, f2p = S(bias_rescale)(fq1_1, fq1_2)           # (L3, N)
-        clock("bias_rescale")
-        sq2_in = torch.stack([f1p, f2p], 0)[None]
-        if place is not None:
-            sq2_in = place.cut_rows(sq2_in, ring3.nlimbs)
-        g = S(sq2)(sq2_in)[0]                              # (2, L4, N)
-        clock("square2")
-        r1, r2 = S(dense2)(g[0], g[1])                     # dual at s4², with the bias
-        clock("dense2")
-        return CipherText(params, (RingElt(dual=r1), RingElt(dual=r2)), ring4,
-                          enc=CKKSTag(Fraction(s5)))
+        with span("toyfhe.forward"):
+            cts = S(encrypt_stage)(pts, gen)                   # (G, 2, L0, N) dual
+            clock("encrypt")
+            conv_out = S(conv_stage)(cts)                      # its channels and L1 rows
+            clock("conv")
+            o = S(sq1)(conv_out)                               # (C, 2, L2, N), dual or primal
+            clock("square1")
+            fq1_1, fq1_2 = S(dense1)(o[:, 0], o[:, 1])         # dual at s2²
+            clock("dense1")
+            f1p, f2p = S(bias_rescale)(fq1_1, fq1_2)           # (L3, N)
+            clock("bias_rescale")
+            sq2_in = torch.stack([f1p, f2p], 0)[None]
+            if place is not None:
+                sq2_in = place.cut_rows(sq2_in, ring3.nlimbs)
+            g = S(sq2)(sq2_in)[0]                              # (2, L4, N)
+            clock("square2")
+            r1, r2 = S(dense2)(g[0], g[1])                     # dual at s4², with the bias
+            clock("dense2")
+            return CipherText(params, (RingElt(dual=r1), RingElt(dual=r2)), ring4,
+                              enc=CKKSTag(Fraction(s5)))
 
     def runner(S):
         def run(batch: np.ndarray, gen: torch.Generator, _return_ct: bool = False,
                 layer_times: Optional[dict] = None):
-            clock = _LayerClock(device, layer_times)
-            # ---- per request: encode the inputs, then the compiled stages ----
-            pts = encode(batch)
-            clock("encode")
-            out = forward(pts, gen, clock, S)
-            if _return_ct:
-                return out
-            dec = decrypt(setup.kp, out).real
-            clock("decrypt")
-            mat = dec.reshape(cfg.positions, cfg.batch)
-            return mat[:cfg.classes, :]
+            with span("toyfhe.run"):
+                clock = _LayerClock(device, layer_times)
+                # ---- per request: encode the inputs, then the compiled stages ----
+                pts = encode(batch)
+                clock("encode")
+                out = forward(pts, gen, clock, S)
+                if _return_ct:
+                    return out
+                dec = decrypt(setup.kp, out).real
+                clock("decrypt")
+                mat = dec.reshape(cfg.positions, cfg.batch)
+                return mat[:cfg.classes, :]
 
         run.encode = encode
         run.forward = lambda pts, gen: forward(pts, gen, _LayerClock(device, None), S)
@@ -1205,7 +1213,8 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
     eagerly. ``run.encode(batch)`` is the host encode and
     ``run.forward(pts, gen)`` the stages from the encryption to the
     logits ciphertext; ``run.eager`` is the same pipeline with every
-    stage eager, as ``run`` is."""
+    stage eager, as ``run`` is. Its spans are those of
+    :func:`build_inference_pipeline`'s ``run``."""
     cfg = setup.cfg
     params = setup.params
     device = setup.kp.pub.key.mask.device
@@ -1321,39 +1330,43 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
 
     def encode(batch: np.ndarray) -> torch.Tensor:
         """The host encode of a batch (as :func:`build_inference_pipeline`'s)."""
-        I = public_preprocess(cfg, batch)
-        return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
-                            for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+        with span("toyfhe.encode"):
+            with span("toyfhe.encode.preprocess"):
+                I = public_preprocess(cfg, batch)
+            return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
+                                for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
 
     def forward(pts: torch.Tensor, gen: torch.Generator, clock, S) -> CipherText:
-        cts = S(encrypt_stage)(pts, gen)                   # (G, 2, L0, N) dual
-        clock("encrypt")
-        conv_out = S(conv_stage)(cts)                      # (C, 2, L1, N) primal
-        clock("conv")
-        o1, o2 = S(sq1_stage)(conv_out[:, 0], conv_out[:, 1])  # (C, L2, N) primal
-        clock("square1")
-        fq1_1, fq1_2 = S(dense1)(o1, o2)                   # dual at s2²
-        clock("dense1")
-        f1p, f2p = S(bias_rescale)(fq1_1, fq1_2)           # (L3, N) primal
-        clock("bias_rescale")
-        g1, g2 = S(sq2_stage)(f1p, f2p)                    # (L4, N) primal
-        clock("square2")
-        exhausted = S(exhaust)(g1, g2)
-        clock("exhaust")
-        refreshed = refresh(exhausted, clock, S)
-        out = S(dense2_stage)(refreshed)
-        clock("dense2")
-        return out
+        with span("toyfhe.forward"):
+            cts = S(encrypt_stage)(pts, gen)                   # (G, 2, L0, N) dual
+            clock("encrypt")
+            conv_out = S(conv_stage)(cts)                      # (C, 2, L1, N) primal
+            clock("conv")
+            o1, o2 = S(sq1_stage)(conv_out[:, 0], conv_out[:, 1])  # (C, L2, N) primal
+            clock("square1")
+            fq1_1, fq1_2 = S(dense1)(o1, o2)                   # dual at s2²
+            clock("dense1")
+            f1p, f2p = S(bias_rescale)(fq1_1, fq1_2)           # (L3, N) primal
+            clock("bias_rescale")
+            g1, g2 = S(sq2_stage)(f1p, f2p)                    # (L4, N) primal
+            clock("square2")
+            exhausted = S(exhaust)(g1, g2)
+            clock("exhaust")
+            refreshed = refresh(exhausted, clock, S)
+            out = S(dense2_stage)(refreshed)
+            clock("dense2")
+            return out
 
     def runner(S):
         def run(batch: np.ndarray, gen: torch.Generator, layer_times: Optional[dict] = None):
-            clock = _LayerClock(device, layer_times)
-            pts = encode(batch)
-            clock("encode")
-            out = forward(pts, gen, clock, S)
-            logits = _decrypt_logits(setup, out)
-            clock("decrypt")
-            return logits, out.ring.nlimbs
+            with span("toyfhe.run"):
+                clock = _LayerClock(device, layer_times)
+                pts = encode(batch)
+                clock("encode")
+                out = forward(pts, gen, clock, S)
+                logits = _decrypt_logits(setup, out)
+                clock("decrypt")
+                return logits, out.ring.nlimbs
 
         run.exhaust = lambda ct: _exhaust(boot_ctx, ct, prescale)
         run.dense2 = dense2

@@ -50,6 +50,13 @@ each captured graph is kept beside its instantiation (``keep_graph``), and
 ``Pool.graphs[i].kernel_names()`` lists its kernel nodes through the CUDA
 graph API of ``libcuda`` (``_Graph.replays`` counts its replays).
 
+Under a running ``torch.profiler`` each call is a ``toyfhe.stage.<name>``
+span (:func:`.metrics.span`) holding a ``toyfhe.capture`` span where it
+captures and, around a replay, ``toyfhe.replay.inputs`` (the input copies
+and the generator states), ``toyfhe.replay.launch`` (the graph's launch)
+and ``toyfhe.replay.outputs`` (the counters, the output clones and the
+unflatten). A call that runs inline inside another's body opens none.
+
 On CPU inputs :func:`jit` calls the function eagerly: that is the plain
 version the CPU tests run. On CUDA inputs it captures or raises
 (:class:`CaptureError`): a failed capture, a sync or an upload of host data
@@ -72,6 +79,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+from .metrics import span
 
 __all__ = ["CaptureError", "Pool", "jit", "capturing", "counters", "trace", "tracing"]
 
@@ -260,20 +269,23 @@ class _Graph:
         return self._kernels
 
     def replay(self, leaves: list):
-        for x, buf in zip(leaves, self.static):
-            if isinstance(x, torch.Tensor):
-                buf.copy_(x)
-        for i, own in self.gens.items():
-            own.set_state(leaves[i].get_state())
-        self.graph.replay()
+        with span("toyfhe.replay.inputs"):
+            for x, buf in zip(leaves, self.static):
+                if isinstance(x, torch.Tensor):
+                    buf.copy_(x)
+            for i, own in self.gens.items():
+                own.set_state(leaves[i].get_state())
+        with span("toyfhe.replay.launch"):
+            self.graph.replay()
         self.replays += 1
-        for i, own in self.gens.items():
-            leaves[i].set_state(own.get_state())
-        for c, d in zip(counters(), self.deltas):
-            for k, v in d.items():
-                c[k] = c.get(k, 0) + v
-        outs = [y.clone() if isinstance(y, torch.Tensor) else y for y in self.out_leaves]
-        return pytree.tree_unflatten(outs, self.out_spec)
+        with span("toyfhe.replay.outputs"):
+            for i, own in self.gens.items():
+                leaves[i].set_state(own.get_state())
+            for c, d in zip(counters(), self.deltas):
+                for k, v in d.items():
+                    c[k] = c.get(k, 0) + v
+            outs = [y.clone() if isinstance(y, torch.Tensor) else y for y in self.out_leaves]
+            return pytree.tree_unflatten(outs, self.out_spec)
 
 
 class Compiled:
@@ -283,23 +295,29 @@ class Compiled:
         self.fn = fn
         self.pool = pool if pool is not None else Pool()
         self.name = name
+        self.span_name = f"toyfhe.stage.{name}"
         self._graphs: Dict[Any, List[tuple]] = {}
 
     def __call__(self, *args, **kwargs):
-        leaves, spec = pytree.tree_flatten((args, kwargs))
-        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        if tracing() or not any(t.is_cuda for t in tensors):
+        if tracing():
             return self.fn(*args, **kwargs)
-        if len({t.device for t in tensors}) != 1:
-            raise ValueError("jit needs every tensor argument on one CUDA device")
-        firsts: dict = {}
-        key = tuple(_leaf_key(x, i, firsts) for i, x in enumerate(leaves))
-        for got_spec, g in self._graphs.get(key, ()):
-            if got_spec == spec:
-                return g.replay(leaves)
-        g = self._capture(leaves, spec, tensors[0].device, sorted(set(firsts.values())))
-        self._graphs.setdefault(key, []).append((spec, g))
-        return g.replay(leaves)
+        with span(self.span_name):
+            leaves, spec = pytree.tree_flatten((args, kwargs))
+            tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+            if not any(t.is_cuda for t in tensors):
+                return self.fn(*args, **kwargs)
+            if len({t.device for t in tensors}) != 1:
+                raise ValueError("jit needs every tensor argument on one CUDA device")
+            firsts: dict = {}
+            key = tuple(_leaf_key(x, i, firsts) for i, x in enumerate(leaves))
+            for got_spec, g in self._graphs.get(key, ()):
+                if got_spec == spec:
+                    return g.replay(leaves)
+            with span("toyfhe.capture"):
+                g = self._capture(leaves, spec, tensors[0].device,
+                                  sorted(set(firsts.values())))
+            self._graphs.setdefault(key, []).append((spec, g))
+            return g.replay(leaves)
 
     def _capture(self, leaves: list, spec, device, gen_at: list) -> _Graph:
         def inputs(gens: dict) -> list:

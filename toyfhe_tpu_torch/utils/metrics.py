@@ -1,4 +1,4 @@
-"""Op counters, timers, profiler traces and roofline helpers.
+"""Op counters, spans, profiler traces and roofline helpers.
 
 Port of ``toyfhe_tpu/utils/metrics.py``:
 
@@ -9,11 +9,12 @@ Port of ``toyfhe_tpu/utils/metrics.py``:
     so a compiled function counts once however often it runs; the port
     counts every call, eager or replayed (``utils.graphs`` adds a capture's
     counts on each replay);
-  * **timers** — :func:`timed` adds wall time under a name, synchronising
-    the CUDA device (when one is in use) before it reads the clock at either
-    end, so that the time covers the device work the block launched;
+  * **spans** — :func:`span` marks a stretch of host work with a ``toyfhe.``
+    name while a ``torch.profiler`` runs, on the timeline the profiler
+    gives the device's kernels, and costs one flag check otherwise;
   * **profiler traces** — :func:`profile_trace` records a ``torch.profiler``
-    trace of CPU and CUDA activity to a Chrome trace file;
+    trace of CPU and CUDA activity, the spans among it, to a Chrome trace
+    file;
   * **roofline helpers** — analytic byte counts of the hot kernels, and the
     least time those bytes take at a memory rate (by default an NVIDIA
     H100's 3.35 TB/s, the bound ``chip_smoke.py`` uses).
@@ -24,7 +25,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
-import time
 from typing import Dict, Iterator
 
 import torch
@@ -32,7 +32,6 @@ import torch
 H100_HBM_GBPS = 3350.0      # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3
 
 counters: Dict[str, int] = collections.defaultdict(int)
-timers: Dict[str, float] = collections.defaultdict(float)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -41,33 +40,53 @@ def count(name: str, n: int = 1) -> None:
 
 def reset() -> None:
     counters.clear()
-    timers.clear()
 
 
 def snapshot() -> Dict[str, int]:
     return dict(counters)
 
 
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+class _NoSpan:
+    """What :func:`span` returns while no profiler runs: one shared no-op
+    (cheaper to enter than ``contextlib.nullcontext``)."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, typ, value, tb) -> None:
+        return None
 
 
-@contextlib.contextmanager
-def timed(name: str) -> Iterator[None]:
-    _sync()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _sync()
-        timers[name] += time.perf_counter() - t0
+NO_SPAN = _NoSpan()
+
+
+def span(name: str):
+    """A context that marks the block as ``name`` (``toyfhe.<layer>...``)
+    in the trace of a running ``torch.profiler``: a host event on the
+    profiler's timeline, nested by the host thread's call stack. Without a
+    profiler it is :data:`NO_SPAN`.
+
+    The event is a function-scope record function, not a
+    ``record_function`` user annotation: a user annotation is also drawn
+    on the device's timeline, over the kernels it launched, where a reader
+    of device time would count it as work. The class is private to torch:
+    this was verified on torch 2.13 (CPU) and 2.11 (CUDA 12.8, H100), and
+    ``tests/test_torch_spans.py`` fails if it goes or its event stops being
+    a host event."""
+    if not torch.autograd._profiler_enabled():
+        return NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
 def profile_trace(logdir: str) -> Iterator[None]:
     """Record a ``torch.profiler`` trace of CPU and CUDA activity into
-    ``logdir/trace.json`` (Chrome / Perfetto format)."""
+    ``logdir/trace.json`` (Chrome / Perfetto format). Wrapped around
+    requests, the trace holds the program's ``toyfhe.`` spans and the
+    kernels on one timeline: each stretch where the device idles lies
+    under the span of the host work it waited on."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
