@@ -66,8 +66,8 @@ def test_refresh_equals_jitted_reference(fx, monkeypatch):
     stored = len(tctx.plain_cache)
     assert stored > 0
     calls = []
-    real = TCE.ckks_encode
-    monkeypatch.setattr(TCE, "ckks_encode", lambda *a: calls.append(1) or real(*a))
+    real = TCE.ckks_encode_batch
+    monkeypatch.setattr(TCE, "ckks_encode_batch", lambda *a: calls.append(1) or real(*a))
     warm = TB.bootstrap(tctx, tc)
     assert_same(fx["ref"], warm)
     assert not calls and len(tctx.plain_cache) == stored

@@ -170,15 +170,15 @@ def test_encode_cache_reuses_encodes(fx, monkeypatch):
     vecs = fx["rng"].uniform(-1, 1, (2, H))
     ref = RCE.add_plain(RCE.mul_plain_vectors(RL.ct_stack([c, c2]), vecs), 0.5)
     store = {}
-    calls = []
-    real = TCE.ckks_encode
-    monkeypatch.setattr(TCE, "ckks_encode", lambda *a: calls.append(1) or real(*a))
+    calls = []                                     # vectors a batch encode
+    real = TCE.ckks_encode_batch
+    monkeypatch.setattr(TCE, "ckks_encode_batch", lambda *a: calls.append(len(a[1])) or real(*a))
     for _ in range(2):
         with TCE.encode_cache(store):
             got = TCE.add_plain(TCE.mul_plain_vectors(TL.ct_stack([tc, tc2]), vecs,
                                                       key=("w",)), 0.5)
         assert_same(ref, got)
-    assert len(store) == 2 and len(calls) == 3     # two vectors and one constant, once
+    assert len(store) == 2 and calls == [2, 1]     # two vectors and one constant, once
     got = TCE.add_plain(TCE.mul_plain_vectors(TL.ct_stack([tc, tc2]), vecs, key=("w",)), 0.5)
     assert_same(ref, got)
-    assert len(calls) == 6                         # no store: encoded again
+    assert calls == [2, 1] * 2                     # no store: encoded again

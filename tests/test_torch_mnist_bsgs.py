@@ -227,11 +227,11 @@ def test_no_diagonal_is_encoded_per_batch(small, monkeypatch):
     encodes the input grid and nothing else."""
     tsetup, tcfg = small["tsetup"], small["tcfg"]
     run = TM.build_inference_pipeline(tsetup, small["params"], gks_bsgs=small["tgks"])
-    calls = []
-    real = TM.ckks_encode
-    monkeypatch.setattr(TM, "ckks_encode", lambda *a, **k: calls.append(1) or real(*a, **k))
     from toyfhe_tpu_torch.core import ckks_encoding
-    monkeypatch.setattr(ckks_encoding, "ckks_encode",
-                        lambda *a, **k: calls.append(2) or real(*a, **k))
+    calls = []                                     # vectors of each encode
+    real, real_batch = TM.ckks_encode, ckks_encoding.ckks_encode_batch
+    monkeypatch.setattr(TM, "ckks_encode", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(ckks_encoding, "ckks_encode_batch",
+                        lambda *a, **k: calls.append(len(a[1])) or real_batch(*a, **k))
     run(small["imgs"], torch.Generator().manual_seed(1), _return_ct=True)
-    assert calls == [1] * tcfg.kernel ** 2
+    assert calls == [tcfg.kernel ** 2]             # the grid, as one batch

@@ -4,11 +4,14 @@ One request of each tiny pipeline (N = 2^6: 8×8 images, a 4×4 kernel,
 stride 4, 2 channels, 4 classes) under ``torch.profiler`` holds the span
 tree — its names, how many of each, and each span's nearest spanned
 ancestor; without a profiler the same request opens no span and records
-nothing; CPU and eager calls capture nothing. A span is a host event of
-the profiler, not a user annotation (which kineto also draws on the
-device's timeline). The ``cuda`` tests hold, on the card, that one capture
-is recorded once and replays add none, that a replay's spans nest inside
-its stage's, and that no span reaches the device's timeline.
+nothing; CPU and eager calls capture nothing. A request encodes its grid
+as one batch (the counters ``ckks.encode_batches`` and
+``ckks.encode_vectors``, at the production 7×7 kernel). A span is a host
+event of the profiler, not a user annotation (which kineto also draws on
+the device's timeline). The ``cuda`` tests hold, on the card, that one
+capture is recorded once and replays add none, that a replay's spans nest
+inside its stage's, that no span reaches the device's timeline, and that a
+request's encode on the card equals the CPU's.
 """
 
 from collections import Counter
@@ -24,6 +27,7 @@ from toyfhe_tpu_torch.utils import graphs, metrics
 torch.set_num_threads(1)
 
 SMALL = dict(image=8, kernel=4, stride=4, channels=2, classes=4, ring_logn=6)
+GRID7 = dict(image=10, kernel=7, stride=3, channels=2, classes=4, ring_logn=6)   # 49 vectors
 BOOT = dict(depth=46, K=5.0, deg=24, scale_limbs=2, radix=16, arcsin=True, double_angle=2,
             hamming_weight=4)
 BSGS_STAGES = ("encrypt", "conv", "square1", "dense1", "bias_rescale", "square2", "dense2")
@@ -33,8 +37,8 @@ ENCODE = ("slots", "fft", "quantize", "upload")
 DECRYPT = ("raw", "download", "crt", "fft")
 
 
-def build(kind: str, device):
-    cfg = M.MNISTConfig(**SMALL)
+def build(kind: str, device, shape=SMALL):
+    cfg = M.MNISTConfig(**shape)
     gen = torch.Generator(device=device).manual_seed(1)
     weights = M.init_params(cfg, 2)
     if kind == "bsgs":
@@ -78,16 +82,17 @@ def spans(prof):
     return out
 
 
-def expected_tree(stages, grid: int, replays: bool, server: bool = False) -> Counter:
+def expected_tree(stages, replays: bool, server: bool = False) -> Counter:
     """Counts of (span, nearest spanned ancestor) of one request: a
-    pipeline call, or the server's request (``forward``, then decrypt)."""
+    pipeline call, or the server's request (``forward``, then decrypt). The
+    grid's vectors are encoded as one batch: each encode span once."""
     top = None if server else "toyfhe.run"
     want = Counter({("toyfhe.forward", top): 1, ("toyfhe.decrypt", top): 1})
     if not server:
         want.update({("toyfhe.run", None): 1, ("toyfhe.encode", "toyfhe.run"): 1,
                      ("toyfhe.encode.preprocess", "toyfhe.encode"): 1})
         for part in ENCODE:
-            want[(f"toyfhe.encode.{part}", "toyfhe.encode")] = grid
+            want[(f"toyfhe.encode.{part}", "toyfhe.encode")] = 1
     for part in DECRYPT:
         want[(f"toyfhe.decrypt.{part}", "toyfhe.decrypt")] = 1
     for st in stages:
@@ -107,10 +112,21 @@ def test_a_request_holds_the_span_tree(pipelines, kind):
     got = spans(prof)
     assert not any(dev for _, _, dev in got)
     tree = Counter((n, p) for n, p, _ in got)
-    assert tree == expected_tree(stages, cfg.kernel ** 2, replays=False)
-    # run, encode, preprocess, forward; 4 a grid vector; 1 a stage (eager
-    # on the CPU: no replay spans); decrypt and its 4
-    assert len(got) == 4 + 4 * cfg.kernel ** 2 + len(stages) + 5
+    assert tree == expected_tree(stages, replays=False)
+    # run, encode, preprocess, forward; the batch encode's 4; 1 a stage
+    # (eager on the CPU: no replay spans); decrypt and its 4
+    assert len(got) == 4 + 4 + len(stages) + 5
+
+
+@pytest.mark.parametrize("kind", ["bsgs", "boot"])
+def test_a_request_encodes_its_grid_as_one_batch(kind):
+    cfg, setup, run, imgs, gen = build(kind, torch.device("cpu"), GRID7)
+    run(imgs, gen)
+    metrics.reset()
+    run(imgs, gen)
+    got = metrics.snapshot()
+    assert cfg.grid ** 2 == 49
+    assert got["ckks.encode_batches"] == 1 and got["ckks.encode_vectors"] == 49
 
 
 def test_the_server_request_holds_forward_and_decrypt(pipelines):
@@ -119,7 +135,7 @@ def test_the_server_request_holds_forward_and_decrypt(pipelines):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         M._decrypt_logits(setup, run.forward(pts, gen))
     tree = Counter((n, p) for n, p, _ in spans(prof))
-    assert tree == expected_tree(BSGS_STAGES, cfg.kernel ** 2, replays=False, server=True)
+    assert tree == expected_tree(BSGS_STAGES, replays=False, server=True)
 
 
 @pytest.mark.parametrize("kind", ["bsgs", "boot"])
@@ -219,8 +235,21 @@ def test_cuda_request_spans_nest_and_stay_off_the_device():
     assert len(run.pool.captures) == len(BSGS_STAGES)
     got = spans(second)
     assert not any(dev_ for _, _, dev_ in got)
-    assert Counter((n, p) for n, p, _ in got) == expected_tree(
-        BSGS_STAGES, cfg.kernel ** 2, replays=True)
+    assert Counter((n, p) for n, p, _ in got) == expected_tree(BSGS_STAGES, replays=True)
     kinds = torch.autograd.DeviceType.CUDA
     kernels = [ev.name for ev in second.events() if ev.device_type == kinds]
     assert kernels and not any(k.startswith("toyfhe.") for k in kernels)
+
+
+@pytest.mark.cuda
+def test_cuda_a_request_encode_equals_the_cpu():
+    """The grid's residues reduced on the card equal those reduced on the
+    CPU, bit for bit, in both pipelines (the encode reads no key)."""
+    dev = _card()
+    for kind in ("bsgs", "boot"):
+        _, _, run_cpu, imgs, _ = build(kind, torch.device("cpu"), GRID7)
+        _, _, run_card, _, _ = build(kind, dev, GRID7)
+        want = run_cpu.encode(imgs)
+        got = run_card.encode(imgs)
+        assert got.device.type == "cuda" and got.dtype == torch.int64
+        assert torch.equal(got.cpu(), want)

@@ -3,10 +3,13 @@
 Port of ``toyfhe_tpu/core/ckks_encoding.py``: ℂ^{N/2} slots via the
 conjugate-symmetric embedding with the ψ-twist that makes the FFT
 negacyclic, and the ℤm* slot permutation that makes Galois act as a
-circular shift. Encode and decode run on the host in float64 with exact
-big-integer quantization (as in the reference); the encoded residues are
-then placed on the requested device, and decode reads them back through
-the exact Python CRT path.
+circular shift. Encode runs on the host in float64 over a whole batch of
+slot vectors (:func:`ckks_encode_batch`; :func:`ckks_encode` is its batch
+of one) with the reference's quantization, exact big-integer where the
+scale asks for it; the rounded coefficients go to the requested device
+once, as int64, and are reduced there mod each limb. The ℤm* map and the
+twists are built once per ring degree. Decode reads the residues back
+through the C++ CRT (or the exact Python CRT).
 
 The plaintext operations keep the reference's exact scale algebra: every
 scale tag is a ``Fraction``, and :func:`ct_to` / :func:`mul_plain_scalar_at`
@@ -21,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from fractions import Fraction
 from typing import Optional, Union
@@ -28,7 +32,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..utils import numtheory as nt
+from ..utils import metrics, numtheory as nt
 from ..utils.metrics import span
 from . import ring as R
 from . import rlwe
@@ -38,10 +42,12 @@ from .rlwe import CipherText
 ScaleLike = Union[int, Fraction]
 
 
+@functools.lru_cache(maxsize=None)
 def zmstar_indices(n: int) -> tuple:
     """Rows of the ℤ_{2N}* permutation matrix, already halved: for
     j = 1..N/2, row1[j] = (3^j mod 2N) >> 1 indexes the kept
-    (non-conjugate) FFT bin, row2[j] its conjugate partner."""
+    (non-conjugate) FFT bin, row2[j] its conjugate partner. Built once per
+    ``n``; the arrays every caller shares are read-only."""
     m = 2 * n
     r1 = np.empty(n // 2, dtype=np.int64)
     r2 = np.empty(n // 2, dtype=np.int64)
@@ -50,7 +56,33 @@ def zmstar_indices(n: int) -> tuple:
         g = g * 3 % m
         r1[j] = g >> 1
         r2[j] = (m - g) >> 1
+    r1.setflags(write=False)
+    r2.setflags(write=False)
     return r1, r2
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_source(n: int) -> np.ndarray:
+    """The inverse of the ℤm* map: for each of the N FFT bins, its source
+    in a row ``[slots | conj(slots) | 0]`` (row2 after row1, as the
+    reference's two scatters; N, the zero, for a bin neither reaches).
+    Built once per ``n``, read-only."""
+    r1, r2 = zmstar_indices(n)
+    src = np.full(n, n, dtype=np.int64)
+    src[r1] = np.arange(n // 2)
+    src[r2] = n // 2 + np.arange(n // 2)
+    src.setflags(write=False)
+    return src
+
+
+@functools.lru_cache(maxsize=None)
+def _twist(n: int, decode: bool) -> np.ndarray:
+    """The ψ-twist exp(2πik/2N), k = 0..N-1, of the encode, or its inverse
+    exp(−2πik/2N) of the decode: built once per ``n``, read-only."""
+    k = np.arange(n)
+    t = np.exp(-2j * np.pi * k / (2 * n)) if decode else np.exp(2j * np.pi * k / (2 * n))
+    t.setflags(write=False)
+    return t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,45 +129,68 @@ def make_plaintext(ring: RingContext, values, scale: ScaleLike) -> CKKSPlaintext
 
 
 def ckks_encode(ring: RingContext, slots, scale: ScaleLike, device) -> RingElt:
-    """slots ∈ ℂ^{N/2} → ring element on ``device``: conjugate-symmetrize
-    through the ℤm* permutation, inverse FFT, ψ-twist, then exact
-    big-integer quantization by the scale. On a sharded tower, the rows
-    this rank holds."""
+    """slots ∈ ℂ^{N/2} → ring element on ``device``: the batch of one of
+    :func:`ckks_encode_batch`."""
     n = ring.n
-    scale = Fraction(scale)
     slots = np.asarray(slots, dtype=np.complex128)
     if slots.shape != (n // 2,):
         raise ValueError(f"expected {n // 2} slots, got shape {slots.shape}")
+    return RingElt(primal=ckks_encode_batch(ring, slots[None], scale, device)[0])
+
+
+def ckks_encode_batch(ring: RingContext, slots, scale: ScaleLike, device) -> torch.Tensor:
+    """slots ℂ^{G × N/2} → int64 residues [G, L, N] on ``device``, each row
+    the reference's encode of its vector: conjugate-symmetrize through the
+    ℤm* permutation, inverse FFT, ψ-twist, then quantization by the scale,
+    all in float64 over the whole batch on the host. A power-of-two scale
+    whose scaled magnitudes fit float64's integer range rounds with
+    ldexp + rint (exact); any other vector takes the exact big-integer
+    loop. The rounded coefficients are uploaded once as int64 [G, N] and
+    reduced on the device mod each limb. On a sharded tower, the rows this
+    rank holds."""
+    n = ring.n
+    scale = Fraction(scale)
+    slots = np.asarray(slots, dtype=np.complex128)
+    if slots.ndim != 2 or slots.shape[1] != n // 2:
+        raise ValueError(f"expected [G, {n // 2}] slots, got shape {slots.shape}")
+    g = slots.shape[0]
+    metrics.count("ckks.encode_batches")
+    metrics.count("ckks.encode_vectors", g)
     with span("toyfhe.encode.slots"):
-        r1, r2 = zmstar_indices(n)
-        cmplx = np.zeros(n, dtype=np.complex128)
-        cmplx[r1] = slots
-        cmplx[r2] = np.conj(slots)
+        # one gather through the inverse map where the reference scatters
+        # twice: numpy's scatter along axis 1 is several times slower
+        ext = np.empty((g, n + 1), dtype=np.complex128)
+        ext[:, :n // 2] = slots
+        np.conj(slots, out=ext[:, n // 2:n])
+        ext[:, n] = 0
+        cmplx = np.take(ext, _slot_source(n), axis=1)
     with span("toyfhe.encode.fft"):
-        ipoints = np.fft.ifft(cmplx)
-        k = np.arange(n)
-        nipoints = ipoints * np.exp(2j * np.pi * k / (2 * n))
-        if not np.allclose(nipoints.imag, 0, atol=1e-9):
+        nipoints = np.fft.ifft(cmplx, axis=-1) * _twist(n, False)
+        # np.allclose(imag, 0, atol=1e-9), without its temporaries
+        if not np.all(np.abs(nipoints.imag) <= 1e-9):
             raise ValueError("CKKS encode: non-negligible imaginary part")
         real = nipoints.real
     with span("toyfhe.encode.quantize"):
-        # Fast path: when the scale is a power of two and the scaled
-        # magnitudes fit float64's integer range, ldexp+rint is exact.
-        if (scale.denominator == 1 and (scale.numerator & (scale.numerator - 1)) == 0
-                and float(np.max(np.abs(real), initial=0.0))
-                * nt.frac_to_float(scale) < 2 ** 52):
-            ints = np.rint(np.ldexp(real, scale.numerator.bit_length() - 1)).astype(np.int64)
-            out = np.mod(ints[None, :], np.asarray(ring.local.primes, dtype=np.int64)[:, None])
-        else:
-            q = ring.modulus
+        fast = np.zeros(g, dtype=bool)
+        if scale.denominator == 1 and (scale.numerator & (scale.numerator - 1)) == 0:
+            fast = np.max(np.abs(real), axis=-1, initial=0.0) * nt.frac_to_float(scale) < 2 ** 52
+        ints = np.zeros((g, n), dtype=np.int64)
+        ints[fast] = np.rint(np.ldexp(real[fast], scale.numerator.bit_length() - 1))
+        exact = {}
+        q = ring.modulus
+        for v in np.flatnonzero(~fast):
             coeffs = []
-            for x in real:
-                v = Fraction(x) * scale
-                m = (2 * v.numerator + v.denominator) // (2 * v.denominator)  # round half up
+            for x in real[v]:
+                w = Fraction(x) * scale
+                m = (2 * w.numerator + w.denominator) // (2 * w.denominator)  # round half up
                 coeffs.append(m % q)
-            out = ring.from_bigint(coeffs)
+            exact[v] = ring.from_bigint(coeffs)
     with span("toyfhe.encode.upload"):
-        return RingElt(primal=torch.as_tensor(out, dtype=torch.int64, device=device))
+        out = torch.remainder(torch.as_tensor(ints, device=device)[:, None, :],
+                              ring.mp.on(device).p)
+        for v, res in exact.items():
+            out[v] = torch.as_tensor(res, device=device)
+        return out
 
 
 def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
@@ -155,11 +210,7 @@ def ckks_decode(ring: RingContext, re: RingElt, scale: ScaleLike) -> np.ndarray:
             vals = np.array([nt.frac_to_float(Fraction(x) / scale)
                              for x in ring.centered_ints(arr)])
     with span("toyfhe.decrypt.fft"):
-        k = np.arange(n)
-        multed = vals * np.exp(-2j * np.pi * k / (2 * n))
-        f = np.fft.fft(multed)
-        r1, _ = zmstar_indices(n)
-        return f[r1]
+        return np.fft.fft(vals * _twist(n, True))[zmstar_indices(n)[0]]
 
 
 # ---------------------------------------------------------------------------
@@ -239,8 +290,7 @@ def mul_plain_vectors(c: CipherText, vecs, at_scale: Optional[ScaleLike] = None,
     dev = c.cs[0].device
 
     def make():
-        vs = np.asarray(vecs, dtype=np.complex128)
-        pes = torch.stack([ckks_encode(c.ring, v, at, dev).primal for v in vs], 0)
+        pes = ckks_encode_batch(c.ring, vecs, at, dev)
         return RingElt(dual=R.ensure_dual(c.ring, RingElt(primal=pes)).dual)
 
     pe = _encoded(None if key is None else (key, c.ring, dev, at), make)

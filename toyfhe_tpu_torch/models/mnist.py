@@ -41,6 +41,7 @@ numpy, the check of the encrypted one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from fractions import Fraction
@@ -498,20 +499,27 @@ def fhe_setup(cfg: MNISTConfig, gen: torch.Generator, audit_depth: bool = True) 
     return FHESetup(cfg, params, kp, ek, gk, scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_pixels(image: int, kernel: int, stride: int) -> tuple:
+    """(rows, columns), each [k, k, positions]: where pixel (i, j) of each
+    patch position p = pi·side + pj lies in the image, built once per
+    shape, read-only."""
+    side = (image - kernel) // stride + 1
+    i, j, pi, pj = np.indices((kernel, kernel, side, side))
+    out = tuple((p * stride + q).reshape(kernel, kernel, side * side)
+                for p, q in ((pi, i), (pj, j)))
+    for x in out:
+        x.setflags(write=False)
+    return out
+
+
 def public_preprocess(cfg: MNISTConfig, batch: np.ndarray) -> np.ndarray:
     """[B, H, W] -> [k, k] grid of slot vectors of length B·positions,
-    images fastest."""
-    b = np.asarray(batch)
-    side = (cfg.image - cfg.kernel) // cfg.stride + 1
-    out = np.zeros((cfg.kernel, cfg.kernel, cfg.batch * cfg.positions))
-    for i in range(cfg.kernel):
-        for j in range(cfg.kernel):
-            # value of pixel (i, j) within each patch, for every (image, pos)
-            vals = np.stack(
-                [b[:, pi * cfg.stride + i, pj * cfg.stride + j]
-                 for pi in range(side) for pj in range(side)], axis=1)
-            out[i, j] = vals.T.reshape(-1)             # images fastest
-    return out
+    images fastest: one gather of the batch through the grid's pixel
+    tables."""
+    rows, cols = _grid_pixels(cfg.image, cfg.kernel, cfg.stride)
+    vals = np.asarray(batch, dtype=np.float64)[:, rows, cols]         # [B, k, k, P]
+    return np.moveaxis(vals, 0, -1).reshape(cfg.kernel, cfg.kernel, cfg.batch * cfg.positions)
 
 
 def _rep_inner(vec, inner):
@@ -1029,8 +1037,7 @@ def build_inference_pipeline(setup: FHESetup, model_params, gks_bsgs=None,
         with span("toyfhe.encode"):
             with span("toyfhe.encode.preprocess"):
                 I = public_preprocess(cfg, batch)
-            return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
-                                for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+            return CE.ckks_encode_batch(ring0, I.reshape(cfg.grid ** 2, -1), s0, device)
 
     def forward(pts: torch.Tensor, gen: torch.Generator, clock, S) -> CipherText:
         with span("toyfhe.forward"):
@@ -1333,8 +1340,7 @@ def build_bootstrapped_pipeline(setup: FHESetup, boot_ctx, model_params,
         with span("toyfhe.encode"):
             with span("toyfhe.encode.preprocess"):
                 I = public_preprocess(cfg, batch)
-            return torch.stack([ckks_encode(ring0, I[i, j].astype(complex), s0, device).primal
-                                for i in range(cfg.kernel) for j in range(cfg.kernel)], 0)
+            return CE.ckks_encode_batch(ring0, I.reshape(cfg.grid ** 2, -1), s0, device)
 
     def forward(pts: torch.Tensor, gen: torch.Generator, clock, S) -> CipherText:
         with span("toyfhe.forward"):
