@@ -13,8 +13,8 @@ Parameters of a mix:
   request is the stages from the encryption to the logits ciphertext
   (``forward``), then ``decrypt``.
 
-A request carries the batch the configuration serves (its slots over its
-positions) of images of the configuration's side.
+A request carries what the configuration's reference says its model takes
+(``request_shape(model) -> (batch, shape)``): ``batch`` inputs of ``shape``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import time
 import numpy as np
 import torch
 
-from . import work
 from .trace import REQUEST_SPAN
 
 KEYS = ("pixel_low", "pixel_high", "pool_batches", "encode_in_request")
@@ -36,33 +35,34 @@ def check_mix(mix: dict) -> None:
         raise ValueError(f"the mix lacks {missing}")
 
 
-def images(mix: dict, model: dict, seed: int, index: int) -> np.ndarray:
-    """The batch of request ``index`` (or of pool entry ``index``)."""
-    side, b = model["image"], work.model_shape(model)[1]
+def images(mix: dict, request, seed: int, index: int) -> np.ndarray:
+    """The batch of request ``index`` (or of pool entry ``index``):
+    ``request`` is the reference's ``(batch, shape)``."""
+    batch, shape = request
     rng = np.random.default_rng([seed, 2, index])
-    return rng.uniform(mix["pixel_low"], mix["pixel_high"], (b, side, side))
+    return rng.uniform(mix["pixel_low"], mix["pixel_high"], (batch, *shape))
 
 
 class Requests:
-    """The images each request of a mix carries, from the seed."""
+    """The inputs each request of a mix carries, from the seed."""
 
-    def __init__(self, mix: dict, model: dict, seed: int):
+    def __init__(self, mix: dict, request, seed: int):
         check_mix(mix)
-        self.mix, self.model, self.seed = mix, model, seed
-        self.pool = [images(mix, model, seed, i) for i in range(mix["pool_batches"])]
+        self.mix, self.request_shape, self.seed = mix, request, seed
+        self.pool = [images(mix, request, seed, i) for i in range(mix["pool_batches"])]
 
     def batch(self, index: int) -> np.ndarray:
-        """The images request ``index`` carries."""
+        """The inputs request ``index`` carries."""
         return self.pool[index % len(self.pool)] if self.pool else images(
-            self.mix, self.model, self.seed, index)
+            self.mix, self.request_shape, self.seed, index)
 
 
 class Client(Requests):
     """One closed-loop client of ``system`` (see the module's docstring)."""
 
-    def __init__(self, system, mix: dict, model: dict, seed: int, gen: torch.Generator,
+    def __init__(self, system, mix: dict, request, seed: int, gen: torch.Generator,
                  device):
-        super().__init__(mix, model, seed)
+        super().__init__(mix, request, seed)
         self.system, self.gen, self.device = system, gen, device
         self.encoded = None
         if not mix["encode_in_request"]:

@@ -3,7 +3,8 @@ every answer against the plain reference, and the result line.
 
 Everything is found by name: the cell in ``BENCHMARK.json``; its
 configuration in the file the entry names; the configuration's system in
-``fhebench/systems/<system>.py`` and its plain reference in
+``fhebench/systems/<system>.py`` and its plain reference, which also states
+the request its model takes (``request_shape``), in
 ``fhebench/reference/<reference>.py``; the traffic mix in
 ``fhebench/traffic/<mix>.json``; each metric's reader in
 ``fhebench/metrics/<metric>.py``.
@@ -21,7 +22,6 @@ import numpy as np
 import torch
 
 from . import trace as T
-from . import work
 from .client import Client, Requests, images
 
 HERE = Path(__file__).resolve().parent
@@ -73,9 +73,9 @@ def forbidden_modules() -> list:
 class Window:
     """What the readers of ``fhebench/metrics`` read."""
 
-    def __init__(self, config: dict, mix: dict, setup_s: float):
+    def __init__(self, config: dict, mix: dict, setup_s: float, images_per_request: int):
         self.config, self.mix, self.setup_s = config, mix, setup_s
-        self.images_per_request = work.model_shape(config["model"])[1]
+        self.images_per_request = images_per_request
         self.encoded_inputs = not mix["encode_in_request"]
         self.latencies_s: list = []       # every request of the window
         self.seconds = 0.0                # first request sent to last answer back
@@ -191,14 +191,15 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, traced: bool, d
     phases = {"start": time.perf_counter() - t_start}
     system = system_mod.System(config, weights, gen)
     phases["keys_and_pipeline"] = time.perf_counter() - t_start - sum(phases.values())
-    client = Client(system, mix, config["model"], s, gen, device)
+    request = reference.request_shape(config["model"])
+    client = Client(system, mix, request, s, gen, device)
     phases["pool"] = time.perf_counter() - t_start - sum(phases.values())
     for w in range(WARMUP_REQUESTS):
-        client.request(w, images(mix, config["model"], s, (1 << 40) + w))
+        client.request(w, images(mix, request, s, (1 << 40) + w))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     phases["warmup"] = time.perf_counter() - t_start - sum(phases.values())
-    win = Window(config, mix, time.perf_counter() - t_start)
+    win = Window(config, mix, time.perf_counter() - t_start, request[0])
     answers = measure(client, seconds, traced, device, win)
 
     kind = "per_layer" if traced else "end_to_end"

@@ -15,12 +15,15 @@ the same arrays to the port and to :func:`forward`.
 layer's result rounded to 11 significant bits, float16's precision (without
 its range): its gap from the exact pass is the unit the judge reads the
 program's gaps in. The control of the comparison (``fhebench/control.py``)
-is this pass computed in a lower precision.
+is this pass computed in a lower precision: :func:`forward_lowp`, in torch.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+FP8 = ("float8_e4m3fn", "float8_e5m2")
 
 
 def conv_side(model: dict) -> int:
@@ -29,6 +32,14 @@ def conv_side(model: dict) -> int:
 
 def positions(model: dict) -> int:
     return conv_side(model) ** 2
+
+
+def request_shape(model: dict):
+    """(images a request carries, the shape of one image): the N/2 slots
+    hold one value per image and conv position, so N/2 // positions images
+    of side × side grayscale pixels."""
+    side = model["image"]
+    return (1 << model["ring_logn"]) // 2 // positions(model), (side, side)
 
 
 def init_params(model: dict, rng: np.random.Generator) -> dict:
@@ -76,3 +87,25 @@ def forward(model: dict, params: dict, images: np.ndarray, bits=None) -> np.ndar
     fq1 = t(t(feats @ t(params["w1"]).T) + t(params["b1"]))
     sq2 = t(fq1 * fq1)
     return t(t(sq2 @ t(params["w2"]).T) + t(params["b2"]))
+
+
+def forward_lowp(model: dict, params: dict, images: np.ndarray, dtype, device) -> np.ndarray:
+    """The same pass with every operand and result in the torch ``dtype``:
+    logits [B, classes] as float64. The float8 types have no general
+    arithmetic: each operand and each op's result is rounded to them, the
+    op itself computed in float32."""
+    fp8 = str(dtype).split(".")[-1] in FP8
+    work = torch.float32 if fp8 else dtype
+    q = (lambda x: x.to(dtype).to(work)) if fp8 else (lambda x: x)
+    t = lambda a: q(torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device=device,
+                                                                         dtype=work))
+    c = model["channels"]
+    pt = t(patches(model, np.asarray(images, dtype=np.float64)))
+    conv = q(q(torch.einsum("bpk,kc->bpc", pt, t(params["conv_w"]).reshape(-1, c)))
+             + t(params["conv_b"]))
+    sq1 = q(conv * conv)
+    feats = torch.cat([sq1[:, :, ch] for ch in range(c)], dim=1)
+    fq1 = q(q(feats @ t(params["w1"]).T) + t(params["b1"]))
+    sq2 = q(fq1 * fq1)
+    out = q(q(sq2 @ t(params["w2"]).T) + t(params["b2"]))
+    return out.to(torch.float64).cpu().numpy()

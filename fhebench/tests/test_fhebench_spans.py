@@ -55,7 +55,7 @@ def summary(with_spans: bool) -> dict:
 
 def window(*chunks):
     win = harness.Window({"model": {"image": 28, "kernel": 7, "stride": 3, "ring_logn": 13}},
-                         {"encode_in_request": True}, 1.0)
+                         {"encode_in_request": True}, 1.0, 64)
     win.chunks = list(chunks)
     return win
 

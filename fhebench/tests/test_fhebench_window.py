@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from fhebench import harness, trace, work
+from fhebench.reference import mnist_cnn
 
 ROOT = harness.ROOT
 
@@ -14,8 +15,10 @@ MODEL = {"image": 28, "kernel": 7, "stride": 3, "ring_logn": 13}     # 64 images
 
 
 def window(config=None, encoded=False, **kw):
+    config = config or {"model": MODEL}
     mix = {"encode_in_request": not encoded}
-    win = harness.Window(config or {"model": MODEL}, mix, 12.5)
+    batch, _ = mnist_cnn.request_shape(config["model"])
+    win = harness.Window(config, mix, 12.5, batch)
     for k, v in kw.items():
         setattr(win, k, v)
     return win

@@ -14,12 +14,16 @@ Frozen here so that a later change to the program cannot move it:
   encoded weights and diagonals at their levels and the returned logits —
   at 4 bytes a residue. Its time at the HBM rate is the floor of ``mfu``.
   The int64 modular products have no published H100 peak, so no compute
-  floor is counted.
+  floor is counted. Another pipeline's floor is its own file,
+  ``floors/<system>.py``, found by the configuration's ``system``.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
 
 H100_HBM_BYTES_PER_S = 3.35e12      # NVIDIA H100 SXM data sheet: 3.35 TB/s
 RESIDUE_BYTES = 4                   # residues of primes below 2^31
@@ -102,7 +106,15 @@ def _keys(uses) -> int:
 
 def floor_bytes(config: dict, encoded_inputs: bool) -> int:
     """Least bytes one request of ``config`` moves (``encoded_inputs``: the
-    window hands the program the encoded grid, not the images)."""
+    window hands the program the encoded grid, not the images). A system
+    other than the two below takes ``floor_bytes(config, encoded_inputs)``
+    of ``<HERE>/floors/<system>.py``; with no such file it raises."""
+    if config["system"] not in ("mnist_bsgs", "mnist_boot"):
+        path = HERE / "floors" / f"{config['system']}.py"
+        if not path.is_file():
+            raise ValueError(f"no byte floor for system {config['system']!r}: {path} is missing")
+        from .harness import load_module          # harness imports this module
+        return load_module("floors", config["system"], HERE).floor_bytes(config, encoded_inputs)
     model = config["model"]
     d, batch, grid = model_shape(model)
     n = 1 << model["ring_logn"]
@@ -148,8 +160,6 @@ def floor_bytes(config: dict, encoded_inputs: bool) -> int:
                      for s in bsgs_rotation_steps(offsets, n // 2)]
             plain += 2 * len(offsets) * t.poly(sl)                 # [lo, hi] chains
         inputs = grid * t.poly(L) if encoded_inputs else batch * model["image"] ** 2 * FLOAT_BYTES
-    else:
-        raise ValueError(f"no byte floor for system {config['system']!r}")
     logits = model["classes"] * batch * FLOAT_BYTES
     return inputs + _keys(keys) + plain + logits
 
