@@ -468,16 +468,21 @@ def _ps_recurse(basis: ChebBasis, coeffs, k: int):
 
 
 def eval_chebyshev(ek, c: CipherText, cheb_coeffs, interval: float,
-                   scale_limbs: int = 1) -> CipherText:
+                   scale_limbs: int = 1, prescaled: bool = False) -> CipherText:
     """Evaluate p(x) = Σ aᵢ·Tᵢ(x/K) homomorphically, K = ``interval``, the
     coefficients in the Chebyshev basis on [−1, 1] (numpy ``chebval``
-    convention), with O(√d) ct × ct multiplies and O(log d) depth."""
+    convention), with O(√d) ct × ct multiplies and O(log d) depth.
+    ``prescaled``: ``c`` already holds x/K (the caller folded 1/K into an
+    earlier multiply), so the level of the division is not spent."""
     coeffs = [float(a) for a in np.asarray(cheb_coeffs, dtype=np.float64)]
     d = len(coeffs) - 1
     if d < 1:
         raise ValueError("constant polynomial — nothing to evaluate")
-    p = math.prod(c.ring.primes[-scale_limbs:])
-    y = _rescale_k(CE.mul_plain_scalar_at(c, 1.0 / interval, p), scale_limbs)
+    if prescaled:
+        y = c
+    else:
+        p = math.prod(c.ring.primes[-scale_limbs:])
+        y = _rescale_k(CE.mul_plain_scalar_at(c, 1.0 / interval, p), scale_limbs)
     k = max(2, math.isqrt((d + 1) // 2) + 1)
     basis = ChebBasis(ek, y, scale_limbs)
     ct, const = _ps_recurse(basis, coeffs, k)
