@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the toyfhe_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--compiled-only]
+    python3 chip_smoke.py [--seed S] [--compiled-only] [--fbc-only]
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
 source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
@@ -14,10 +14,11 @@ replaced), the fused polynomial product (K4, ``polymul.cu``: a
 cluster-split register-radix kernel and the one-block radix-2 kernel it
 replaced), the bit-reversed DIF transform (K5, ``ntt_bitrev.cu``: a
 register-radix kernel over 1, 2 or 4 independent blocks a polynomial, and the
-one-block radix-2 kernel it replaced) and the
+one-block radix-2 kernel it replaced), the
 fused windowed key switch (K6, ``keyswitch.cu``: a kernel that spreads the
 digits over a thread-block cluster and the one-block loop kernel it
-replaced). Then, for each path:
+replaced) and the hybrid key switch's fast base conversion (``fbc.cu``).
+Then, for each path:
 
 * the per-limb RNS gadget step: K1 bit-equal to its plain radix-2 torch
   twin (the cluster kernel at every legal cluster size, with lazy and with
@@ -136,7 +137,16 @@ replaced). Then, for each path:
   decrypt; eager and replay ms as interleaved pairs, capture + instantiate
   ms, the pool MiB, and the idle share of a replayed BSGS batch and of a
   replayed refresh. ``python3 chip_smoke.py --compiled-only`` builds the
-  kernels and runs this phase alone on fixtures of its own.
+  kernels and runs this phase alone on fixtures of its own;
+* the fast base conversion (phase 41, ``ops/fbc_cuda.py``), the ModUp of
+  every hybrid key switch: the kernel bit-equal to its plain twin at the
+  cells' shapes (the ResNet's top, ``mnist-boot``'s dense 1, the refresh's
+  top, the BSGS dense layers) in every output layout, premultiplied or not,
+  and over every other target row; its time beside the plain twin's and the
+  bound; the launch census of one refresh at N = 2^10 (one launch a
+  decomposition, and no tensor of the old [..., T, alpha, N] product).
+  ``python3 chip_smoke.py --fbc-only`` builds the kernels and runs this
+  phase alone.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -228,13 +238,13 @@ def phase_environment():
 
 
 def phase_build():
-    from toyfhe_tpu_torch.ops import (cuda_lib, hybrid_ks_cuda, ntt_cuda, ntt_mxu_pallas_cuda,
-                                      ntt_pallas_cuda, pallas_keyswitch_cuda)
+    from toyfhe_tpu_torch.ops import (cuda_lib, fbc_cuda, hybrid_ks_cuda, ntt_cuda,
+                                      ntt_mxu_pallas_cuda, ntt_pallas_cuda, pallas_keyswitch_cuda)
 
     log("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
     libs = [ntt_cuda.LIB, hybrid_ks_cuda.LIB, ntt_pallas_cuda.LIB, pallas_keyswitch_cuda.LIB,
-            ntt_mxu_pallas_cuda.LIB, ntt_pallas_cuda.LIB_POLYMUL]
+            ntt_mxu_pallas_cuda.LIB, ntt_pallas_cuda.LIB_POLYMUL, fbc_cuda.LIB]
     cuda_lib.build_all(libs)
     for lib in libs:
         lib.load()
@@ -500,9 +510,10 @@ def flavour_steps(params, ek, ct_ring):
 
 
 def reset_launches():
-    from toyfhe_tpu_torch.ops import hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda, pallas_keyswitch_cuda
+    from toyfhe_tpu_torch.ops import (fbc_cuda, hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda,
+                                      pallas_keyswitch_cuda)
     for d in (ntt_cuda.launches, ntt_cuda.transforms, hybrid_ks_cuda.launches,
-              ntt_pallas_cuda.launches, pallas_keyswitch_cuda.launches):
+              ntt_pallas_cuda.launches, pallas_keyswitch_cuda.launches, fbc_cuda.launches):
         for k in d:
             d[k] = 0
 
@@ -3264,10 +3275,11 @@ def _census_of(fn) -> list:
 def _kernel_census(census: list) -> dict:
     """The kernels' part of a census (:func:`_census_of`), keyed as
     ``profile_mnist.kernel_launches`` keys a trace: K1 by direction, K3,
-    K5, K6."""
-    k1, k3, k5, k6 = census[0], census[2], census[3], census[5]
+    K5, K6, the FBC."""
+    k1, k3, k5, k6, fbc = census[0], census[2], census[3], census[5], census[9]
     out = {**{d: k1[d] for d in ("fwd", "inv") if k1.get(d)},
-           **{k: c[k] for k, c in (("k3", k3), ("k5", k5), ("k6", k6)) if c.get(k)}}
+           **{k: c[k] for k, c in (("k3", k3), ("k5", k5), ("k6", k6), ("fbc", fbc))
+              if c.get(k)}}
     return out
 
 
@@ -3281,11 +3293,12 @@ _K1_DIRECTION = (re.compile(r"ntt_cluster_kernel<\s*\d+\s*,\s*(true|false)"),
 _K1 = re.compile(r"(?<![A-Za-z_])ntt_(cluster|radix2)_kernel")
 _KERNEL_NAMES = (("k3", re.compile(r"(?<![A-Za-z_])hybrid_ks_(cluster|loop)_kernel")),
                  ("k5", re.compile(r"(?<![A-Za-z_])ntt_bitrev_radix2?_kernel")),
-                 ("k6", re.compile(r"(?<![A-Za-z_])keyswitch_(cluster|loop)_kernel")))
+                 ("k6", re.compile(r"(?<![A-Za-z_])keyswitch_(cluster|loop)_kernel")),
+                 ("fbc", re.compile(r"(?<![A-Za-z_])fbc_kernel")))
 
 
 def kernel_of(name: str):
-    """``"fwd"`` / ``"inv"`` for K1, ``"k3"``, ``"k5"``, ``"k6"``, or None;
+    """``"fwd"`` / ``"inv"`` for K1, ``"k3"``, ``"k5"``, ``"k6"``, ``"fbc"``, or None;
     ``"k1?"`` for a K1 whose direction the name does not show."""
     if _K1.search(name):
         for pat in _K1_DIRECTION:
@@ -3772,6 +3785,145 @@ def phase_compiled(dev, smi, pipe=None, bsgs=None, boot=None, bmn=None, kpath=No
 # work on the CUDA cores, the non-tensor float32 rate (NVIDIA publishes no
 # separate integer figure; the integer lanes are no faster, so the bound
 # stays a lower bound).
+# ---------------------------------------------------------------------------
+# phase 41: the fast base conversion of the hybrid key switch
+# ---------------------------------------------------------------------------
+
+# (label, params: ("boot", depth) for the composite recipe at N = 2^13 or
+# ("hybrid", tower, dnum, k), ct limbs decomposed, leads): the cells' own
+# decompositions
+FBC_CASES = (
+    ("resnet top", ("boot", 58), 60, ((4,), (16,))),
+    ("mnist-boot dense 1", ("boot", 46), 46, ((), (4,))),
+    ("refresh top", ("boot", 46), 48, ((2,), (4,))),
+    ("mnist-bsgs dense", ("hybrid", (28,) * 7 + (29,) * 4, 2, 4), 5, ((4,),)),
+    ("mnist-bsgs dense, 3 limbs", ("hybrid", (28,) * 7 + (29,) * 4, 2, 4), 3, ((4,),)),
+)
+FBC_N = 1 << 13
+
+
+def fbc_params(spec, n=FBC_N):
+    import types
+    from toyfhe_tpu_torch.models import mnist as M
+    if spec[0] == "boot":
+        return M.make_bootstrapped_params(types.SimpleNamespace(ring_logn=n.bit_length() - 1),
+                                          spec[1], scale_limbs=2)[0]
+    return hybrid_params(n, *spec[1:])
+
+
+def bound_fbc(plan, rows: int, n: int) -> dict:
+    """Each residue read once, each digit word written once (int64), the
+    premultiply and the products as 32-bit operations."""
+    widths = [hi - lo for lo, hi in plan.bounds]
+    nbytes = (rows * plan.lt + rows * plan.dnum * plan.nt) * n * RESIDUE_BYTES
+    ops = rows * n * (plan.lt * MONT_OPS + plan.nt * sum(w * (MONT_OPS + 1) + 8 for w in widths))
+    return bound(nbytes, ops)
+
+
+class _ShapeWatch:
+    """Records every aten op's output shape whose last three axes are
+    [T, w, N] of a hybrid digit group (the old conversion's product)."""
+
+    def __init__(self, shapes):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        watch = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor) and t.dim() >= 3 \
+                            and tuple(t.shape[-3:]) in shapes:
+                        watch.hits.append((str(func), tuple(t.shape)))
+                return out
+
+        self.hits, self.mode = [], Mode()
+
+
+def phase_fbc(dev, smi) -> dict:
+    """Phase 41: the fast base conversion (``csrc/fbc.cu``) against its plain
+    twin at the cells' shapes in every output layout, its time beside the
+    plain twin's and the bound, and the launch census of one refresh."""
+    import toyfhe_tpu_torch as T
+    from toyfhe_tpu_torch.core import bootstrap as B, rlwe
+    from toyfhe_tpu_torch.ops import fbc_cuda, modmath
+    from toyfhe_tpu_torch.utils import metrics
+
+    log("== phase 41: the fast base conversion (FBC) against its plain twin at the cells' "
+        "shapes: digits first, digits inside, the out-of-group rows, premultiplied, and a "
+        "plan over every other target row")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rows_out, ncheck = [], 0
+    for label, spec, lt, leads in FBC_CASES:
+        params = fbc_params(spec)
+        ring = params.ring_cipher.select(range(lt))
+        exp_ring, groups = params._tables(lt)
+        plan = params.fbc_plan(ring)
+        held = list(range(1, exp_ring.nlimbs, 2))
+        half = fbc_cuda.make_plan(groups, ring.mp, exp_ring.mp.select(held), held)
+        for lead in leads:
+            x = random_residues(ring.primes, lead, FBC_N, gen, dev)
+            for pl in (plan, half):
+                want = fbc_cuda.fbc_plain(pl, x)
+                yhat = modmath.mont_mul(x, modmath.const(pl.inv, dev), pl.ct_mp)
+                got = {"digits first": fbc_cuda.fbc(pl, x),
+                       "digits inside": torch.movedim(fbc_cuda.fbc(pl, x, digits_inner=True),
+                                                      -3, 0),
+                       "premultiplied": fbc_cuda.fbc(pl, yhat, premultiplied=True)}
+                outs = fbc_cuda.fbc(pl, x, out_of_group=True)
+                sync(dev)
+                for what, g in got.items():
+                    if not torch.equal(g, want):
+                        raise AssertionError(f"FBC {what} != plain: {label} lead={lead}")
+                for g, w in zip(outs, fbc_cuda.fbc_plain(pl, x, out_of_group=True)):
+                    if not torch.equal(g, w):
+                        raise AssertionError(f"FBC out-of-group != plain: {label} lead={lead}")
+                ncheck += 4
+            rows = x.numel() // (lt * FBC_N)
+            row = {"case": label, "lead": list(lead), "lt": lt, "T": plan.nt, "alpha": plan.alpha,
+                   "dnum": plan.dnum,
+                   "kernel_ms": cuda_ms(lambda: fbc_cuda.fbc(plan, x)),
+                   "kernel_dual_ms": cuda_ms(lambda: fbc_cuda.fbc(plan, x, out_of_group=True)),
+                   "plain_ms": cuda_ms(lambda: fbc_cuda.fbc_plain(plan, x)),
+                   **bound_fbc(plan, rows, FBC_N)}
+            rows_out.append(row)
+            log(f"{label} lead={lead}: Lt={lt} T={plan.nt} alpha={plan.alpha} dnum_t={plan.dnum}: "
+                f"bit-equal; kernel {row['kernel_ms']:.4f} ms (out-of-group rows "
+                f"{row['kernel_dual_ms']:.4f}), plain {row['plain_ms']:.4f}, bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    log(f"{ncheck} comparisons bit-equal ({smi})")
+
+    # the launch census of one refresh (N = 2^10 on the production tower)
+    params, kp, ctx, c, _ = boot_small_material(dev)
+    B.bootstrap(ctx, c)                                  # encodes the context's constants
+    sync(dev)
+    n = params.ring_cipher.n
+    shapes = set()
+    for lt in range(1, params.L + 1):
+        e, gs = params._tables(lt)
+        shapes |= {(e.nlimbs, hi - lo, n) for (lo, hi), _, _ in gs}
+    _zero_counts()
+    watch = _ShapeWatch(shapes)
+    with watch.mode:
+        B.bootstrap(ctx, c)
+    sync(dev)
+    launched = fbc_cuda.launches["fbc"]
+    hoisted, kps = rlwe.hoist_counts["decompose_calls"], rlwe.hoist_counts["key_product_calls"]
+    direct = metrics.counters.get("keyswitch", 0) - kps    # key switches not hoisted
+    decomps = hoisted + direct
+    log(f"one refresh at N=2^{n.bit_length() - 1}: FBC launched {launched}, decompositions "
+        f"{decomps} ({hoisted} hoisted + {direct} direct key switches); tensors of the old "
+        f"product's [..., T, w, N] shape made: {len(watch.hits)}")
+    if torch.device(dev).type == "cuda":             # the CPU takes the plain twin
+        if launched != decomps:
+            raise AssertionError(f"FBC launches {launched} != decompositions {decomps}")
+        if watch.hits:
+            raise AssertionError(f"the old FBC product was made: {watch.hits[:3]}")
+    return {"rows": rows_out, "checks": ncheck, "refresh_launches": launched,
+            "refresh_decompositions": decomps}
+
+
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 ALU32_OPS_PER_S = 67e12
@@ -3849,6 +4001,8 @@ def main() -> int:
                         help="seed of the exact schemes' keys, slot vectors and encryptions")
     parser.add_argument("--compiled-only", action="store_true",
                         help="build the kernels and run phase 40 alone, on its own fixtures")
+    parser.add_argument("--fbc-only", action="store_true",
+                        help="build the kernels and run phase 41 (the FBC kernel) alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3861,6 +4015,10 @@ def main() -> int:
     phase_build()
     if args.compiled_only:
         phase_compiled(dev, smi)
+        return 0
+    if args.fbc_only:
+        fbc = phase_fbc(dev, smi)
+        print(json.dumps({"fbc": fbc["rows"]}))
         return 0
     err = phase_kernel_vs_plain(dev)
     entry = phase_entry_step(dev)
@@ -3918,6 +4076,7 @@ def main() -> int:
     log(f"phases 35-38 took {time.perf_counter() - t0:.1f} s (host clock)")
     sboot = phase_boot_sharded(dev, smi, boot)
     comp = phase_compiled(dev, smi, pipe, bsgs, boot, bmn, kpath)
+    fbc = phase_fbc(dev, smi)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -3996,6 +4155,13 @@ def main() -> int:
          "ms": k56["k6"]["kernel"], "device_ms": dtime["k6"]["new"]["device_ms"],
          "plain_ms": k56["k6"]["plain"],
          **bound_k6(kpath["fk"]), "library_ms": None})
+    top = fbc["rows"][0]
+    kernels.append(
+        {"name": "fbc", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/fbc.cu",
+         "replaces": None, "launches": fbc["refresh_launches"], "max_abs_err": 0,
+         "launches_by_path": _compiled_launches(comp, "fbc"),
+         "ms": top["kernel_ms"], "device_ms": None, "plain_ms": top["plain_ms"],
+         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None})
     log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch on the "
         f"iterated schedule (K1 {pipe['launches']['fwd']} + {pipe['launches']['inv']} launches, "
         f"logit error {pipe['err']:.3e}), {bsgs['ms']:.1f} ms with BSGS + dual flow (K1 "

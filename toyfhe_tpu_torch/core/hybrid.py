@@ -34,7 +34,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..ops import modmath, ntt as nttmod
+from ..ops import fbc_cuda, modmath, ntt as nttmod
 from ..ops.modmath import const
 from ..utils import metrics
 from . import ring as R
@@ -145,48 +145,58 @@ class HybridRaised(PassthroughParams):
         self._fbc_cache[lt] = (exp_ring, groups)
         return self._fbc_cache[lt]
 
+    def fbc_plan(self, ring: RingContext) -> fbc_cuda.FbcPlan:
+        """The fast base conversion's tables for ``ring`` (the ciphertext
+        tower, whole or a rank's view) into the expanded tower's rows the
+        process holds, cached per tower length and held rows."""
+        exp_whole, groups = self._tables(ring.nlimbs)
+        exp_ring = R.like(ring, exp_whole)
+        key = ("fbc", ring.nlimbs, tuple(R.held(exp_ring)))
+        if key not in self._fbc_cache:
+            self._fbc_cache[key] = fbc_cuda.make_plan(groups, R.whole(ring).mp, exp_ring.mp,
+                                                      R.held(exp_ring))
+        return self._fbc_cache[key]
+
+    def _fbc(self, ring: RingContext, x: RingElt, out_of_group: bool = False):
+        """(expanded tower, :func:`..ops.fbc_cuda.fbc` of x's primal rows). On
+        a sharded tower each rank premultiplies its own rows and one
+        all-gather hands every rank all ŷ rows."""
+        exp_ring = R.like(ring, self._tables(ring.nlimbs)[0])
+        plan = self.fbc_plan(ring)
+        xp = R.ensure_primal(ring, x).primal                  # [..., Lt, N]
+        if R.whole(ring) is ring:
+            return exp_ring, fbc_cuda.fbc(plan, xp, out_of_group=out_of_group)
+        y = modmath.mont_mul(xp, const(R.held_rows(ring, plan.inv), xp.device), ring.mp)
+        y = R.gather(ring, y, "keyswitch_digit_share")        # [..., Lt, N] whole
+        return exp_ring, fbc_cuda.fbc(plan, y, premultiplied=True, out_of_group=out_of_group)
+
     def hybrid_decompose(self, ring: RingContext, x: RingElt
                          ) -> Tuple[RingContext, torch.Tensor]:
         """x (primal, Lt limbs) → digit tensor int64[dnum_t, ..., Lt+k, N]:
-        each group residue fast-base-converted to the full target. On a
-        sharded tower: the digits' held rows, after one all-gather of ŷ."""
-        lt = ring.nlimbs
-        exp_whole, groups = self._tables(lt)
-        exp_ring = R.like(ring, exp_whole)
-        xp = R.ensure_primal(ring, x).primal                  # [..., Lt, N]
-        dev = xp.device
-        mp3 = exp_ring.mp.expand()
-        inv = np.concatenate([inv for _, inv, _ in groups])   # [Lt, 1]
-        y = modmath.mont_mul(xp, const(R.held_rows(ring, inv), dev), ring.mp)
-        y = R.gather(ring, y, "keyswitch_digit_share")        # [..., Lt, N] whole
-        digs = []
-        for (lo, hi), _, consts in groups:
-            prod = modmath.mont_mul(y[..., None, lo:hi, :],
-                                    const(R.held_rows(exp_ring, consts), dev), mp3)
-            digs.append(modmath.mod_sum(prod, exp_ring.mp, axis=-2))
-        return exp_ring, torch.stack(digs, dim=0)
+        each group residue fast-base-converted to the full target (the CUDA
+        kernel on the card). On a sharded tower: the digits' held rows,
+        after one all-gather of ŷ."""
+        return self._fbc(ring, x)
 
     def hybrid_decompose_dual(self, ring: RingContext, x: RingElt
                               ) -> Tuple[RingContext, torch.Tensor]:
         """Digit tensor in the expanded tower's dual domain, transforming
         only the out-of-group rows: digit j satisfies D_j ≡ x (mod q_i) for
         every i in group j exactly, so those dual rows are x's own dual
-        rows. Saves Lt of the dnum·(Lt+k) digit transforms, bit-exactly."""
-        exp_ring, digits = self.hybrid_decompose(ring, x)  # [ndig, ..., T, N]
+        rows, and the conversion writes only the others. Saves Lt of the
+        dnum·(Lt+k) digit transforms, bit-exactly."""
+        exp_ring, outs = self._fbc(ring, x, out_of_group=True)  # [..., T - w_j, N] each
         xd = R.ensure_dual(ring, x).dual                   # [..., Lt, N]
         exp_held = list(R.held(exp_ring))
-        rows = []
+        digits = xd.new_empty((len(outs),) + xd.shape[:-2] + (len(exp_held), xd.shape[-1]))
         for j, (lo, hi, _) in enumerate(self.digit_rows(ring.nlimbs)):
-            out_loc = [i for i, q in enumerate(exp_held) if not lo <= q < hi]
-            sub = R.whole(exp_ring).select([exp_held[i] for i in out_loc])
-            res = nttmod.ntt(sub.tables, digits[j].index_select(
-                -2, const(out_loc, digits.device)))
+            sub = R.whole(exp_ring).select([q for q in exp_held if not lo <= q < hi])
+            res = nttmod.ntt(sub.tables, outs[j])
             metrics.count("ntt_limb_transform", math.prod(res.shape[:-1]))
             a = R.held_below(exp_ring, lo)
-            rows.append(torch.cat(
-                [res[..., :a, :], xd[..., a:R.held_below(ring, hi), :], res[..., a:, :]],
-                dim=-2))
-        return exp_ring, torch.stack(rows, dim=0)
+            torch.cat([res[..., :a, :], xd[..., a:R.held_below(ring, hi), :], res[..., a:, :]],
+                      dim=-2, out=digits[j])
+        return exp_ring, digits
 
     def digit_rows(self, lt: int) -> List[Tuple[int, int, List[int]]]:
         """Per digit at ``lt`` ciphertext limbs: its group's rows [lo, hi)

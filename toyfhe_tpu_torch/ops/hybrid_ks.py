@@ -19,7 +19,6 @@ agree bit for bit.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import modmath, ntt as nttmod
@@ -41,29 +40,20 @@ class FusedHybridKS:
 
         full = params.ring_cipher
         lt = full.nlimbs if lt is None else lt
-        exp_ring, groups = params._tables(lt)
-        self.exp_ring = exp_ring
-        T = exp_ring.nlimbs
-        self.dnum_t = len(groups)
-        self.alpha = max(hi - lo for (lo, hi), _, _ in groups)
-        self.bounds = [g[0] for g in groups]
+        self.exp_ring = params._tables(lt)[0]
         self.lt = lt
         self.ct_ring = full.select(list(range(lt)))
 
         # FBC constants [dnum_t, T, alpha] (Montgomery form, zero-padded)
         # + the per-ct-limb ŷ premultiply column [(Q_j/q_i)⁻¹]_{q_i}
-        cst = np.zeros((self.dnum_t, T, self.alpha), dtype=np.uint32)
-        inv_col = np.zeros((lt, 1), dtype=np.uint32)
-        for j, ((lo, hi), inv, consts) in enumerate(groups):
-            cst[j, :, :hi - lo] = np.asarray(consts)[:, :, 0]
-            inv_col[lo:hi] = np.asarray(inv)
-        self.cst = cst
-        self.inv_col = inv_col
+        plan = params.fbc_plan(self.ct_ring)
+        self.dnum_t, self.alpha, self.bounds = plan.dnum, plan.alpha, list(plan.bounds)
+        self.cst, self.inv_col = plan.cst, plan.inv
 
         # key duals over the expanded tower, pre-multiplied by 2^32 mod p
-        km, kd = _hybrid_key_stack(params, ek.key, exp_ring, self.dnum_t, 0)
-        self.km = modmath.to_mont(km, exp_ring.mp)             # [dnum_t, T, N]
-        self.kd = modmath.to_mont(kd, exp_ring.mp)
+        km, kd = _hybrid_key_stack(params, ek.key, self.exp_ring, self.dnum_t, 0)
+        self.km = modmath.to_mont(km, self.exp_ring.mp)        # [dnum_t, T, N]
+        self.kd = modmath.to_mont(kd, self.exp_ring.mp)
         self._dev: dict = {}
 
     def on(self, device) -> dict:

@@ -35,7 +35,7 @@ from torch import nn
 
 from ..core import ring as R
 from ..core.ring import RingContext
-from ..ops import modmath, ntt as nttmod
+from ..ops import fbc_cuda, modmath, ntt as nttmod
 from ..ops.modmath import MontParams, as_residues
 from ..utils import graphs
 from . import sharding as S
@@ -120,10 +120,10 @@ def build_modraise_key_arrays(params, ksk, ct_ring=None) -> ModRaiseKeyArrays:
 class HybridKeyArrays(nn.Module):
     """Device-ready key-switch data for a dnum-grouped HybridRaised key:
     digit j is the group-j residue fast-base-converted into the Q_t ∪ P
-    tower; contraction is ``num_special`` rescales. Buffers: the key duals
-    ``(ndig, Le, N)``, per group its ŷ premultipliers ``yinv{j}`` (a, 1) and
-    FBC constants ``fbc{j}`` (Le, a, 1), P mod q_j ``P_res`` (Lc, 1) and per
-    contraction step the dropped prime's inverses ``resc{s}``."""
+    tower (``fbc``, the engine's :meth:`HybridRaised.fbc_plan`); contraction
+    is ``num_special`` rescales. Buffers: the key duals ``(ndig, Le, N)``,
+    P mod q_j ``P_res`` (Lc, 1) and per contraction step the dropped prime's
+    inverses ``resc{s}``."""
 
     def __init__(self, params, ksk, ct_ring: RingContext):
         super().__init__()
@@ -140,12 +140,7 @@ class HybridKeyArrays(nn.Module):
         self.register_buffer("masks", torch.stack(masks, 0))
         self.register_buffer("maskeds", torch.stack(maskeds, 0))
         self.exp_ring, self.ct_ring = exp_ring, ct_ring
-        self.mp_exp3 = exp_ring.mp.expand()
-        self.groups = []                 # (lo, hi, MontParams of the group)
-        for j, ((lo, hi), inv, consts) in enumerate(eng_groups):
-            self.register_buffer(f"yinv{j}", as_residues(inv, dev))
-            self.register_buffer(f"fbc{j}", as_residues(consts, dev))
-            self.groups.append((lo, hi, ct_ring.mp.select(range(lo, hi))))
+        self.fbc = params.fbc_plan(ct_ring)
         self.register_buffer("P_res", as_residues(
             np.array([[params.P % p] for p in ct_ring.primes], dtype=np.int64), dev))
         self.resc_mp = []
@@ -178,14 +173,8 @@ def build_key_arrays(params, ksk, ct_ring=None):
 
 def _hybrid_digits(ka: HybridKeyArrays, xp: torch.Tensor) -> torch.Tensor:
     """Digit duals (..., ndig, Le, N): group residues fast-base-converted
-    into the expanded tower."""
-    mp_exp = ka.exp_ring.mp
-    digs = []
-    for j, (lo, hi, mp_g) in enumerate(ka.groups):
-        y = modmath.mont_mul(xp[..., lo:hi, :], getattr(ka, f"yinv{j}"), mp_g)
-        prod = modmath.mont_mul(y[..., None, :, :], getattr(ka, f"fbc{j}"), ka.mp_exp3)
-        digs.append(modmath.mod_sum(prod, mp_exp, axis=-2))
-    return _ntt_t(torch.stack(digs, dim=-3), ka.exp_ring)
+    into the expanded tower (the CUDA kernel on the card), then K1."""
+    return _ntt_t(fbc_cuda.fbc(ka.fbc, xp, digits_inner=True), ka.exp_ring)
 
 
 def _rescale_chain(x: torch.Tensor, ka: HybridKeyArrays) -> torch.Tensor:
