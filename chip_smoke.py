@@ -4,39 +4,35 @@
     python3 chip_smoke.py [--seed S] [--compiled-only] [--fbc-only]
 
 Builds the CUDA kernels from ``toyfhe_tpu_torch/csrc/`` (one ``nvcc`` per
-source, started together): the NTT (K1, ``ntt.cu``: a cluster-split
-register-radix kernel and the one-block radix-2 kernel it replaced), the
-four-step digit transform on the int8 tensor cores (K2, ``ntt_mxu.cu``), the
-fused hybrid key switch (K3,
+source, started together), one kernel a job: the NTT (K1, ``ntt.cu``: a
+cluster-split register-radix kernel), the four-step digit transform on the
+int8 tensor cores (K2, ``ntt_mxu.cu``), the fused hybrid key switch (K3,
 ``hybrid_ks.cu``: a register-radix kernel that spends a thread-block cluster
-on the digits or on the polynomial, and the one-block radix-2 loop kernel it
-replaced), the fused polynomial product (K4, ``polymul.cu``: a
-cluster-split register-radix kernel and the one-block radix-2 kernel it
-replaced), the bit-reversed DIF transform (K5, ``ntt_bitrev.cu``: a
-register-radix kernel over 1, 2 or 4 independent blocks a polynomial, and the
-one-block radix-2 kernel it replaced), the
-fused windowed key switch (K6, ``keyswitch.cu``: a kernel that spreads the
-digits over a thread-block cluster and the one-block loop kernel it
-replaced) and the hybrid key switch's fast base conversion (``fbc.cu``).
+on the digits or on the polynomial), the fused polynomial product (K4,
+``polymul.cu``: a cluster-split register-radix kernel), the bit-reversed DIF
+transform (K5, ``ntt_bitrev.cu``: a register-radix kernel over 1, 2 or 4
+independent blocks a polynomial), the fused windowed key switch (K6,
+``keyswitch.cu``: a kernel that spreads the digits over a thread-block
+cluster) and the hybrid key switch's fast base conversion (``fbc.cu``).
 Then, for each path:
 
 * the per-limb RNS gadget step: K1 bit-equal to its plain radix-2 torch
-  twin (the cluster kernel at every legal cluster size, with lazy and with
-  fully reduced butterflies, and the radix-2 kernel), the square → relinearize → rescale step at the ``__graft_entry__``
+  twin (as dispatched and at every legal cluster size, with lazy and with
+  fully reduced butterflies), the square → relinearize → rescale step at the ``__graft_entry__``
   shape (bit-equal to the same step on the CPU) and with real keys at the
   encrypted-MNIST tower width (decoded against the expected squares);
 * the dnum-grouped hybrid gadget step, the encrypted-MNIST serving key
   switch: K3 bit-equal to its plain twin over 40 cases (as dispatched, the
   digits and the polynomial over every legal cluster size with lazy and with
-  fully reduced arithmetic, and the loop kernel), the three step
+  fully reduced arithmetic), the three step
   flavours (v1, ``fused=True`` through K3, the fused schedule) with real
   keys at the MNIST serving shape on the full and the one-limb-shorter
   tower (bit-equal to each other and to the CPU, decoded against the
   squares), and at ``bench.py``'s hybrid fixture shape;
 * the windowed special-prime rotation: K5 and K6 bit-equal to their plain
   twins over shape sweeps (each as dispatched, at every legal cluster size
-  or block count with lazy and with fully reduced butterflies, and the
-  kernel it replaced; K5 limb-major and row-major), then
+  or block count with lazy and with fully reduced butterflies; K5
+  limb-major and row-major), then
   K5 + K6 + the special-prime rescale with a
   real Galois key at the MNIST data width (N = 2^13, seven 28-bit limbs +
   one special, window 8), bit-equal to ``layers._modraise_keyswitch`` on the
@@ -49,24 +45,23 @@ Then, for each path:
 * the kernel A/B entry point ``toyfhe_tpu_torch.tools.bench_kernels`` at its
   full width (N = 2^14, eight 28-bit limbs, 16 rows): K2 in both
   recombinations and K4 bit-equal to their plain twins over shape sweeps
-  (K2 also to K1; K4 as dispatched, at every legal cluster size with lazy
-  and with fully reduced butterflies, and the radix-2 kernel, also to the
-  unfused product through K1), then the tool's rows at that width and at
-  the serving transform shape (N = 2^13, seven limbs, four rows), the
-  radix-2 K1 and K4 beside the cluster kernels;
+  (K2 also to K1; K4 as dispatched and at every legal cluster size with
+  lazy and with fully reduced butterflies, also to the unfused product
+  through K1), then the tool's five rows at that width and at the serving
+  transform shape (N = 2^13, seven limbs, four rows);
 * the production serving configuration of encrypted MNIST: hoisted
   rotations (``rotate_many`` / ``rotate_sum``) with real keys on the card
   bit-equal to the CPU and decoded, then the same full-width pipeline with
   the 14 BSGS Galois keys and the dual flow, its logits held against the
   plaintext pass and against the iterated schedule on the same encrypted
-  grid, its key products, decompositions and K1 launches counted;
-* device time apart from wrapper time for K1 (both kernels, at the small
-  and the large end of the MNIST launches, the timed shape and the A/B
-  batch), K2, K4 (both kernels, at the A/B batch and the serving transform
-  shape), K6 (both kernels, at the windowed rotation's shape), K3 (both
-  kernels, at the serving gadget with 4 and 16 rows and at ``bench.py``'s
-  fixture), K5 (both kernels, at the windowed rotation's shape, the serving
-  transform shape and the A/B batch), every variant of each, and
+  grid, its key products, decompositions, K1 and FBC launches counted;
+* device time apart from wrapper time for K1 (at the small and the large
+  end of the MNIST launches, the timed shape and the A/B batch), K2, K4 (at
+  the A/B batch and the serving transform shape), K6 (at the windowed
+  rotation's shape), K3 (at the serving gadget with 4 and 16 rows and at
+  ``bench.py``'s fixture), K5 (at the windowed rotation's shape, the
+  serving transform shape and the A/B batch), every launch shape of each,
+  and
   the whole windowed key switch fused against unfused: one launch between
   two events, 200 launches back to back, one launch's share of a replayed
   CUDA graph, and the host's time a call;
@@ -81,7 +76,7 @@ Then, for each path:
   dense 2), its logits held against the plaintext pass, its K1 launches
   counted and its stages timed (every transform of these paths is K1);
 * the exact schemes (every transform K1 again): K1 bit-equal to its plain
-  twin in every variant at their towers (the 16-limb BEHZ tower of
+  twin at every launch shape at their towers (the 16-limb BEHZ tower of
   ``bfv_params(65537, eval_mult_count=4)`` at the product tree's batches,
   the 17-bit plaintext slot ring, the ``bfv_crt`` towers past 2^30, the
   BGV towers and their drops) and the golden scenarios ``bfv_triv``,
@@ -280,13 +275,13 @@ def k1_sweep_cases():
 
 
 def phase_kernel_vs_plain(dev):
-    """K1 against its plain twin: the kernel every caller gets, the cluster
-    kernel at every legal cluster size with lazy and with fully reduced
-    butterflies (a tower with a prime in [2^30, 2^31) takes only the latter),
-    and the one-block radix-2 kernel; on small towers and on the production
-    bootstrap tower at the bootstrapped path's own polynomial counts."""
-    log("== phase 3: K1 against plain radix-2 on the card: the cluster kernel at every legal "
-        "cluster size, lazy and fully reduced, and the one-block radix-2 kernel")
+    """K1 against its plain twin: as dispatched and at every legal cluster
+    size with lazy and with fully reduced butterflies (a tower with a prime
+    in [2^30, 2^31) takes only the latter); on small towers and on the
+    production bootstrap tower at the bootstrapped path's own polynomial
+    counts."""
+    log("== phase 3: K1 against plain radix-2 on the card: the cluster kernel as dispatched "
+        "and at every legal cluster size, lazy and fully reduced")
     gen = torch.Generator(device=dev).manual_seed(3)
     err = {"fwd": 0, "inv": 0}
     k1_check(dev, k1_sweep_cases(), gen, err)
@@ -294,9 +289,9 @@ def phase_kernel_vs_plain(dev):
 
 
 def k1_check(dev, cases, gen, err):
-    """Every K1 variant against the plain twin over ``cases`` (N, tower
-    label, primes, leads): as dispatched, the radix-2 kernel and the cluster
-    kernel at every legal cluster size, lazy and fully reduced where the
+    """K1 against the plain twin at every launch shape over ``cases`` (N,
+    tower label, primes, leads): as dispatched and at every legal cluster
+    size, lazy and fully reduced where the
     tower allows lazy; then the round trip. Raises on the first difference,
     keeps the largest difference in ``err``."""
     from toyfhe_tpu_torch.ops import ntt as nttmod
@@ -317,14 +312,12 @@ def k1_check(dev, cases, gen, err):
             for which, inverse, plain in (("fwd", False, nttmod.ntt_plain),
                                           ("inv", True, nttmod.intt_plain)):
                 want = plain(tables, x)
-                names = ["default", "radix2"] + [f"C={c} lazy={lz}" for c, lz in variants]
+                names = ["default"] + [f"C={c} lazy={lz}" for c, lz in variants]
                 for i, what in enumerate(names):
                     if i == 0:
                         g = nttmod.intt(tables, x) if inverse else nttmod.ntt(tables, x)
-                    elif i == 1:
-                        g = ntt_cuda.launch(tables, x, inverse, variant="radix2")
                     else:
-                        g = ntt_cuda.launch_cluster(tables, x, inverse, *variants[i - 2])
+                        g = ntt_cuda.launch(tables, x, inverse, *variants[i - 1])
                     torch.cuda.synchronize()
                     nlaunch += 1
                     err[which] = max(err[which], int((g - want).abs().max()))
@@ -341,9 +334,10 @@ def k1_check(dev, cases, gen, err):
         log(f"N={n:5d} tower={tower} ({len(primes)} limbs, "
             f"{min(primes).bit_length()}-{max(primes).bit_length()} bit): leads {list(leads)}, "
             f"clusters {ntt_cuda.legal_clusters(n)} x "
-            f"{'lazy and full' if can_lazy else 'full (a prime >= 2^30)'} + radix-2 + the "
+            f"{'lazy and full' if can_lazy else 'full (a prime >= 2^30)'} + the "
             f"chooser's pick ({', '.join(picks)} polynomials): bit-equal, round trip exact")
-    log(f"{ncase} cases, {nlaunch} launches: every K1 variant == plain, intt(ntt(x)) == x")
+    log(f"{ncase} cases, {nlaunch} launches: K1 at every launch shape == plain, "
+        f"intt(ntt(x)) == x")
 
 
 def _entry_operands(n, tower, batch, seed):
@@ -541,8 +535,7 @@ def phase_k3_vs_plain(dev):
 
     log("== phase 8: K3 (fused hybrid key switch) against its plain twin on the card: the "
         "cluster kernel as dispatched, the digits over every legal cluster size and the "
-        "polynomial over every legal one, with lazy and with fully reduced arithmetic, and "
-        "the one-block loop kernel")
+        "polynomial over every legal one, with lazy and with fully reduced arithmetic")
     gen = torch.Generator(device=dev).manual_seed(8)
     err, ncase, nlaunch = 0, 0, 0
     cases = [(n, cfg, lead) for n in (256, 4096, 8192, 16384) for cfg in HYBRID_CONFIGS
@@ -562,8 +555,7 @@ def phase_k3_vs_plain(dev):
         rows = y.numel() // (lt * n)
         chosen = k3c.choose_cluster(rows * fks.exp_ring.nlimbs, n, fks.dnum_t,
                                     fks.exp_ring.primes)
-        variants = [("dispatched", lambda: fks(y)),
-                    ("loop", lambda: k3c.launch(fks, y, variant="loop"))]
+        variants = [("dispatched", lambda: fks(y))]
         for scheme in k3c.SCHEMES:
             for g in k3c.legal_clusters(n, fks.dnum_t, scheme):
                 for lazy in ((False, True) if chosen[2] else (False,)):
@@ -582,8 +574,9 @@ def phase_k3_vs_plain(dev):
         log(f"N={n:5d} {name} lead={lead}: T={fks.exp_ring.nlimbs} dnum_t={fks.dnum_t} "
             f"alpha={fks.alpha}{'' if chosen[2] else ' (full)'}, dispatched {chosen[0]} "
             f"{chosen[1]}; digits over {k3c.legal_clusters(n, fks.dnum_t)}, polynomial over "
-            f"{k3c.legal_clusters(n, fks.dnum_t, 'poly')}, and the loop kernel bit-equal")
-    log(f"{ncase} cases, {nlaunch} launches: every K3 variant == plain twin (accumulators in "
+            f"{k3c.legal_clusters(n, fks.dnum_t, 'poly')} bit-equal")
+    log(f"{ncase} cases, {nlaunch} launches: K3 at every launch shape == plain twin "
+        f"(accumulators in "
         f"registers up to 2^13 residues a block, partial rows in shared memory at N=2^14, in "
         f"device scratch at 2^15)")
     return err
@@ -746,8 +739,7 @@ def phase_k5_vs_plain(dev):
 
     log("== phase 13: K5 (bit-reversed DIF transform) against its plain twin on the card: the "
         "register-radix kernel as dispatched, limb-major and row-major, at every legal block "
-        "count a polynomial with lazy and with fully reduced butterflies, and the one-block "
-        "radix-2 kernel")
+        "count a polynomial with lazy and with fully reduced butterflies")
     gen = torch.Generator(device=dev).manual_seed(13)
     err, ncase, nlaunch = 0, 0, 0
     for n in (256, 1024, 4096, 8192, 16384, 32768):
@@ -763,8 +755,7 @@ def phase_k5_vs_plain(dev):
                 want = ntt_pallas.ntt_bitrev_plain(pt, a)
                 nat = nttmod.ntt(tables, rm).transpose(0, 1)[..., brev]
                 outs = [ntt_pallas.ntt_pallas_bitrev(pt, a),
-                        ntt_pallas.ntt_bitrev_rows(pt, rm).transpose(0, 1),
-                        k5c.launch(pt, a, variant="radix2")]
+                        ntt_pallas.ntt_bitrev_rows(pt, rm).transpose(0, 1)]
                 for c in k5c.legal_bitrev_clusters(n):
                     for lazy in ((False, True) if lazy_ok else (False,)):
                         outs.append(k5c.launch(pt, a, cluster=c, lazy=lazy))
@@ -776,9 +767,10 @@ def phase_k5_vs_plain(dev):
                 nlaunch += len(outs)
                 ncase += 1
         log(f"N={n:5d}: {len(towers)} towers x rows (1, 4, 16): dispatched (limb-major and "
-            f"row-major), C in {k5c.legal_bitrev_clusters(n)} lazy and full, and the radix-2 "
-            f"kernel bit-equal to the plain twin and to K1 read bit-reversed")
-    log(f"{ncase} cases, {nlaunch} launches: every K5 variant == plain twin == bit-reversed K1")
+            f"row-major), C in {k5c.legal_bitrev_clusters(n)} lazy and full bit-equal to the "
+            f"plain twin and to K1 read bit-reversed")
+    log(f"{ncase} cases, {nlaunch} launches: K5 at every launch shape == plain twin == "
+        f"bit-reversed K1")
     return err
 
 
@@ -807,7 +799,7 @@ def phase_k6_vs_plain(dev):
 
     log("== phase 14: K6 (fused windowed key switch) against its plain twin on the card: the "
         "cluster kernel as dispatched, at every legal cluster size with lazy and with fully "
-        "reduced butterflies, and the one-block loop kernel")
+        "reduced butterflies")
     gen = torch.Generator(device=dev).manual_seed(14)
     err, ncase, nlaunch = 0, 0, 0
     cases = [(n, K6_TOWER, w, lead) for n in (256, 4096, 8192, 16384) for w in (8, 5)
@@ -821,8 +813,7 @@ def phase_k6_vs_plain(dev):
         want = pallas_keyswitch.fused_keyswitch_plain(fk, c2, c1e)
         pairs = (2 if lead else 1) * len(primes)
         chosen, lazy_ok = k6c.choose_cluster(pairs, n, fk.ndig, primes)
-        variants = [("dispatched", lambda: fk(c2, c1e)),
-                    ("loop", lambda: k6c.launch(fk, c2, c1e, variant="loop"))]
+        variants = [("dispatched", lambda: fk(c2, c1e))]
         legal = k6c.legal_clusters(n, fk.ndig)
         for g in legal:
             for lazy in ((False, True) if lazy_ok else (False,)):
@@ -841,8 +832,9 @@ def phase_k6_vs_plain(dev):
         ncase += 1
         log(f"N={n:5d} tower={len(tower)} limbs{' (full)' if not lazy_ok else ''} window={window} "
             f"kpl={fk.kpl} ndig={fk.ndig} lead={lead}: dispatched G={chosen}, G in {legal} x "
-            f"{'lazy and full' if lazy_ok else 'full'}, and the loop kernel bit-equal")
-    log(f"{ncase} cases, {nlaunch} launches: every K6 variant == plain twin (partial rows in "
+            f"{'lazy and full' if lazy_ok else 'full'} bit-equal")
+    log(f"{ncase} cases, {nlaunch} launches: K6 at every launch shape == plain twin (partial "
+        f"rows in "
         f"shared memory up to N=2^14, in device scratch at 2^15)")
     return err
 
@@ -1148,7 +1140,7 @@ def phase_k4_vs_plain(dev):
 
     log("== phase 20: K4 (fused polynomial product) against its plain twin on the card: the "
         "cluster kernel as dispatched, at every legal cluster size with lazy and with fully "
-        "reduced butterflies, and the one-block radix-2 kernel with and without the parked row")
+        "reduced butterflies")
     gen = torch.Generator(device=dev).manual_seed(20)
     err, ncase, nlaunch = 0, 0, 0
     for n in (16, 256, 4096, 8192, 16384, 32768):
@@ -1165,11 +1157,7 @@ def phase_k4_vs_plain(dev):
                 at, bt = a.transpose(0, 1), b.transpose(0, 1)
                 k1 = nttmod.intt(tables, modmath.mul_mod(nttmod.ntt(tables, at),
                                                          nttmod.ntt(tables, bt), tables.mp))
-                outs = {"dispatched": ntt_pallas.polymul_pallas_raw(pt, a, b),
-                        "radix2 parked": k4c.launch_polymul(pt, a, b, park=True,
-                                                            variant="radix2")}
-                if n <= k4c.PARK_ABOVE:
-                    outs["radix2"] = k4c.launch_polymul(pt, a, b, variant="radix2")
+                outs = {"dispatched": ntt_pallas.polymul_pallas_raw(pt, a, b)}
                 for c in legal:
                     for lazy in ((False, True) if lazy_ok else (False,)):
                         outs[f"C={c} lazy={lazy}"] = k4c.launch_polymul(pt, a, b, cluster=c,
@@ -1185,11 +1173,10 @@ def phase_k4_vs_plain(dev):
                 nlaunch += len(outs)
                 ncase += 1
         log(f"N={n:5d}: {len(towers)} towers (lazy and full) x rows (1, 4, 16): dispatched, C in "
-            f"{legal} x lazy / full, radix-2 with the parked row"
-            f"{' and with two rows' if n <= k4c.PARK_ABOVE else ''} bit-equal to the plain twin; "
+            f"{legal} x lazy / full bit-equal to the plain twin; "
             f"dispatched == K1-inverse(K1(a) * K1(b))")
-    log(f"{ncase} cases, {nlaunch} launches: every K4 variant == plain twin == unfused product "
-        f"through K1")
+    log(f"{ncase} cases, {nlaunch} launches: K4 at every launch shape == plain twin == unfused "
+        f"product through K1")
     return err
 
 
@@ -1288,8 +1275,7 @@ def four_times(*fns) -> list:
 
 
 def phase_device_time(dev, smi):
-    """Device time apart from wrapper time, for K1 (the cluster kernel and
-    the one-block radix-2 kernel at the same shapes) and K2."""
+    """Device time apart from wrapper time, for K1 and K2."""
     from toyfhe_tpu_torch.ops import ntt as nttmod
     from toyfhe_tpu_torch.ops import ntt_cuda, ntt_mxu, ntt_mxu_pallas as mxp
     from toyfhe_tpu_torch.ops import ntt_mxu_pallas_cuda as k2c
@@ -1298,15 +1284,14 @@ def phase_device_time(dev, smi):
     log(f"== phase 24: device time and wrapper time of K1 and K2. ms: one launch between two "
         f"events, median of {REPS} (wrapper included); b2b: {B2B_LAUNCHES} launches between "
         f"one pair of events, per launch; device: one launch's share of a replayed CUDA graph "
-        f"of 100; host: the Python thread's time a call; wrapper = ms - device; the two K1 "
-        f"kernels in turns (new, old, old, new), means of two readings [{smi}]")
+        f"of 100; host: the Python thread's time a call; wrapper = ms - device [{smi}]")
     gen = torch.Generator(device=dev).manual_seed(24)
     fmt = lambda t: (f"ms {t['ms']:.4f}, b2b {t['b2b_ms']:.4f}, device {t['device_ms']:.4f}, "
                      f"host {t['host_ms']:.4f}, wrapper {t['ms'] - t['device_ms']:.4f}")
     out = {}
     tiny = nttmod.NttTables(16, nt.ntt_prime_chain(16, (28,)))
     xt = random_residues(tiny.primes, (), 16, gen, dev)
-    floor, = four_times(lambda: ntt_cuda.launch_cluster(tiny, xt, False, 1))
+    floor, = four_times(lambda: ntt_cuda.launch(tiny, xt, False, 1))
     log(f"floor, one polynomial of N=16 through the cluster kernel: {fmt(floor)} [{smi}]")
     out["floor"] = floor
     for label, n, tower, lead in DEVICE_TIME_SHAPES:
@@ -1318,18 +1303,13 @@ def phase_device_time(dev, smi):
         shape = ntt_cuda.block_shape(n, c)
         log(f"K1 {label}: C={c}, lazy={lazy}, grid {polys * c} blocks x {shape['threads']} "
             f"threads, {shape['smem']} B shared memory a block, local passes {local} + closing "
-            f"{kf} stages, {1 + len(local) + (c > 1)} barriers (radix-2: "
-            f"{n.bit_length()}); registers " + ", ".join(
+            f"{kf} stages, {1 + len(local) + (c > 1)} barriers; registers " + ", ".join(
                 f"{w} {ntt_cuda.kernel_attrs(kf, inv, lazy)['registers']}"
                 for w, inv in (("fwd", False), ("inv", True))))
         for which, inverse in (("fwd", False), ("inv", True)):
-            new, old = four_times(
-                lambda: ntt_cuda.launch(tables, x, inverse),
-                lambda: ntt_cuda.launch(tables, x, inverse, variant="radix2"))
-            out[(label, which)] = {"new": new, "old": old, "cluster": c}
-            log(f"  {which} cluster kernel: {fmt(new)} [{smi}]")
-            log(f"  {which} one-block radix-2: {fmt(old)}; device time old / new "
-                f"x{old['device_ms'] / new['device_ms']:.2f} [{smi}]")
+            t, = four_times(lambda: ntt_cuda.launch(tables, x, inverse))
+            out[(label, which)] = {"kernel": t, "cluster": c}
+            log(f"  {which} cluster kernel: {fmt(t)} [{smi}]")
     tables = nttmod.NttTables(BENCH_N, nt.ntt_prime_chain(BENCH_N, (28,) * BENCH_LIMBS))
     mt = ntt_mxu.MxuNttTables(tables)
     psis = mxp.psi_table(mt, dev)
@@ -1353,9 +1333,9 @@ K4_DEVICE_TIME_SHAPES = (("128 x 2^14", BENCH_N, BENCH_LIMBS, BENCH_ROWS),
 
 def phase_device_time_fused(dev, smi, kpath, k3row):
     """Phase 24, continued: device time apart from wrapper time for the
-    fused kernels. K4, K6, K3 and K5 each beside the kernel it replaced, in
-    turns, with the device time of every variant; the whole windowed key
-    switch fused against unfused, in turns."""
+    fused kernels. K4, K6, K3 and K5 as dispatched, with the device time of
+    every launch shape; the whole windowed key switch fused against
+    unfused, in turns."""
     from toyfhe_tpu_torch.ops import hybrid_ks, hybrid_ks_cuda as k3c, modmath
     from toyfhe_tpu_torch.ops import ntt as nttmod
     from toyfhe_tpu_torch.ops import ntt_pallas, ntt_pallas_cuda as k4c
@@ -1364,14 +1344,12 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
     from toyfhe_tpu_torch.tools.bench_kernels import graph_ms
     from toyfhe_tpu_torch.utils import numtheory as nt
 
-    log(f"== phase 24, continued: device time and wrapper time of K4, K6, K3 and K5 (the new "
-        f"kernel and the kernel it replaced in turns: new, old, old, new), and of the whole "
-        f"windowed key switch (K5 + K6 + rescale against K1 + torch, in turns); the same four "
-        f"readings [{smi}]")
+    log(f"== phase 24, continued: device time and wrapper time of K4, K6, K3 and K5, and of "
+        f"the whole windowed key switch (K5 + K6 + rescale against K1 + torch, in turns); the "
+        f"same four readings [{smi}]")
     gen = torch.Generator(device=dev).manual_seed(241)
     fmt = lambda t: (f"ms {t['ms']:.4f}, b2b {t['b2b_ms']:.4f}, device {t['device_ms']:.4f}, "
                      f"host {t['host_ms']:.4f}, wrapper {t['ms'] - t['device_ms']:.4f}")
-    ratio = lambda new, old: f"device time old / new x{old['device_ms'] / new['device_ms']:.2f}"
     out = {}
     for label, n, limbs, rows in K4_DEVICE_TIME_SHAPES:
         tables = nttmod.NttTables(n, nt.ntt_prime_chain(n, (28,) * limbs))
@@ -1383,16 +1361,14 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
         log(f"K4 {label}: C={c}, lazy={lazy}, grid {limbs * rows * c} blocks x "
             f"{shape['threads']} threads, {shape['smem']} B shared memory a block, load pass "
             f"{plan['kl']} + DIF passes {plan['fwd']} + middle 3 | 3 + DIT passes {plan['bwd']} "
-            f"+ closing {plan['kf']} stages, {k4c.plan_barriers(plan)} barriers (radix-2: "
-            f"{3 * pt.logn + 3}); registers {k4c.polymul_attrs(c, lazy)['registers']}")
-        new, old = four_times(lambda: ntt_pallas.polymul_pallas_raw(pt, a, b),
-                              lambda: k4c.launch_polymul(pt, a, b, variant="radix2"))
+            f"+ closing {plan['kf']} stages, {k4c.plan_barriers(plan)} barriers; registers "
+            f"{k4c.polymul_attrs(c, lazy)['registers']}")
+        t, = four_times(lambda: ntt_pallas.polymul_pallas_raw(pt, a, b))
         sweep = {f"C={x}{'' if lz else ' full'}": graph_ms(
             lambda: k4c.launch_polymul(pt, a, b, cluster=x, lazy=lz), 100)
             for x in k4c.legal_polymul_clusters(n) for lz in (True, False)}
-        out[("k4", label)] = {"new": new, "old": old, "cluster": c, "sweep": sweep}
-        log(f"  cluster kernel: {fmt(new)} [{smi}]")
-        log(f"  one-block radix-2: {fmt(old)}; {ratio(new, old)} [{smi}]")
+        out[("k4", label)] = {"kernel": t, "cluster": c, "sweep": sweep}
+        log(f"  cluster kernel: {fmt(t)} [{smi}]")
         log("  device ms at each cluster size, lazy and fully reduced: " +
             ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()) + f" [{smi}]")
 
@@ -1408,14 +1384,12 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
         f"({k6c.acc_items(fk.n)} item(s) of accumulators in registers); an inverse over "
         f"{k6c.half(g)} blocks: DIT passes {plan['bwd']} + closing {plan['kf']}; registers "
         f"{k6c.kernel_attrs(fk.n, lazy)['registers']}")
-    new, old = four_times(lambda: fk(c2p, c1e),
-                          lambda: k6c.launch(fk, c2p, c1e, variant="loop"))
+    t, = four_times(lambda: fk(c2p, c1e))
     sweep = {f"G={x}{'' if lz else ' full'}": graph_ms(
         lambda: k6c.launch(fk, c2p, c1e, cluster=x, lazy=lz), 100)
         for x in k6c.legal_clusters(fk.n, fk.ndig) for lz in (True, False)}
-    out["k6"] = {"new": new, "old": old, "cluster": g, "sweep": sweep}
-    log(f"  cluster kernel: {fmt(new)} [{smi}]")
-    log(f"  one-block loop kernel: {fmt(old)}; {ratio(new, old)} [{smi}]")
+    out["k6"] = {"kernel": t, "cluster": g, "sweep": sweep}
+    log(f"  cluster kernel: {fmt(t)} [{smi}]")
     log("  device ms at each cluster size, lazy and fully reduced: " +
         ", ".join(f"{k} {v:.4f}" for k, v in sweep.items()) + f" [{smi}]")
 
@@ -1440,16 +1414,14 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
             f"grid {rows * T_ * g} blocks x {shape['threads']} threads, {shape['smem']} B shared "
             f"memory a block, {-(-dn // g) if scheme == 'digits' else dn} digit(s) a block, a "
             f"digit: load pass + DIT passes {plan['local']} + closing {plan['kf']} with the key "
-            f"products, {shape['barriers']} barriers (loop kernel: {n.bit_length() + 1}); "
-            f"registers {k3c.kernel_attrs(plan['kf'], lazy)['registers']}, spill stores "
+            f"products, {shape['barriers']} barriers; registers {k3c.kernel_attrs(plan['kf'], lazy)['registers']}, spill stores "
             f"{k3c.LIB.spill_bytes(mangled)} B; bound {bound_k3(fks, rows)['bound_ms']:.5f} ms")
-        new, old = four_times(lambda: fks(y), lambda: k3c.launch(fks, y, variant="loop"))
+        t, = four_times(lambda: fks(y))
         sweep = {f"{sc} {x}{'' if lz else ' full'}": graph_ms(
             lambda: k3c.launch(fks, y, cluster=x, scheme=sc, lazy=lz), 100)
             for sc in k3c.SCHEMES for x in k3c.legal_clusters(n, dn, sc) for lz in (True, False)}
-        out["k3"][label] = {"new": new, "old": old, "cluster": (scheme, g), "sweep": sweep}
-        log(f"  cluster kernel: {fmt(new)} [{smi}]")
-        log(f"  one-block loop kernel: {fmt(old)}; {ratio(new, old)} [{smi}]")
+        out["k3"][label] = {"kernel": t, "cluster": (scheme, g), "sweep": sweep}
+        log(f"  cluster kernel: {fmt(t)} [{smi}]")
         log("  device ms, the digits or the polynomial over each cluster size, lazy and fully "
             "reduced: " + ", ".join(f"{k_} {v:.4f}" for k_, v in sweep.items()) + f" [{smi}]")
 
@@ -1470,18 +1442,16 @@ def phase_device_time_fused(dev, smi, kpath, k3row):
         log(f"K5 {label}: C={c}, lazy={lazy}, grid {limbs * rows * c} independent blocks x "
             f"{shape['threads']} threads, {shape['smem']} B shared memory a block, load pass "
             f"{plan['kl']} (+ {c.bit_length() - 1} cross-block) + DIF passes {plan['fwd']} + last "
-            f"3 stages, {shape['barriers']} barriers (radix-2: {pt.logn + 1}); registers "
+            f"3 stages, {shape['barriers']} barriers; registers "
             f"{k4c.bitrev_attrs(c, lazy)['registers']}, spill stores "
             f"{k4c.LIB.spill_bytes(mangled)} B; bound "
             f"{bound_transform(limbs * rows, limbs, n)['bound_ms']:.5f} ms")
-        new, old = four_times(lambda: ntt_pallas.ntt_pallas_bitrev(pt, a5),
-                              lambda: k4c.launch(pt, a5, variant="radix2"))
+        t, = four_times(lambda: ntt_pallas.ntt_pallas_bitrev(pt, a5))
         sweep = {f"C={x}{'' if lz else ' full'}": graph_ms(
             lambda: k4c.launch(pt, a5, cluster=x, lazy=lz), 100)
             for x in k4c.legal_bitrev_clusters(n) for lz in (True, False)}
-        out["k5"][label] = {"new": new, "old": old, "cluster": c, "sweep": sweep}
-        log(f"  register-radix kernel: {fmt(new)} [{smi}]")
-        log(f"  one-block radix-2: {fmt(old)}; {ratio(new, old)} [{smi}]")
+        out["k5"][label] = {"kernel": t, "cluster": c, "sweep": sweep}
+        log(f"  register-radix kernel: {fmt(t)} [{smi}]")
         log("  device ms at each block count a polynomial, lazy and fully reduced: " +
             ", ".join(f"{k_} {v:.4f}" for k_, v in sweep.items()) + f" [{smi}]")
 
@@ -1619,7 +1589,7 @@ def phase_bsgs_pipeline(dev, smi, base):
     dual flow, on the same setup, weights, images and encryption seed."""
     from toyfhe_tpu_torch.core import rlwe
     from toyfhe_tpu_torch.models import mnist as M
-    from toyfhe_tpu_torch.ops import ntt_cuda
+    from toyfhe_tpu_torch.ops import fbc_cuda, ntt_cuda
 
     cfg, setup, weights, imgs, gen = (base[k] for k in ("cfg", "setup", "weights", "imgs", "gen"))
     baby, giant = M.bsgs_steps(cfg)
@@ -1647,13 +1617,18 @@ def phase_bsgs_pipeline(dev, smi, base):
     sync(dev)
     launches, counts = read_launches(), dict(rlwe.hoist_counts)
     transforms = dict(ntt_cuda.transforms)
+    fbc_launches = fbc_cuda.launches["fbc"]
     log(f"one batch launched {launches}; K1 limb transforms {transforms['fwd']} forward + "
-        f"{transforms['inv']} inverse; {counts}")
+        f"{transforms['inv']} inverse; {counts}; FBC {fbc_launches} (one a decomposition "
+        f"call of the dense layers, one a dual-flow square)")
     want_l, want_c = bsgs_pipeline_launches(cfg, setup.params), bsgs_counts(cfg)
     if launches != want_l:
         raise AssertionError(f"BSGS pipeline launched {launches}, expected {want_l}")
     if counts != want_c:
         raise AssertionError(f"BSGS pipeline counts {counts}, expected {want_c}")
+    if fbc_launches != want_c["decompose_calls"] + 2:
+        raise AssertionError(f"BSGS pipeline launched FBC {fbc_launches} times, expected "
+                             f"{want_c['decompose_calls']} + 2")
     plain = base["plain"]
     if logits.shape != (cfg.batch, cfg.classes) or not np.all(np.isfinite(logits)):
         raise AssertionError(f"bad logits: shape {logits.shape} or non-finite values")
@@ -1679,7 +1654,7 @@ def phase_bsgs_pipeline(dev, smi, base):
         ", ".join(f"{k} {v:.2f} / {base['layers'][k]:.2f}" for k, v in layers.items())
         + f" [{smi}]")
     return dict(launches=launches, transforms=transforms, counts=counts, err=err, diff=diff,
-                ms=ms, layers=layers, gks=gks)
+                ms=ms, layers=layers, gks=gks, fbc_launches=fbc_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2177,11 +2152,11 @@ def exact_k1_cases():
 
 
 def phase_exact_k1_goldens(dev):
-    """K1 held against its plain twin at the exact schemes' shapes in every
-    variant, then the exact golden scenarios on the card."""
+    """K1 held against its plain twin at the exact schemes' shapes at every
+    launch shape, then the exact golden scenarios on the card."""
     log("== phase 28: K1 at the exact schemes' shapes (the BFV extended tower, the plaintext "
         "slot ring, the bfv_crt tower past 2^30, the BGV towers and their drops), every "
-        "variant; the exact golden scenarios on the card")
+        "launch shape; the exact golden scenarios on the card")
     gen = torch.Generator(device=dev).manual_seed(28)
     err = {"fwd": 0, "inv": 0}
     k1_check(dev, exact_k1_cases(), gen, err)
@@ -3287,13 +3262,11 @@ def _kernel_census(census: list) -> dict:
 # (mangled) or a tracer gives them (demangled); K1's direction is its
 # kInverse template argument
 _K1_DIRECTION = (re.compile(r"ntt_cluster_kernel<\s*\d+\s*,\s*(true|false)"),
-                 re.compile(r"ntt_radix2_kernel<\s*(true|false)"),
-                 re.compile(r"ntt_cluster_kernelILi\d+ELb([01])"),
-                 re.compile(r"ntt_radix2_kernelILb([01])"))
-_K1 = re.compile(r"(?<![A-Za-z_])ntt_(cluster|radix2)_kernel")
-_KERNEL_NAMES = (("k3", re.compile(r"(?<![A-Za-z_])hybrid_ks_(cluster|loop)_kernel")),
-                 ("k5", re.compile(r"(?<![A-Za-z_])ntt_bitrev_radix2?_kernel")),
-                 ("k6", re.compile(r"(?<![A-Za-z_])keyswitch_(cluster|loop)_kernel")),
+                 re.compile(r"ntt_cluster_kernelILi\d+ELb([01])"))
+_K1 = re.compile(r"(?<![A-Za-z_])ntt_cluster_kernel")
+_KERNEL_NAMES = (("k3", re.compile(r"(?<![A-Za-z_])hybrid_ks_cluster_kernel")),
+                 ("k5", re.compile(r"(?<![A-Za-z_])ntt_bitrev_radix_kernel")),
+                 ("k6", re.compile(r"(?<![A-Za-z_])keyswitch_cluster_kernel")),
                  ("fbc", re.compile(r"(?<![A-Za-z_])fbc_kernel")))
 
 
@@ -4108,7 +4081,7 @@ def main() -> int:
                                  for r, v in sboot["full"].items()},
                               **_compiled_launches(comp, k)},
          "max_abs_err": max(err[k], exact_err[k]),
-         "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["new"]["device_ms"],
+         "ms": times[shape][k], "device_ms": dtime[("28 x 2^13", k)]["kernel"]["device_ms"],
          "plain_ms": times[shape][f"{k}_plain"],
          **bound_transform(28, 7, 1 << 13), "library_ms": None}
         for k, line in (("fwd", 242), ("inv", 255))]
@@ -4126,7 +4099,7 @@ def main() -> int:
          "launches": hybrid_launches["k3"], "max_abs_err": k3_err,
          "launches_by_path": _compiled_launches(comp, "k3"),
          "ms": k3_times["mnist"]["kernel"],
-         "device_ms": dtime["k3"]["MNIST serving shape"]["new"]["device_ms"],
+         "device_ms": dtime["k3"]["MNIST serving shape"]["kernel"]["device_ms"],
          "plain_ms": k3_times["mnist"]["plain"],
          **bound_k3(k3_times["mnist"]["fks"], HYBRID_B), "library_ms": None})
     kernels.append(
@@ -4134,7 +4107,7 @@ def main() -> int:
          "replaces": "toyfhe_tpu/ops/ntt_pallas.py:180",
          "launches": ab_launches["k4"], "max_abs_err": k4_err,
          "ms": ab_rows["polymul_k4"]["ms"],
-         "device_ms": dtime[("k4", "128 x 2^14")]["new"]["device_ms"],
+         "device_ms": dtime[("k4", "128 x 2^14")]["kernel"]["device_ms"],
          "plain_ms": ab_rows["polymul_k4"]["plain_ms"],
          **bound_k4(BENCH_LIMBS, BENCH_ROWS, BENCH_N), "library_ms": None})
     k5_row = k56[("k5", "path (b): 8 limbs x 1 row")]
@@ -4144,7 +4117,7 @@ def main() -> int:
          "launches": kpath["launches"]["k5"], "max_abs_err": k5_err,
          "launches_by_path": _compiled_launches(comp, "k5"),
          "ms": k5_row["kernel"],
-         "device_ms": dtime["k5"]["path (b), 8 x 2^13"]["new"]["device_ms"],
+         "device_ms": dtime["k5"]["path (b), 8 x 2^13"]["kernel"]["device_ms"],
          "plain_ms": k5_row["plain"],
          **bound_transform(len(K6_TOWER), len(K6_TOWER), K6_N), "library_ms": None})
     kernels.append(
@@ -4152,14 +4125,15 @@ def main() -> int:
          "replaces": "toyfhe_tpu/ops/pallas_keyswitch.py:40",
          "launches": kpath["launches"]["k6"], "max_abs_err": k6_err,
          "launches_by_path": _compiled_launches(comp, "k6"),
-         "ms": k56["k6"]["kernel"], "device_ms": dtime["k6"]["new"]["device_ms"],
+         "ms": k56["k6"]["kernel"], "device_ms": dtime["k6"]["kernel"]["device_ms"],
          "plain_ms": k56["k6"]["plain"],
          **bound_k6(kpath["fk"]), "library_ms": None})
     top = fbc["rows"][0]
     kernels.append(
         {"name": "fbc", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/fbc.cu",
          "replaces": None, "launches": fbc["refresh_launches"], "max_abs_err": 0,
-         "launches_by_path": _compiled_launches(comp, "fbc"),
+         "launches_by_path": {"mnist_bsgs_batch": bsgs["fbc_launches"],
+                              **_compiled_launches(comp, "fbc")},
          "ms": top["kernel_ms"], "device_ms": None, "plain_ms": top["plain_ms"],
          "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None})
     log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch on the "

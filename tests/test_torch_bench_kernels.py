@@ -14,23 +14,20 @@ from toyfhe_tpu_torch.tools import bench_kernels, profile_mnist
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
-ROWS = ("k1", "k1_radix2", "k2_7grp", "k2_paired", "polymul_unfused", "polymul_k4",
-        "polymul_k4_radix2")
+ROWS = ("k1", "k2_7grp", "k2_paired", "polymul_unfused", "polymul_k4")
 
 
 def test_run_returns_the_five_rows():
-    """The five rows of the reference tool, and the one-block radix-2 K1
-    and K4 beside their cluster kernels."""
+    """The five rows of the reference tool."""
     res = bench_kernels.run(n=256, limbs=2, rows=4, device="cpu", reps=1)
     assert tuple(res["rows_ms"]) == ROWS and res["paired_ok"]
     assert (res["n"], res["limbs"], res["rows"], res["device"]) == (256, 2, 4, "cpu")
     for row in res["rows_ms"].values():
         assert row["ms"] > 0 and row["plain_ms"] > 0 and row["transforms_per_s"] > 0
-    assert set(res["ratios"]) == {"k1_vs_radix2", "k2_7grp_vs_k1", "k2_paired_vs_k1",
-                                  "k2_paired_vs_7grp", "polymul_k4_vs_unfused",
-                                  "polymul_k4_vs_radix2"}
+    assert set(res["ratios"]) == {"k2_7grp_vs_k1", "k2_paired_vs_k1", "k2_paired_vs_7grp",
+                                  "polymul_k4_vs_unfused"}
     lines = bench_kernels.report(res)
-    assert len(lines) == 7 and all("ms/batch" in ln for ln in lines)
+    assert len(lines) == 5 and all("ms/batch" in ln for ln in lines)
 
 
 @pytest.mark.parametrize("n, limbs, rows", [(128, 1, 1), (512, 3, 2)])
@@ -45,8 +42,8 @@ def test_command_line_on_the_cpu():
                           "--reps", "1"], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     out = res.stdout.strip().splitlines()
-    assert len(out) == 8 and out[0].startswith("device=cpu")
-    assert "polymul K4" in out[-2] and "polymul K4 o-b r2" in out[-1]
+    assert len(out) == 6 and out[0].startswith("device=cpu")
+    assert "polymul unfused" in out[-2] and "polymul K4" in out[-1]
 
 
 def test_command_line_needs_a_card_by_default():

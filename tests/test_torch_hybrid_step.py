@@ -9,7 +9,9 @@ True and False) — on the fixture of tests/test_parallel.py (N=64, six
 at the full tower and one limb shorter; and ``fused=True`` at N=256 against
 the reference's ``fused=False`` step, the reference's own equivalence
 (tests/test_fused_keyswitch.py). Steps are bit-equal; decoded squares are
-within 1e-3 (see the decrypt test for why not 2e-4 at this scale).
+within 1e-3 (see the decrypt test for why not 2e-4 at this scale). Every
+step's digit decomposition goes through ``ops.fbc_cuda.fbc``, once a step,
+on one device and on two gloo ranks (``tests/torch_rank_cases.py``).
 """
 
 from fractions import Fraction
@@ -23,10 +25,11 @@ import torch
 import toyfhe_tpu as F
 import toyfhe_tpu_torch as T
 from toyfhe_tpu.parallel import ops as ref_ops
-from toyfhe_tpu_torch.ops import hybrid_ks_cuda, ntt_cuda
+from toyfhe_tpu_torch.ops import fbc_cuda, hybrid_ks_cuda, ntt_cuda
 from toyfhe_tpu_torch.parallel import ops as pops
 from toyfhe_tpu_torch.utils import interop as I
 
+from . import torch_rank_cases as RC
 from .test_torch_hybrid import (carry_keys, ct_duals, hybrid_params, ref_eval_key,
                                 synthetic_keys)
 
@@ -156,3 +159,57 @@ def test_step_routes_transforms():
     out = step(place(np.zeros((1, 2, 4, 32), dtype=np.uint32)))
     assert out.shape == (1, 2, 4, 32) and out.dtype == torch.int64 and not out.any()
     assert (dict(ntt_cuda.launches), dict(hybrid_ks_cuda.launches)) == before
+
+
+@pytest.fixture(scope="module")
+def fbc_setup():
+    """N=256, L=4, dnum=2, k=2, synthetic keys, batch 2, and the
+    reference's single-chip v1 step on it."""
+    n, L = 256, 4
+    _, params = hybrid_params(F, n, L, 2, 2, sp_bits=29)
+    _, tparams = hybrid_params(T, n, L, 2, 2, sp_bits=29)
+    masks, maskeds = synthetic_keys(params, 5)
+    ek = ref_eval_key(jnp, params, masks, maskeds)
+    batch = np.random.default_rng(9).integers(
+        0, min(params.ring_cipher.primes), (2, 2, L, n)).astype(np.uint32)
+    want = _ref_run(lambda: ref_ops.make_hybrid_sharded_step(None, params, ek), batch)
+    return dict(tparams=tparams, masks=masks, maskeds=maskeds, batch=batch, want=want,
+                bits=(28,) * L + (29,) * 2, n=n)
+
+
+@pytest.fixture(scope="module")
+def fbc_ranks(fbc_setup, tmp_path_factory):
+    """The two steps over rp 2 on two gloo ranks: rank 0's outputs, and
+    every rank's count of ``fbc`` calls."""
+    fx = fbc_setup
+    inputs = dict(fbc_n=fx["n"], fbc_bits=np.asarray(fx["bits"]), fbc_dnum=2, fbc_k=2,
+                  fbc_masks=fx["masks"], fbc_maskeds=fx["maskeds"], fbc_batch=fx["batch"])
+    case = "hybrid_fbc_calls_rp2"
+    arrays, infos = RC.spawn(tmp_path_factory.mktemp("fbc_calls"), inputs, [case], world=2)
+    return arrays[case], [info[case] for info in infos]
+
+
+@pytest.mark.parametrize("step", ["v1", "fused_merged", "fused_unmerged", "v1_rp2",
+                                  "fused_rp2"])
+def test_steps_decompose_through_fbc(fbc_setup, request, monkeypatch, step):
+    """Each step calls ``fbc_cuda.fbc`` once for its one decomposition and
+    stays bit-equal to the reference's v1 step: on one device the v1 step
+    and the fused schedule with ``merge_calls`` True and False, over rp 2
+    the v1 step and the fused schedule (counted on each rank)."""
+    fx = fbc_setup
+    if step.endswith("_rp2"):
+        arrays, infos = request.getfixturevalue("fbc_ranks")
+        name = step[:-len("_rp2")]
+        assert [info[name] for info in infos] == [1, 1]
+        np.testing.assert_array_equal(arrays[name], fx["want"])
+        return
+    real, calls = fbc_cuda.fbc, []
+    monkeypatch.setattr(fbc_cuda, "fbc", lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    tek = I.eval_mult_key(fx["tparams"], fx["masks"], fx["maskeds"], device="cpu")
+    make = {"v1": lambda: pops.make_hybrid_sharded_step(None, fx["tparams"], tek),
+            "fused_merged": lambda: pops.make_hybrid_fused_step(fx["tparams"], tek),
+            "fused_unmerged": lambda: pops.make_hybrid_fused_step(fx["tparams"], tek,
+                                                                  merge_calls=False)}[step]
+    got = _port_run(make, fx["batch"])
+    assert len(calls) == 1
+    np.testing.assert_array_equal(got, fx["want"])

@@ -426,7 +426,7 @@ def test_cuda_step_replay_matches_eager():
     assert torch.equal(got1, kept) and len(step.pool.captures) == 1
     # what a replay launches, read from the captured graph's kernel nodes
     names = step.pool.graphs[0].kernel_names()
-    assert sum("ntt_cluster_kernel" in k or "ntt_radix2_kernel" in k for k in names) == 4
+    assert sum("ntt_cluster_kernel" in k for k in names) == 4
     assert step.pool.graphs[0].replays == 3
 
 

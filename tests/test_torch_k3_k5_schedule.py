@@ -13,7 +13,7 @@ tests/test_torch_keyswitch.py hold to the reference's Pallas kernels in
 interpret mode -- at every legal cluster size, with lazy and with fully
 reduced arithmetic; the lazy value ranges are checked on the worst input; and
 the pass plans and the choosers are checked over log2 N = 4 .. 15. Tolerance:
-none, integers bit-equal. On a CUDA device every kernel variant is held to its
+none, integers bit-equal. On a CUDA device every launch shape of each kernel is held to its
 plain twin.
 
 Nothing here imports the reference, so the ``cuda`` tests run on a host that
@@ -169,7 +169,7 @@ def test_k3_plan_and_chooser(logn):
             assert len(plan["local"]) + 1 == -(-logn // 3)           # passes a digit
             shape = k3c.block_shape(n, g)
             assert shape["threads"] == min(512, max(32, n // 8)) and shape["smem"] <= 232448
-            assert shape["barriers"] <= min(6, logn) < logn + 2      # the loop kernel's
+            assert shape["barriers"] <= min(6, logn) < logn + 2      # radix-2 stages: one a stage
             # a thread's 16 accumulators a channel cover the closing pass's items
             if n <= k3c.REG_ACC_MAX_N:
                 assert (4 >> (plan["kf"] - 1)) * shape["threads"] >= n >> (plan["kf"] + 1)
@@ -232,8 +232,7 @@ def test_k3_chooser_at_the_serving_shapes_and_guards():
         k3c.cluster_args(full, 6, lazy=True)                         # a 31-bit prime
     y = y_hat(fks, (), 0)
     before = dict(k3c.launches)
-    for kwargs in ({}, {"variant": "loop"}, {"variant": "tree"}, {"cluster": 2},
-                   {"variant": "loop", "cluster": 1}):
+    for kwargs in ({}, {"cluster": 2}):
         with pytest.raises(ValueError):
             k3c.launch(fks, y, **kwargs)                             # a CPU tensor
     assert k3c.launches == before
@@ -328,8 +327,7 @@ def test_k5_chooser_at_the_measured_shapes_and_guards():
     assert k5c.bitrev_args(pallas_tables(8192, LAZY_TOWER), 8) == (4, 1, 2, k5c.pack_plan((3, 3)))
     a = torch.zeros((2, 3, 64), dtype=torch.int64)
     before = dict(k5c.launches)
-    for kwargs in ({}, {"variant": "radix2"}, {"variant": "radix4"}, {"cluster": 2},
-                   {"variant": "radix2", "cluster": 1}, {"row_major": True}):
+    for kwargs in ({}, {"cluster": 2}, {"row_major": True}):
         with pytest.raises(ValueError):
             k5c.launch(pt, a, **kwargs)                                  # a CPU tensor
     assert k5c.launches == before
@@ -435,14 +433,14 @@ def cuda_device():
 @pytest.mark.parametrize("lead", [(), (4,)], ids=["nolead", "lead4"])
 @pytest.mark.parametrize("config", HYBRID_CONFIGS + (FULL_CONFIG,), ids=lambda c: c[0])
 @pytest.mark.parametrize("n", [16, 256, 8192, 1 << 14, 1 << 15])
-def test_cuda_k3_every_variant_matches_plain(n, config, lead):
+def test_cuda_k3_matches_plain_at_every_launch_shape(n, config, lead):
     dev = cuda_device()
     fks = make_fks(n, config, n, dev)
     y = y_hat(fks, lead, n, dev)
     want = hybrid_ks.fused_hybrid_ks_plain(fks, y)
     lazy_ok = max(fks.exp_ring.primes) < k3c.LAZY_PRIME_LIMIT
     before = k3c.launches["k3"]
-    outs = [fks(y), k3c.launch(fks, y, variant="loop")]
+    outs = [fks(y)]
     for scheme, g in k3_variants(fks):
         for lazy in ((False, True) if lazy_ok else (False,)):
             outs.append(k3c.launch(fks, y, cluster=g, scheme=scheme, lazy=lazy))
@@ -451,20 +449,18 @@ def test_cuda_k3_every_variant_matches_plain(n, config, lead):
     assert k3c.launches["k3"] == before + len(outs)
     with pytest.raises(ValueError):
         k3c.launch(fks, y, cluster=8)
-    with pytest.raises(ValueError):
-        k3c.launch(fks, y, variant="loop", lazy=False)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tower", [LAZY_TOWER, FULL_TOWER], ids=["lazy", "full"])
 @pytest.mark.parametrize("n", [16, 64, 1024, 8192, 1 << 14, 1 << 15])
-def test_cuda_k5_every_variant_matches_plain(n, tower):
+def test_cuda_k5_matches_plain_at_every_launch_shape(n, tower):
     dev = cuda_device()
     pt = pallas_tables(n, tower)
     a = lrn_residues(pt.primes, 5, n, n).to(dev)
     want = tnp.ntt_bitrev_plain(pt, a)
     before = k5c.launches["k5"]
-    outs = [tnp.ntt_pallas_bitrev(pt, a), k5c.launch(pt, a, variant="radix2"),
+    outs = [tnp.ntt_pallas_bitrev(pt, a),
             tnp.ntt_bitrev_rows(pt, a.transpose(0, 1).contiguous()).transpose(0, 1)]
     for cluster in k5c.legal_bitrev_clusters(n):
         for lazy in ((False, True) if tower is LAZY_TOWER else (False,)):
@@ -474,5 +470,3 @@ def test_cuda_k5_every_variant_matches_plain(n, tower):
     assert k5c.launches["k5"] == before + len(outs)
     with pytest.raises(ValueError):
         k5c.launch(pt, a, cluster=8)
-    with pytest.raises(ValueError):
-        k5c.launch(pt, a, variant="radix2", cluster=1)

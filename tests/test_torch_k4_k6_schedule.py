@@ -11,7 +11,7 @@ reference's Pallas kernels in interpret mode -- at every legal cluster size,
 with lazy and with fully reduced butterflies; the lazy value ranges are
 checked on the worst input; and the pass plans and the cluster choosers are
 checked over log2 N = 4 .. 15. Tolerance: none, integers bit-equal. On a CUDA
-device every kernel variant is held to its plain twin.
+device every launch shape of each kernel is held to its plain twin.
 
 Nothing here imports the reference, so the ``cuda`` tests run on a host that
 has torch but no jax (``pytest --noconftest -m cuda``).
@@ -119,7 +119,7 @@ def test_polymul_plan(logn):
         # ceil((log2 N - 3) / 3) passes on either side of the middle when C = 1
         if cluster == 1:
             assert 1 + len(fwd) == len(bwd) + 1 == -(-(logn - 3) // 3)
-        # 8 barriers at N = 2^14 where the radix-2 kernel has 3 log2 N + 3
+        # 8 barriers at N = 2^14 where radix-2 stages take 3 log2 N + 3
         assert k4c.plan_barriers(plan) <= 8 < 3 * logn + 3
         for packed, want in ((k4c.pack_plan(fwd), fwd), (k4c.pack_plan(bwd), bwd)):
             got = []
@@ -164,10 +164,12 @@ def test_choose_polymul_cluster():
 
 
 def test_k4_variant_guards():
+    """The launcher refuses CPU tensors, as dispatched and at a forced
+    cluster size, and counts no launch."""
     pt = pallas_tables(64, LAZY_TOWER)
     a = torch.zeros((3, 2, 64), dtype=torch.int64)
     before = dict(k4c.polymul_launches)
-    for kwargs in ({}, {"variant": "radix2"}, {"variant": "radix4"}, {"cluster": 2}):
+    for kwargs in ({}, {"cluster": 2}):
         with pytest.raises(ValueError):
             k4c.launch_polymul(pt, a, a, **kwargs)                   # CPU tensors
     assert k4c.polymul_launches == before
@@ -297,7 +299,7 @@ def test_k6_chooser_at_the_mnist_width_and_guards():
         k6c.cluster_args(full, 3, lazy=True)
     c2, c1e = k6_inputs(fk, (), 0)
     before = dict(k6c.launches)
-    for kwargs in ({}, {"variant": "loop"}, {"variant": "tree"}, {"cluster": 2}):
+    for kwargs in ({}, {"cluster": 2}):
         with pytest.raises(ValueError):
             k6c.launch(fk, c2, c1e, **kwargs)                        # CPU tensors
     assert k6c.launches == before
@@ -316,13 +318,13 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("tower", [LAZY_TOWER, FULL_TOWER], ids=["lazy", "full"])
 @pytest.mark.parametrize("n", [16, 64, 1024, 8192, 1 << 14, 1 << 15])
-def test_cuda_k4_every_variant_matches_plain(n, tower):
+def test_cuda_k4_matches_plain_at_every_launch_shape(n, tower):
     dev = cuda_device()
     pt = pallas_tables(n, tower)
     a, b = (lrn_residues(pt.primes, 5, n, n + i).to(dev) for i in range(2))
     want = tnp.polymul_plain(pt, a, b)
     before = k4c.polymul_launches["k4"]
-    outs = [tnp.polymul_pallas_raw(pt, a, b), k4c.launch_polymul(pt, a, b, variant="radix2")]
+    outs = [tnp.polymul_pallas_raw(pt, a, b)]
     for cluster in k4c.legal_polymul_clusters(n):
         for lazy in ((False, True) if tower is LAZY_TOWER else (False,)):
             outs.append(k4c.launch_polymul(pt, a, b, cluster=cluster, lazy=lazy))
@@ -331,22 +333,20 @@ def test_cuda_k4_every_variant_matches_plain(n, tower):
     assert k4c.polymul_launches["k4"] == before + len(outs)
     with pytest.raises(ValueError):
         k4c.launch_polymul(pt, a, b, cluster=8)
-    with pytest.raises(ValueError):
-        k4c.launch_polymul(pt, a, b, variant="radix2", cluster=1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, tower, window, lead", K6_SCHEDULE_CASES + [
     (8192, (28,) * 7 + (29,), 8, ()), (1 << 14, (28, 28, 29), 8, (2,)),
     (1 << 15, (28, 28, 29), 8, ())])
-def test_cuda_k6_every_variant_matches_plain(n, tower, window, lead):
+def test_cuda_k6_matches_plain_at_every_launch_shape(n, tower, window, lead):
     dev = cuda_device()
     fk = synthetic_fk(n, tower, window, n + window)
     c2, c1e = (x.to(dev) for x in k6_inputs(fk, lead, n))
     want = tpks.fused_keyswitch_plain(fk, c2, c1e)
     lazy_ok = max(fk.pt.primes) < k6c.LAZY_PRIME_LIMIT
     before = k6c.launches["k6"]
-    outs = [fk(c2, c1e), k6c.launch(fk, c2, c1e, variant="loop")]
+    outs = [fk(c2, c1e)]
     for cluster in k6c.legal_clusters(n, fk.ndig):
         for lazy in ((False, True) if lazy_ok else (False,)):
             outs.append(k6c.launch(fk, c2, c1e, cluster=cluster, lazy=lazy))
@@ -355,5 +355,3 @@ def test_cuda_k6_every_variant_matches_plain(n, tower, window, lead):
     assert k6c.launches["k6"] == before + len(outs)
     with pytest.raises(ValueError):
         k6c.launch(fk, c2, c1e, cluster=16)
-    with pytest.raises(ValueError):
-        k6c.launch(fk, c2, c1e, variant="loop", lazy=False)

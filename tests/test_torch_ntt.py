@@ -250,17 +250,15 @@ def test_choose_cluster():
     assert ntt_cuda.cluster_args(tables, 4, True, cluster=8) == (2, 6, 1, 8, 0, 3, 3)
     x = torch.zeros(2, 64, dtype=torch.int64)
     with pytest.raises(ValueError):
-        ntt_cuda.launch(tables, x, False, variant="radix4")
-    with pytest.raises(ValueError):
-        ntt_cuda.launch(tables, x, False, variant="radix2")      # a CPU tensor
+        ntt_cuda.launch(tables, x, False, cluster=2)             # a CPU tensor
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tower", [LAZY_TOWER, FULL_TOWER], ids=["lazy", "full"])
 @pytest.mark.parametrize("n", [16, 64, 512, 2048, 8192, 1 << 14, 1 << 15])
-def test_cuda_cluster_kernel_matches_radix2_and_plain(n, tower):
-    """Every legal cluster size, lazy and fully reduced, and the radix-2
-    kernel: all equal to the plain transform."""
+def test_cuda_k1_matches_plain_at_every_launch_shape(n, tower):
+    """As dispatched and at every legal cluster size, lazy and fully
+    reduced: all equal to the plain transform."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -272,17 +270,16 @@ def test_cuda_cluster_kernel_matches_radix2_and_plain(n, tower):
         want = plain(tables, x)
         before = ntt_cuda.launches["inv" if inverse else "fwd"]
         assert torch.equal(ntt_cuda.launch(tables, x, inverse), want)
-        assert torch.equal(ntt_cuda.launch(tables, x, inverse, variant="radix2"), want)
-        count = 2
+        count = 1
         for cluster in ntt_cuda.legal_clusters(n):
             for lazy in flags:
-                got = ntt_cuda.launch_cluster(tables, x, inverse, cluster, lazy)
+                got = ntt_cuda.launch(tables, x, inverse, cluster, lazy)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (cluster, lazy, inverse)
                 count += 1
         assert ntt_cuda.launches["inv" if inverse else "fwd"] == before + count
     with pytest.raises(ValueError):
-        ntt_cuda.launch_cluster(tables, x, False, cluster=16)
+        ntt_cuda.launch(tables, x, False, cluster=16)
 
 
 @pytest.mark.cuda

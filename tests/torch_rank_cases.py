@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 import toyfhe_tpu_torch as T
+from toyfhe_tpu_torch.ops import fbc_cuda
 from toyfhe_tpu_torch.ops import ntt_mxu as MX
 from toyfhe_tpu_torch.parallel import distributed as D
 from toyfhe_tpu_torch.parallel import ops as pops
@@ -83,6 +84,37 @@ def case_hybrid_v1_rp3(inp):
 
 def case_hybrid_fused_rp3(inp):
     return _hybrid(inp, 3, 1, True)
+
+
+def case_hybrid_fbc_calls_rp2(inp):
+    """The v1 and the fused-schedule hybrid steps over rp 2 on the ``fbc_``
+    fixture, and the calls of ``fbc_cuda.fbc`` each step made on this rank."""
+    mesh = S.make_mesh(2, 1, device=DEV, ranks=[0, 1])
+    if not mesh.member:
+        return None, {}
+    ring = T.make_rns_ring(int(inp["fbc_n"]), _bits(inp["fbc_bits"]))
+    params = T.HybridRaised(T.CKKSParams(ring, 0, 3.2), int(inp["fbc_dnum"]), int(inp["fbc_k"]))
+    ek = I.eval_mult_key(params, inp["fbc_masks"], inp["fbc_maskeds"], device=DEV)
+    real, calls = fbc_cuda.fbc, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    arrays, info = {}, {}
+    fbc_cuda.fbc = counted
+    try:
+        for name, fused in (("v1", False), ("fused", True)):
+            step, place = pops.make_hybrid_sharded_step(mesh, params, ek, fused_schedule=fused,
+                                                        dp=False)
+            block = place(inp["fbc_batch"])
+            calls[0] = 0
+            out = step(block)
+            info[name] = calls[0]
+            arrays[name] = S.unshard(out, (None, None, "rp", None), mesh)
+    finally:
+        fbc_cuda.fbc = real
+    return arrays, info
 
 
 def case_ntt_tables(inp):

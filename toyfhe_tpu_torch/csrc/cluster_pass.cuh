@@ -230,8 +230,8 @@ __device__ __forceinline__ void closing(int kf, cg::cluster_group& cluster, uint
 // Launch kern on `blocks` blocks in clusters of `cluster` (a plain launch
 // when that is 1). Returns the launch's error.
 template <typename... Params, typename... Args>
-inline cudaError_t launch_clustered(void (*kern)(Params...), int blocks, int cluster, int threads,
-                                    size_t smem, cudaStream_t stream, Args... args) {
+inline cudaError_t cluster_launch(void (*kern)(Params...), int blocks, int cluster, int threads,
+                                  size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};

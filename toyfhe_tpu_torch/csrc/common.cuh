@@ -1,7 +1,6 @@
 // Device helpers shared by the port's kernels: the Montgomery product, the
-// bit-reversal index, the radix-2 DIT and DIF stage loops of the NTT over
-// one polynomial in shared memory, the register-radix DIT and DIF stages with
-// lazy or fully reduced butterflies, and the launch plumbing.
+// bit-reversal index, the register-radix DIT and DIF stages with lazy or
+// fully reduced butterflies, and the launch plumbing.
 //
 // Residues are canonical 32-bit words in [0, p), p < 2^31, so a sum of two
 // fits a uint32. Twiddles are Montgomery-form uint32 tables with the stage of
@@ -35,45 +34,6 @@ __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) 
 
 __device__ __forceinline__ int bitrev(int i, int logn) {
   return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - logn));
-}
-
-// log2 N radix-2 DIT stages over s[0..n), bit-reversed in, natural out, with
-// the packed stage twiddles twl of one limb. Every butterfly is fully
-// reduced. Ends with the block synchronised.
-__device__ __forceinline__ void dit_stages(uint32_t* s, const uint32_t* twl,
-                                           int n, uint32_t p, uint32_t ninv) {
-  for (int h = 1; h < n; h <<= 1) {
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int j = b & (h - 1);
-      const int k = ((b - j) << 1) + j;      // start of the pair (k, k + h)
-      const uint32_t u = s[k];
-      const uint32_t t = mont_mul(s[k + h], twl[h + j], p, ninv);
-      s[k] = add_mod(u, t, p);
-      s[k + h] = u >= t ? u - t : u + (p - t);
-    }
-    __syncthreads();
-  }
-}
-
-// log2 N radix-2 Gentleman–Sande DIF stages over s[0..n), natural in,
-// bit-reversed out, with the packed forward stage twiddles twl of one limb:
-// the stage of half-length h pairs (k, k + h) as a' = a + b,
-// b' = (a - b) * twl[h + k mod h]. Every butterfly is fully reduced. The
-// caller synchronises before the first stage; ends with the block
-// synchronised.
-__device__ __forceinline__ void dif_stages(uint32_t* s, const uint32_t* twl,
-                                           int n, uint32_t p, uint32_t ninv) {
-  for (int h = n >> 1; h >= 1; h >>= 1) {
-    for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-      const int j = b & (h - 1);
-      const int k = ((b - j) << 1) + j;      // start of the pair (k, k + h)
-      const uint32_t u = s[k];
-      const uint32_t v = s[k + h];
-      s[k] = add_mod(u, v, p);
-      s[k + h] = mont_mul(u >= v ? u - v : u + (p - v), twl[h + j], p, ninv);
-    }
-    __syncthreads();
-  }
 }
 
 // REDC(a*b) without the closing correction: in [0, 2p) for any 32-bit a when
@@ -194,9 +154,6 @@ __device__ __forceinline__ void radix_stages_dif2(uint32_t (&ra)[1 << K],
     }
   }
 }
-
-// Threads for one block that owns one polynomial of n residues.
-inline int poly_threads(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
 
 // Raise a kernel's dynamic shared-memory limit when smem exceeds 48 KB.
 template <typename Kernel>

@@ -15,10 +15,8 @@
 // or a sum across a thread-block cluster takes its place. The [dnum, T, N]
 // digit tensor never exists in device memory.
 //
-// Two kernels compute it, each behind its own C entry point.
-//
-// toyfhe_hybrid_ks_cluster (hybrid_ks_cluster_kernel) is the one every caller
-// gets.
+// One kernel computes it: hybrid_ks_cluster_kernel, behind
+// toyfhe_hybrid_ks_cluster.
 //
 // What bounds it on this card: not device-memory bytes (the y^ rows that
 // every output limb re-reads are a few megabytes and stay in the 50 MB L2,
@@ -31,7 +29,7 @@
 //    stage bits and runs three stages on them, so a pass is one barrier and
 //    one trip to shared memory where radix-2 paid three. The host's plan
 //    (ops/ntt_cuda.py::schedule_plan) gives ceil(log2 N / 3) passes: 5
-//    barriers a digit at N = 2^13 where the loop kernel has 15.
+//    barriers a digit at N = 2^13 against 15 for radix-2 stages.
 //  * The digit is built in the load pass: a thread reads the y^ residues of
 //    two neighbouring coefficients of each of the digit's ct limbs (one
 //    16-byte load a limb), forms sum_a y^_a c_a in registers, twists the two
@@ -75,9 +73,10 @@
 // 80GB HBM3, 700 W), N = 2^13. The MNIST serving gadget (R = 4, T = 11,
 // dnum = 2, 44 pairs): 33.9 microseconds with one block a pair, 21.6 with the
 // digits over two blocks (the host's choice), 23.6 with the polynomial over
-// two, 28.3 over four, against 52.1 for the loop kernel. The dnum = 4 gadget
-// (40 pairs): 54.7, 32.5 with the digits over two, 36.6 over four (160 blocks
-// for 132 SMs), 37.0 with the polynomial over two, against 97.5. Sixteen rows
+// two, 28.3 over four, against 52.1 for a one-block radix-2 loop kernel. The
+// dnum = 4 gadget (40 pairs): 54.7, 32.5 with the digits over two, 36.6 over
+// four (160 blocks for 132 SMs), 37.0 with the polynomial over two, against
+// 97.5. Sixteen rows
 // of the serving gadget (176 pairs): 67.0, 63.1, 68.6, against 106.6. A digit
 // costs a block about 17 microseconds (tools/k3_experiments.py, knock-outs):
 // 6.1 the four in-place passes, 1.9 the closing pass, 2.2 the y^ loads (5
@@ -86,88 +85,15 @@
 // barriers; the cluster sum and store 4.6. The pass plan barely matters
 // ((2, 2, 3, 3) + 3 or (3, 3, 3, 2) + 2 for (3, 3, 3, 3) + 1: within 4%). 122 to 128 registers a thread, no spills but in the lazy
 // kf = 3 instantiation (24 bytes).
-//
-// toyfhe_hybrid_ks (hybrid_ks_loop_kernel) is the kernel this one replaced:
-// one block of 1024 threads per (row, limb) pair looping over the digits, a
-// scalar digit build that scatters unswizzled, log2 N radix-2 stages with a
-// barrier each (common.cuh::dit_stages), every butterfly fully reduced, and
-// the int64 output rows read back and rewritten for every digit after the
-// first. It stays so that one run can time both at the same shapes; no caller
-// of the port reaches it without asking.
 
 #include "cluster_pass.cuh"
 
 namespace {
 
-using toyfhe::add_mod;
-using toyfhe::bitrev;
-using toyfhe::mont_mul;
-
-__global__ void hybrid_ks_loop_kernel(const int64_t* __restrict__ y,
-                                           int64_t* __restrict__ out1,
-                                      int64_t* __restrict__ out2,
-                                      const uint32_t* __restrict__ twist,
-                                      const uint32_t* __restrict__ tw,
-                                      const uint32_t* __restrict__ pn,
-                                      const uint32_t* __restrict__ cst,
-                                      const uint32_t* __restrict__ km,
-                                      const uint32_t* __restrict__ kd,
-                                      const int* __restrict__ bounds,
-                                      int lt, int nlimbs, int dnum, int alpha,
-                                      int logn) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int t = blockIdx.x % nlimbs;          // output limb of Q_t ∪ P
-  const int r = blockIdx.x / nlimbs;          // batch row
-  const uint32_t p = pn[2 * t];
-  const uint32_t ninv = pn[2 * t + 1];
-  const int64_t* yr = y + static_cast<size_t>(r) * lt * n;
-  const size_t row = (static_cast<size_t>(r) * nlimbs + t) * n;
-  int64_t* o1 = out1 + row;
-  int64_t* o2 = out2 + row;
-  const uint32_t* twistl = twist + static_cast<size_t>(t) * n;
-  const uint32_t* twl = tw + static_cast<size_t>(t) * n;
-
-  for (int j = 0; j < dnum; ++j) {
-    const int lo = bounds[2 * j];
-    const int width = bounds[2 * j + 1] - lo;
-    const uint32_t* c = cst + (static_cast<size_t>(j) * nlimbs + t) * alpha;
-
-    // FBC digit Σ_i ŷ_i · [Q_j/q_i]_{p_t}, ψ-twisted, into bit-reversed place
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      uint32_t dig = 0;
-      for (int a = 0; a < width; ++a) {
-        const uint32_t yv = static_cast<uint32_t>(yr[static_cast<size_t>(lo + a) * n + i]);
-        dig = add_mod(dig, mont_mul(yv, c[a], p, ninv), p);
-      }
-      s[bitrev(i, logn)] = mont_mul(dig, twistl[i], p, ninv);
-    }
-    __syncthreads();
-
-    toyfhe::dit_stages(s, twl, n, p, ninv);
-
-    // key contraction, accumulated into this block's own output rows: the
-    // thread that adds to element i is the one that wrote it for digit j-1
-    const size_t krow = (static_cast<size_t>(j) * nlimbs + t) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t v = s[i];
-      uint32_t a1 = mont_mul(v, kd[krow + i], p, ninv);
-      uint32_t a2 = mont_mul(v, km[krow + i], p, ninv);
-      if (j > 0) {
-        a1 = add_mod(a1, static_cast<uint32_t>(o1[i]), p);
-        a2 = add_mod(a2, static_cast<uint32_t>(o2[i]), p);
-      }
-      o1[i] = static_cast<int64_t>(a1);
-      o2[i] = static_cast<int64_t>(a2);
-    }
-    __syncthreads();          // s is rebuilt for the next digit
-  }
-}
-
-
 using toyfhe::RowTw;
 using toyfhe::XorSwizzle;
 using toyfhe::add_w;
+using toyfhe::bitrev;
 using toyfhe::canonical2;
 using toyfhe::mul_w;
 using toyfhe::radix_stages;
@@ -484,41 +410,18 @@ extern "C" {
 
 // y: int64 [rows, lt, 2^logn] ŷ residues. out1 / out2: int64
 // [rows, nlimbs, 2^logn]. twist / tw / pn: the forward NTT tables of the
-// expanded tower (as for toyfhe_ntt). cst: uint32 [dnum, nlimbs, alpha] FBC
-// constants (Montgomery form, zero-padded). km / kd: uint32
+// expanded tower (as for toyfhe_ntt_cluster). cst: uint32 [dnum, nlimbs,
+// alpha] FBC constants (Montgomery form, zero-padded). km / kd: uint32
 // [dnum, nlimbs, 2^logn] key duals times 2^32 mod p. bounds: int32 [dnum, 2]
-// ct-limb range [lo, hi) of each digit group. Returns cudaGetLastError(). The
-// one-block loop kernel.
-int toyfhe_hybrid_ks(const void* y, void* out1, void* out2, const void* twist,
-                     const void* tw, const void* pn, const void* cst,
-                     const void* km, const void* kd, const void* bounds,
-                     int rows, int lt, int nlimbs, int dnum, int alpha,
-                     int logn, void* stream) {
-  if (rows <= 0) return 0;
-  const int n = 1 << logn;
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  const cudaError_t e = toyfhe::allow_smem(hybrid_ks_loop_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  hybrid_ks_loop_kernel<<<rows * nlimbs, toyfhe::poly_threads(n), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(y), static_cast<int64_t*>(out1),
-      static_cast<int64_t*>(out2), static_cast<const uint32_t*>(twist),
-      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(pn),
-      static_cast<const uint32_t*>(cst), static_cast<const uint32_t*>(km),
-      static_cast<const uint32_t*>(kd), static_cast<const int*>(bounds), lt,
-      nlimbs, dnum, alpha, logn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// The cluster kernel, same operands. digit_blocks: blocks of a cluster that
-// share the digits of a pair (1, 2 or 4, at most dnum); poly_blocks: blocks
-// that share its polynomial (1, 2 or 4, each keeping between 8 and 2^13
-// residues); one of the two is 1. lazy: every prime of the expanded tower is
-// below 2^30; plan and kf: the pass plan of ops/ntt_cuda.py::schedule_plan
-// for poly_blocks blocks. scratch: uint32, rows * nlimbs * digit_blocks * 2 *
-// 2^logn words when 2^logn > 2^14 and poly_blocks is 1 (may be null otherwise). y, out1 / out2
-// must be 16-byte aligned, km / kd 8-byte aligned.
+// ct-limb range [lo, hi) of each digit group. digit_blocks: blocks of a
+// cluster that share the digits of a pair (1, 2 or 4, at most dnum);
+// poly_blocks: blocks that share its polynomial (1, 2 or 4, each keeping
+// between 8 and 2^13 residues); one of the two is 1. lazy: every prime of the
+// expanded tower is below 2^30; plan and kf: the pass plan of
+// ops/ntt_cuda.py::schedule_plan for poly_blocks blocks. scratch: uint32,
+// rows * nlimbs * digit_blocks * 2 * 2^logn words when 2^logn > 2^14 and
+// poly_blocks is 1 (may be null otherwise). y, out1 / out2 must be 16-byte
+// aligned, km / kd 8-byte aligned. Returns cudaGetLastError().
 int toyfhe_hybrid_ks_cluster(const void* y, void* out1, void* out2, const void* twist,
                              const void* tw, const void* pn, const void* cst, const void* km,
                              const void* kd, const void* bounds, void* scratch, int rows, int lt,
@@ -552,7 +455,7 @@ int toyfhe_hybrid_ks_cluster(const void* y, void* out1, void* out2, const void* 
       static_cast<const int*>(bounds), static_cast<uint32_t*>(scratch),
       lt, nlimbs, dnum, alpha, logn, logg, logc, plan, two_rows};
   const int cluster = digit_blocks * poly_blocks;
-  return static_cast<int>(toyfhe::launch_clustered(
+  return static_cast<int>(toyfhe::cluster_launch(
       kern, rows * nlimbs * cluster, cluster, toyfhe::radix_threads(per_block),
       words * sizeof(uint32_t), static_cast<cudaStream_t>(stream), args));
 }

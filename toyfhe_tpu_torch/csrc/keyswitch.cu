@@ -15,10 +15,8 @@
 // permutation, and primal natural-order outputs. The special-prime rescale
 // stays with the caller. The digit tensor never exists in device memory.
 //
-// Two kernels compute it, each behind its own C entry point.
-//
-// toyfhe_keyswitch_cluster (keyswitch_cluster_kernel) is the one every caller
-// gets.
+// One kernel computes it: keyswitch_cluster_kernel, behind
+// toyfhe_keyswitch_cluster.
 //
 // What bounds it on this card: not device-memory bytes (the key rows, 2 x 28
 // x 32 KB an output limb at the MNIST width, stream once) but the chain of
@@ -32,7 +30,7 @@
 //    28 digits are 4 or 3 a block at G = 8. Measured at the MNIST width
 //    (chip_smoke.py phase 24, graph-replayed device time, NVIDIA H100 80GB
 //    HBM3, 700 W): 290 microseconds at G = 1, 151 at G = 2, 81 at G = 4, 50 at
-//    G = 8, against 483 for the loop kernel: about 10 microseconds a digit
+//    G = 8, against 483 for a one-block loop kernel: about 10 microseconds a digit
 //    and 10 for the reduction and the inverse.
 //  * Register-radix DIF per digit (radix_stages_dif, common.cuh;
 //    ceil((log2 N - 3) / 3) + 1 passes planned by ops/ntt_pallas_cuda.py::
@@ -58,119 +56,17 @@
 //    (cluster_pass.cuh) takes the top log2(G/2) stages through the shared
 //    memory of its half, with the untwist fused into 16-byte stores. Every
 //    partial sum is reduced mod p, so a sum of partial sums equals the TPU
-//    kernel's tree sum and the old kernel's running sum.
+//    kernel's tree sum.
 //  * Lazy butterflies when every prime is below 2^30 ([0, 2p) forward and in
 //    the accumulators, [0, 4p) backward, one full reduction in the closing
 //    store); fully reduced ones otherwise (the kLazy flag). Both end
 //    canonical and equal the plain twin bit for bit.
 //
 // Digits are below 2^w < p, so they need no reduction before the twist.
-//
-// toyfhe_keyswitch (keyswitch_loop_kernel) is the kernel this one replaced:
-// one block per (row, limb) pair looping over all the digits, radix-2 stages
-// with a barrier each (dif_stages / dit_stages, common.cuh), the accumulator
-// rows read and written back in shared memory for every digit (in scratch
-// above N = 2^14), the two inverse transforms one after the other. It stays
-// so that one run can time both at the same shapes; no caller of the port
-// reaches it without asking.
 
 #include "cluster_pass.cuh"
 
 namespace {
-
-using toyfhe::add_mod;
-using toyfhe::mont_mul;
-
-template <bool kSmemAcc>
-__global__ void keyswitch_loop_kernel(const int64_t* __restrict__ c2,
-                                 const int64_t* __restrict__ c1e,
-                                 int64_t* __restrict__ out1,
-                                 int64_t* __restrict__ out2,
-                                 const uint32_t* __restrict__ psi,
-                                 const uint32_t* __restrict__ fwd_tw,
-                                 const uint32_t* __restrict__ ipsi,
-                                 const uint32_t* __restrict__ inv_tw,
-                                 const uint32_t* __restrict__ pnr,
-                                 const uint32_t* __restrict__ masks,
-                                 const uint32_t* __restrict__ maskeds,
-                                 uint32_t* __restrict__ scratch,
-                                 int lc, int window, int kpl, int logn) {
-  extern __shared__ uint32_t smem[];
-  const int n = 1 << logn;
-  const int le = lc + 1;
-  const int t = blockIdx.x % le;              // output limb of the expanded tower
-  const int r = blockIdx.x / le;              // leading row
-  const uint32_t p = pnr[3 * t];
-  const uint32_t ninv = pnr[3 * t + 1];
-  const uint32_t r2 = pnr[3 * t + 2];
-  const int ndig = lc * kpl;
-  const uint32_t mask = (1u << window) - 1u;
-
-  uint32_t* s = smem;                         // the digit row, then the DIT input
-  uint32_t* a1;
-  uint32_t* a2;
-  if (kSmemAcc) {
-    a1 = smem + n;
-    a2 = smem + 2 * n;
-  } else {
-    a1 = scratch + static_cast<size_t>(blockIdx.x) * 2 * n;
-    a2 = a1 + n;
-  }
-  const int64_t* c2r = c2 + static_cast<size_t>(r) * lc * n;
-  const size_t limb = static_cast<size_t>(t) * n;
-  const size_t row = (static_cast<size_t>(r) * le + t) * n;
-
-  for (int d = 0; d < ndig; ++d) {
-    const int64_t* src = c2r + static_cast<size_t>(d / kpl) * n;
-    const int shift = window * (d % kpl);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t dig = (static_cast<uint32_t>(src[i]) >> shift) & mask;
-      s[i] = mont_mul(dig, psi[limb + i], p, ninv);
-    }
-    __syncthreads();
-
-    toyfhe::dif_stages(s, fwd_tw + limb, n, p, ninv);
-
-    // key products, accumulated into this block's own rows: the thread that
-    // adds to element i is the one that wrote it for digit d - 1
-    const size_t krow = (static_cast<size_t>(t) * ndig + d) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint32_t v = mont_mul(s[i], r2, p, ninv);      // Montgomery form
-      uint32_t x1 = mont_mul(v, maskeds[krow + i], p, ninv);
-      uint32_t x2 = mont_mul(v, masks[krow + i], p, ninv);
-      if (d > 0) {
-        x1 = add_mod(x1, a1[i], p);
-        x2 = add_mod(x2, a2[i], p);
-      }
-      a1[i] = x1;
-      a2[i] = x2;
-    }
-    __syncthreads();          // s is rebuilt for the next digit
-  }
-
-  // acc1 + c1e, then the inverse transforms of both rows (bit-reversed in,
-  // natural out) and the n^-1 psi^-i untwist
-  const int64_t* c1r = c1e + row;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    s[i] = add_mod(a1[i], static_cast<uint32_t>(c1r[i]), p);
-  }
-  __syncthreads();
-  toyfhe::dit_stages(s, inv_tw + limb, n, p, ninv);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out1[row + i] = static_cast<int64_t>(mont_mul(s[i], ipsi[limb + i], p, ninv));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = a2[i];
-  __syncthreads();
-  toyfhe::dit_stages(s, inv_tw + limb, n, p, ninv);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out2[row + i] = static_cast<int64_t>(mont_mul(s[i], ipsi[limb + i], p, ninv));
-  }
-}
-
-// Largest N whose digit row and two accumulator rows fit a block's shared
-// memory (3 x 2^14 x 4 B = 192 KB of the 227 KB).
-constexpr int kMaxSmemAccLogN = 14;
 
 using toyfhe::RowTw;
 using toyfhe::add_w;
@@ -390,12 +286,10 @@ long long cluster_scratch_words(int rows, int lc, int logn, int cluster) {
 
 extern "C" {
 
-// Bytes of global scratch toyfhe_keyswitch needs for `rows` leading rows
-// (0 when the accumulators fit shared memory).
-long long toyfhe_keyswitch_scratch_bytes(int rows, int lc, int logn) {
-  if (logn <= kMaxSmemAccLogN) return 0;
-  return static_cast<long long>(rows) * (lc + 1) * 2 * (1LL << logn) *
-         static_cast<long long>(sizeof(uint32_t));
+// Bytes of global scratch toyfhe_keyswitch_cluster needs (0 when the partial
+// rows fit shared memory).
+long long toyfhe_keyswitch_cluster_scratch_bytes(int rows, int lc, int logn, int cluster) {
+  return cluster_scratch_words(rows, lc, logn, cluster) * static_cast<long long>(sizeof(uint32_t));
 }
 
 // c2: int64 [rows, lc, 2^logn] primal. c1e: int64 [rows, lc + 1, 2^logn]
@@ -403,51 +297,14 @@ long long toyfhe_keyswitch_scratch_bytes(int rows, int lc, int logn) {
 // psi / fwd_tw: the forward twist and packed stage twiddles of the expanded
 // tower; ipsi / inv_tw: the inverse ones. pnr: uint32 [lc + 1, 3] rows of
 // (p, ninv, r2). masks / maskeds: uint32 [lc + 1, lc * kpl, 2^logn]
-// bit-reversed key duals, limb-major. scratch: uint32, of the size
-// toyfhe_keyswitch_scratch_bytes gives (may be null when that is 0).
-// Returns cudaGetLastError() after the launch. The one-block loop kernel.
-int toyfhe_keyswitch(const void* c2, const void* c1e, void* out1, void* out2,
-                     const void* psi, const void* fwd_tw, const void* ipsi,
-                     const void* inv_tw, const void* pnr, const void* masks,
-                     const void* maskeds, void* scratch, int rows, int lc,
-                     int window, int kpl, int logn, void* stream) {
-  if (rows <= 0) return 0;
-  if (window <= 0 || window >= 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int n = 1 << logn;
-  const bool smem_acc = logn <= kMaxSmemAccLogN;
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t) * (smem_acc ? 3 : 1);
-  void (*kern)(const int64_t*, const int64_t*, int64_t*, int64_t*,
-               const uint32_t*, const uint32_t*, const uint32_t*,
-               const uint32_t*, const uint32_t*, const uint32_t*,
-               const uint32_t*, uint32_t*, int, int, int, int) =
-      smem_acc ? keyswitch_loop_kernel<true> : keyswitch_loop_kernel<false>;
-  const cudaError_t e = toyfhe::allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<rows * (lc + 1), toyfhe::poly_threads(n), smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(c2), static_cast<const int64_t*>(c1e),
-      static_cast<int64_t*>(out1), static_cast<int64_t*>(out2),
-      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(fwd_tw),
-      static_cast<const uint32_t*>(ipsi), static_cast<const uint32_t*>(inv_tw),
-      static_cast<const uint32_t*>(pnr), static_cast<const uint32_t*>(masks),
-      static_cast<const uint32_t*>(maskeds), static_cast<uint32_t*>(scratch),
-      lc, window, kpl, logn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Bytes of global scratch toyfhe_keyswitch_cluster needs (0 when the partial
-// rows fit shared memory).
-long long toyfhe_keyswitch_cluster_scratch_bytes(int rows, int lc, int logn, int cluster) {
-  return cluster_scratch_words(rows, lc, logn, cluster) * static_cast<long long>(sizeof(uint32_t));
-}
-
-// The cluster kernel, same operands. cluster: blocks per (row, limb) pair (1,
+// bit-reversed key duals, limb-major. cluster: blocks per (row, limb) pair (1,
 // 2, 4 or 8, at most lc * kpl, with 2^logn / max(1, cluster / 2) >= 8); lazy:
 // every prime is below 2^30; kl, fplan: the DIF plan of ops/ntt_pallas_cuda.py
 // ::forward_plan; bplan, kf: the DIT plan of ops/ntt_cuda.py::schedule_plan
 // for max(1, cluster / 2) blocks. out1 / out2 must be 16-byte aligned, masks /
 // maskeds 16-byte aligned. scratch: uint32, of the size
-// toyfhe_keyswitch_cluster_scratch_bytes gives.
+// toyfhe_keyswitch_cluster_scratch_bytes gives (may be null when that is 0).
+// Returns cudaGetLastError() after the launch.
 int toyfhe_keyswitch_cluster(const void* c2, const void* c1e, void* out1, void* out2,
                              const void* psi, const void* fwd_tw, const void* ipsi,
                              const void* inv_tw, const void* pnr, const void* masks,
@@ -473,7 +330,7 @@ int toyfhe_keyswitch_cluster(const void* c2, const void* c1e, void* out1, void* 
       static_cast<const uint32_t*>(pnr), static_cast<const uint32_t*>(masks),
       static_cast<const uint32_t*>(maskeds), static_cast<uint32_t*>(scratch),
       lc, window, kpl, logn, logg, kl, fplan, bplan, kf};
-  return static_cast<int>(toyfhe::launch_clustered(
+  return static_cast<int>(toyfhe::cluster_launch(
       cluster_kernel(logn, lazy), rows * (lc + 1) * cluster, cluster, toyfhe::radix_threads(n),
       smem, static_cast<cudaStream_t>(stream), args));
 }

@@ -12,9 +12,7 @@
 //   inverse:  bit-reverse, DIT stages with the inverse twiddles, then the
 //             n^-1 psi^-i untwist
 //
-// Two kernels compute it, each behind its own C entry point.
-//
-// toyfhe_ntt_cluster (ntt_cluster_kernel) is the one every caller gets.
+// One kernel computes it: ntt_cluster_kernel, behind toyfhe_ntt_cluster.
 //
 // What bounds it on this card: neither device-memory bytes nor the card's
 // arithmetic, but what one SM can do for one polynomial. The launches of the
@@ -36,7 +34,7 @@
 //    attribute. Measured (chip_smoke.py phase 24, graph-replayed device time,
 //    NVIDIA H100 80GB HBM3, 700 W): 28 polynomials of N = 2^13 take 13.0
 //    microseconds at C = 1, 9.4 at C = 2, 8.0 at C = 4, 9.9 at C = 8, against
-//    19.6 for the radix-2 kernel.
+//    19.6 for a one-block radix-2 kernel.
 //  * The stages run as radix-8 passes in registers (radix_stages in
 //    common.cuh): a thread takes 8 residues whose positions differ in three
 //    consecutive stage bits, runs the three stages on them and puts them
@@ -45,7 +43,7 @@
 //    gives ceil(log2 N / 3) passes: in-place passes over the block's own
 //    residues, then one closing pass that takes the top kf <= 3 stages, the
 //    cross-block ones among them, straight from shared memory (its own and
-//    the cluster's) to device memory. N = 2^13: 6 barriers where the radix-2
+//    the cluster's) to device memory. N = 2^13: 6 barriers where a radix-2
 //    kernel has 14.
 //  * Lazy butterflies (dit_butterfly<true>) when every prime is below 2^30:
 //    values stay in [0, 4p) between stages, a butterfly is one uncorrected
@@ -75,11 +73,6 @@
 //    XORed into the bank bits and a warp's 32 stores hit 32 banks. Every
 //    pass addresses through the same swizzle.
 //
-// toyfhe_ntt (ntt_radix2_kernel) is the kernel this one replaced: one block
-// a polynomial, log2 N radix-2 stages from common.cuh::dit_stages, every
-// butterfly fully reduced. It stays so that one run can time both at the
-// same shapes; no caller of the port reaches it without asking.
-//
 // Residues arrive and leave as int64 (the port's residue dtype); twiddles are
 // uint32 Montgomery-form tables, one row of N per limb, with the stage of
 // half-length h stored at offsets [h, 2h).
@@ -100,40 +93,6 @@ using toyfhe::redc_lazy;
 constexpr int kTwShared = 512;      // packed twiddle words copied to shared memory
 constexpr int kSwizzleMinLog = 10;  // smaller blocks store unswizzled
 constexpr int kMaxThreads = 512;
-
-template <bool kInverse>
-__global__ void ntt_radix2_kernel(const int64_t* __restrict__ x,
-                                  int64_t* __restrict__ out,
-                                  const uint32_t* __restrict__ twist,
-                                  const uint32_t* __restrict__ tw,
-                                  const uint32_t* __restrict__ pn,
-                                  int nlimbs, int logn) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int poly = blockIdx.x;
-  const int l = poly % nlimbs;
-  const uint32_t p = pn[2 * l];
-  const uint32_t ninv = pn[2 * l + 1];
-  const int64_t* xin = x + static_cast<size_t>(poly) * n;
-  int64_t* xout = out + static_cast<size_t>(poly) * n;
-  const uint32_t* twl = tw + static_cast<size_t>(l) * n;
-  const uint32_t* twistl = twist + static_cast<size_t>(l) * n;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t v = static_cast<uint32_t>(xin[i]);
-    if (!kInverse) v = mont_mul(v, twistl[i], p, ninv);
-    s[bitrev(i, logn)] = v;
-  }
-  __syncthreads();
-
-  toyfhe::dit_stages(s, twl, n, p, ninv);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    uint32_t v = s[i];
-    if (kInverse) v = mont_mul(v, twistl[i], p, ninv);
-    xout[i] = static_cast<int64_t>(v);
-  }
-}
 
 // a * w in the working range: below 2p when lazy, canonical otherwise.
 template <bool kLazy>
@@ -298,30 +257,10 @@ extern "C" {
 // Transforms `polys` contiguous polynomials of 2^logn int64 residues; limb of
 // polynomial r is r % nlimbs. twist is psi_pow (forward) or psi_ipow
 // (inverse), tw the packed stage twiddles of that direction, pn the
-// interleaved (p, ninv) pairs. Returns cudaGetLastError() after the launch.
-// The one-block radix-2 kernel.
-int toyfhe_ntt(const void* x, void* out, const void* twist, const void* tw,
-               const void* pn, int polys, int nlimbs, int logn, int inverse,
-               void* stream) {
-  if (polys <= 0) return 0;
-  const int n = 1 << logn;
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  void (*kern)(const int64_t*, int64_t*, const uint32_t*, const uint32_t*,
-               const uint32_t*, int, int) =
-      inverse ? ntt_radix2_kernel<true> : ntt_radix2_kernel<false>;
-  const cudaError_t e = toyfhe::allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<polys, toyfhe::poly_threads(n), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
-      static_cast<const uint32_t*>(twist), static_cast<const uint32_t*>(tw),
-      static_cast<const uint32_t*>(pn), nlimbs, logn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The cluster kernel, same operands. cluster: blocks per polynomial (1, 2, 4
-// or 8, with 2^logn / cluster >= 8); lazy: every prime is below 2^30; plan
-// and kf: the pass plan of ops/ntt_cuda.py::schedule_plan. x and out must be
-// 16-byte aligned.
+// interleaved (p, ninv) pairs. cluster: blocks per polynomial (1, 2, 4 or 8,
+// with 2^logn / cluster >= 8); lazy: every prime is below 2^30; plan and kf:
+// the pass plan of ops/ntt_cuda.py::schedule_plan. x and out must be 16-byte
+// aligned. Returns cudaGetLastError() after the launch.
 int toyfhe_ntt_cluster(const void* x, void* out, const void* twist, const void* tw,
                        const void* pn, int polys, int nlimbs, int logn, int inverse,
                        int cluster, int lazy, int plan, int kf, void* stream) {

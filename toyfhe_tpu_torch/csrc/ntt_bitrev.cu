@@ -12,10 +12,8 @@
 // N per limb): the same powers as the reference's full-length (L, logN, N)
 // tables in logN times fewer bytes.
 //
-// Two kernels compute it, each behind its own C entry point.
-//
-// toyfhe_ntt_bitrev_radix (ntt_bitrev_radix_kernel) is the one every caller
-// gets.
+// One kernel computes it: ntt_bitrev_radix_kernel, behind
+// toyfhe_ntt_bitrev_radix.
 //
 // What bounds it on this card: not device-memory bytes (the windowed
 // rotation hands it 8 polynomials of N = 2^13, half a megabyte in and as
@@ -58,53 +56,16 @@
 // Measured (chip_smoke.py phase 24, graph-replayed device time, NVIDIA H100
 // 80GB HBM3, 700 W): the windowed rotation's 8 polynomials of N = 2^13 take
 // 12.0 microseconds at C = 1, 11.0 at C = 2, 7.0 at C = 4 (the host's
-// choice), against 16.0 for the radix-2 kernel; 28 polynomials 13.0, 11.4 and
-// 7.6 against 16.4 (K1, natural order out, takes 8.0); 128 of N = 2^14 29.6,
-// 30.3 and 64.0 against 35.5, so a launch that fills the card stays at one
-// block a polynomial. An empty launch takes 2.1 microseconds on this card,
+// choice), against 16.0 for a one-block radix-2 kernel; 28 polynomials
+// 13.0, 11.4 and 7.6 against 16.4 (K1, natural order out, takes 8.0); 128 of
+// N = 2^14 29.6, 30.3 and 64.0 against 35.5, so a launch that fills the card
+// stays at one block a polynomial. An empty launch takes 2.1 microseconds on this card,
 // four times the bound of the rotation's shape: no kernel reaches half of
 // that bound. 40 to 74 registers a thread, no spills.
-//
-// toyfhe_ntt_bitrev (ntt_bitrev_radix2_kernel) is the kernel this one
-// replaced: one block a polynomial, log2 N radix-2 stages from
-// common.cuh::dif_stages with a barrier each, every butterfly fully reduced,
-// 8-byte loads and stores. It stays so that one run can time both at the same
-// shapes; no caller of the port reaches it without asking.
 
 #include "cluster_pass.cuh"
 
 namespace {
-
-using toyfhe::mont_mul;
-
-__global__ void ntt_bitrev_radix2_kernel(const int64_t* __restrict__ x,
-                                         int64_t* __restrict__ out,
-                                         const uint32_t* __restrict__ twist,
-                                         const uint32_t* __restrict__ tw,
-                                         const uint32_t* __restrict__ pn,
-                                         int rows, int logn) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int poly = blockIdx.x;                 // limb-major: poly = l * rows + r
-  const int l = poly / rows;
-  const uint32_t p = pn[2 * l];
-  const uint32_t ninv = pn[2 * l + 1];
-  const int64_t* xin = x + static_cast<size_t>(poly) * n;
-  int64_t* xout = out + static_cast<size_t>(poly) * n;
-  const uint32_t* twistl = twist + static_cast<size_t>(l) * n;
-  const uint32_t* twl = tw + static_cast<size_t>(l) * n;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    s[i] = mont_mul(static_cast<uint32_t>(xin[i]), twistl[i], p, ninv);
-  }
-  __syncthreads();
-
-  toyfhe::dif_stages(s, twl, n, p, ninv);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xout[i] = static_cast<int64_t>(s[i]);
-  }
-}
 
 using toyfhe::RowTw;
 using toyfhe::canonical2;
@@ -223,31 +184,14 @@ int log2_exact(int v) {
 
 extern "C" {
 
-// x / out: int64 [nlimbs, rows, 2^logn] residues, limb axis first. twist:
-// psi_pow uint32 [nlimbs, 2^logn] (Montgomery form); tw: the packed forward
-// stage twiddles; pn: interleaved (p, ninv) pairs. Returns
-// cudaGetLastError() after the launch. The one-block radix-2 kernel.
-int toyfhe_ntt_bitrev(const void* x, void* out, const void* twist,
-                      const void* tw, const void* pn, int nlimbs, int rows,
-                      int logn, void* stream) {
-  if (nlimbs <= 0 || rows <= 0) return 0;
-  const int n = 1 << logn;
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  const cudaError_t e = toyfhe::allow_smem(ntt_bitrev_radix2_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ntt_bitrev_radix2_kernel<<<nlimbs * rows, toyfhe::poly_threads(n), smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(x), static_cast<int64_t*>(out),
-      static_cast<const uint32_t*>(twist), static_cast<const uint32_t*>(tw),
-      static_cast<const uint32_t*>(pn), rows, logn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The register-radix kernel, same operands. row_major != 0: x / out are
-// [rows, nlimbs, 2^logn]. cluster: blocks per polynomial (1, 2 or 4, with
-// 2^logn / cluster >= 8); lazy: every prime is below 2^30; kl, fplan: the DIF
-// plan of ops/ntt_pallas_cuda.py::forward_plan for a row of 2^logn / cluster
-// residues. x and out must be 16-byte aligned.
+// x / out: int64 [nlimbs, rows, 2^logn] residues, limb axis first, or
+// [rows, nlimbs, 2^logn] when row_major != 0. twist: psi_pow uint32
+// [nlimbs, 2^logn] (Montgomery form); tw: the packed forward stage twiddles;
+// pn: interleaved (p, ninv) pairs. cluster: blocks per polynomial (1, 2 or 4,
+// with 2^logn / cluster >= 8); lazy: every prime is below 2^30; kl, fplan: the
+// DIF plan of ops/ntt_pallas_cuda.py::forward_plan for a row of
+// 2^logn / cluster residues. x and out must be 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 int toyfhe_ntt_bitrev_radix(const void* x, void* out, const void* twist, const void* tw,
                             const void* pn, int nlimbs, int rows, int logn, int row_major,
                             int cluster, int lazy, int kl, int fplan, void* stream) {

@@ -15,10 +15,8 @@
 // offsets [h, 2h) of one row of N per limb), forward and inverse. Operands
 // are limb-major, [L, R, N], as they lie.
 //
-// Two kernels compute it, each behind its own C entry point.
-//
-// toyfhe_polymul_cluster (polymul_cluster_kernel) is the one every caller
-// gets.
+// One kernel computes it: polymul_cluster_kernel, behind
+// toyfhe_polymul_cluster.
 //
 // What bounds it on this card: not device-memory bytes (three rows a
 // polynomial, microseconds for a whole batch) but what one SM can do for one
@@ -32,7 +30,7 @@
 //    one trip to shared memory where radix-2 paid three. The host's plan
 //    (ops/ntt_pallas_cuda.py::polymul_plan) gives ceil((log2 N - 3) / 3)
 //    passes on either side of a fused middle: N = 2^14 runs 8 barriers where
-//    the radix-2 kernel has 45.
+//    a one-block radix-2 kernel has 45.
 //  * Both operands in one pass: a thread holds the residues of a and of b at
 //    the same positions, so each twiddle is loaded once for two butterflies
 //    and the two dependency chains interleave.
@@ -60,8 +58,8 @@
 //    so N = 2^15 fits with C >= 2 and needs no detour through device memory.
 //    Measured (chip_smoke.py phase 24, graph-replayed device time, NVIDIA
 //    H100 80GB HBM3, 700 W): 128 pairs of N = 2^14 take 54 microseconds at
-//    C = 1, 52 at C = 2, 122 at C = 4, against 108 for the radix-2 kernel; 28
-//    pairs of N = 2^13 take 23, 15 and 13 against 44. A radix-8 pass compiles
+//    C = 1, 52 at C = 2, 122 at C = 4, against 108 for a one-block radix-2
+//    kernel; 28 pairs of N = 2^13 take 23, 15 and 13 against 44. A radix-8 pass compiles
 //    to about 15 machine operations a butterfly, 3 of them the multiplies of
 //    the uncorrected REDC, so 128 pairs of N = 2^14 on 128 SMs fill 26
 //    microseconds of issue slots: the kernel runs at half of that rate, and
@@ -71,73 +69,10 @@
 //    the closing store. A tower with a prime in [2^30, 2^31) takes the fully
 //    reduced butterflies (the kLazy flag). Both end canonical and equal the
 //    plain twin bit for bit.
-//
-// toyfhe_polymul (polymul_radix2_kernel) is the kernel this one replaced:
-// one block a polynomial, 3 log2 N radix-2 stages from common.cuh, every
-// butterfly fully reduced, the operands transformed one after the other; at
-// N = 2^15, where two rows do not fit one block, DIF(a) is parked in the
-// block's output row in device memory. It stays so that one run can time
-// both at the same shapes; no caller of the port reaches it without asking.
 
 #include "cluster_pass.cuh"
 
 namespace {
-
-using toyfhe::mont_mul;
-
-// Twist one operand into s and run the DIF stages over it.
-__device__ __forceinline__ void forward(uint32_t* s, const int64_t* in,
-                                        const uint32_t* twistl, const uint32_t* twl,
-                                        int n, uint32_t p, uint32_t ninv) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    s[i] = mont_mul(static_cast<uint32_t>(in[i]), twistl[i], p, ninv);
-  }
-  __syncthreads();
-  toyfhe::dif_stages(s, twl, n, p, ninv);
-}
-
-template <bool kPark>
-__global__ void polymul_radix2_kernel(const int64_t* __restrict__ a,
-                               const int64_t* __restrict__ b, int64_t* out,
-                               const uint32_t* __restrict__ twist,
-                               const uint32_t* __restrict__ tw,
-                               const uint32_t* __restrict__ itwist,
-                               const uint32_t* __restrict__ itw,
-                               const uint32_t* __restrict__ pn,
-                               const uint32_t* __restrict__ r2, int rows, int logn) {
-  extern __shared__ uint32_t s[];
-  const int n = 1 << logn;
-  const int poly = blockIdx.x;                 // limb-major: poly = l * rows + r
-  const int l = poly / rows;
-  const uint32_t p = pn[2 * l];
-  const uint32_t ninv = pn[2 * l + 1];
-  const uint32_t r2l = r2[l];
-  const size_t row = static_cast<size_t>(poly) * n;
-  const size_t lrow = static_cast<size_t>(l) * n;
-  int64_t* xout = out + row;
-  uint32_t* sa = s;
-  uint32_t* sb = kPark ? s : s + n;
-
-  forward(sa, a + row, twist + lrow, tw + lrow, n, p, ninv);
-  if (kPark) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) xout[i] = static_cast<int64_t>(sa[i]);
-    __syncthreads();
-  }
-  forward(sb, b + row, twist + lrow, tw + lrow, n, p, ninv);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint32_t da = kPark ? static_cast<uint32_t>(xout[i]) : sa[i];
-    sa[i] = mont_mul(mont_mul(da, r2l, p, ninv), sb[i], p, ninv);
-  }
-  __syncthreads();
-
-  toyfhe::dit_stages(sa, itw + lrow, n, p, ninv);
-
-  const uint32_t* itwistl = itwist + lrow;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    xout[i] = static_cast<int64_t>(mont_mul(sa[i], itwistl[i], p, ninv));
-  }
-}
 
 using toyfhe::RowTw;
 using toyfhe::closing;
@@ -316,34 +251,10 @@ extern "C" {
 // first; out must not alias an input. twist / itwist: psi_pow / psi_ipow
 // uint32 [nlimbs, 2^logn] (Montgomery form); tw / itw: the packed forward
 // and inverse stage twiddles; pn: interleaved (p, ninv) pairs; r2: R^2 mod p
-// per limb. park != 0 keeps one row in shared memory and parks DIF(a) in the
-// output row (required at N = 2^15). Returns cudaGetLastError() after the
-// launch. The one-block radix-2 kernel.
-int toyfhe_polymul(const void* a, const void* b, void* out, const void* twist,
-                   const void* tw, const void* itwist, const void* itw,
-                   const void* pn, const void* r2, int nlimbs, int rows, int logn,
-                   int park, void* stream) {
-  if (nlimbs <= 0 || rows <= 0) return 0;
-  const int n = 1 << logn;
-  const size_t smem = static_cast<size_t>(park ? n : 2 * n) * sizeof(uint32_t);
-  void (*kern)(const int64_t*, const int64_t*, int64_t*, const uint32_t*, const uint32_t*,
-               const uint32_t*, const uint32_t*, const uint32_t*, const uint32_t*, int, int) =
-      park ? polymul_radix2_kernel<true> : polymul_radix2_kernel<false>;
-  const cudaError_t e = toyfhe::allow_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<nlimbs * rows, toyfhe::poly_threads(n), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(a), static_cast<const int64_t*>(b),
-      static_cast<int64_t*>(out), static_cast<const uint32_t*>(twist),
-      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(itwist),
-      static_cast<const uint32_t*>(itw), static_cast<const uint32_t*>(pn),
-      static_cast<const uint32_t*>(r2), rows, logn);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The cluster kernel, same operands. cluster: blocks per polynomial pair (1,
-// 2 or 4, with 2^logn / cluster >= 8); lazy: every prime is below 2^30; kl,
-// fplan, bplan, kf: the pass plan of ops/ntt_pallas_cuda.py::polymul_plan.
-// out must be 16-byte aligned.
+// per limb. cluster: blocks per polynomial pair (1, 2 or 4, with
+// 2^logn / cluster >= 8); lazy: every prime is below 2^30; kl, fplan, bplan,
+// kf: the pass plan of ops/ntt_pallas_cuda.py::polymul_plan. out must be
+// 16-byte aligned. Returns cudaGetLastError() after the launch.
 int toyfhe_polymul_cluster(const void* a, const void* b, void* out, const void* twist,
                            const void* tw, const void* itwist, const void* itw,
                            const void* pn, const void* r2, int nlimbs, int rows, int logn,
@@ -358,7 +269,7 @@ int toyfhe_polymul_cluster(const void* a, const void* b, void* out, const void* 
   }
   const int per_block = 1 << (logn - logc);
   const size_t smem = 2 * static_cast<size_t>(per_block) * sizeof(uint32_t);
-  return static_cast<int>(toyfhe::launch_clustered(
+  return static_cast<int>(toyfhe::cluster_launch(
       kern, nlimbs * rows * cluster, cluster, toyfhe::radix_threads(per_block), smem,
       static_cast<cudaStream_t>(stream), static_cast<const int64_t*>(a),
       static_cast<const int64_t*>(b), static_cast<int64_t*>(out),

@@ -5,17 +5,15 @@ Replaces the TPU kernel ``toyfhe_tpu/ops/pallas_hybrid_ks.py::
 FusedHybridKS.__call__`` (K3, body ``_fused_kernel``). Its plain twin is
 :func:`.hybrid_ks.fused_hybrid_ks_plain`, which it equals bit for bit.
 
-Two kernels live in the source. :func:`launch` takes the cluster kernel: one
-thread-block cluster per (row, output limb) pair, each digit built in the
+One kernel, the cluster kernel, which :func:`launch` runs: one thread-block
+cluster per (row, output limb) pair, each digit built in the
 load pass and transformed by K1's register-radix DIT passes
 (:func:`.ntt_cuda.schedule_plan`), the key products taken in the closing pass
 into accumulators that live in registers across the digits. The cluster
 either deals the digits out over its blocks (``scheme="digits"``) or splits
 the polynomial over them (``scheme="poly"``); :func:`choose_cluster` picks.
-``variant="loop"`` takes the one-block radix-2 kernel it replaced, kept so
-that one run can time both. :func:`hybrid_ks_schedule` is the cluster
-kernel's schedule in plain torch, pass for pass and index for index, for the
-CPU tests.
+:func:`hybrid_ks_schedule` is its schedule in plain torch, pass for pass and
+index for index, for the CPU tests.
 
 Built by ``nvcc`` from ``toyfhe_tpu_torch/csrc/hybrid_ks.cu`` at first use
 (:mod:`.cuda_lib`). ``launches["k3"]`` counts the launches made through
@@ -38,7 +36,6 @@ from .ntt_cuda import (BLOCK_CAP, LAZY_PRIME_LIMIT, MIN_CHOSEN_BLOCK_N, SPLIT_FR
 from .ntt_pallas_cuda import _DifArith, _int64_tables, _lazy_flag, dit_local_passes
 
 LIB = CudaLibrary("hybrid_ks", {
-    "toyfhe_hybrid_ks": ([VP] * 10 + [CI] * 6 + [VP], CI),
     "toyfhe_hybrid_ks_cluster": ([VP] * 11 + [CI] * 11 + [VP], CI),
     "toyfhe_hybrid_ks_cluster_attrs": ([CI] * 2 + [VP], CI),
 })
@@ -70,7 +67,7 @@ def legal_clusters(n: int, dnum: int, scheme: str = "digits") -> Tuple[int, ...]
 
 def choose_cluster(pairs: int, n: int, dnum: int, primes) -> Tuple[str, int, bool]:
     """``(scheme, blocks, lazy)`` for one launch of ``pairs`` (row, output
-    limb) pairs, from the device times of every variant at N = 2^12 .. 2^15
+    limb) pairs, from the device times of every launch shape at N = 2^12 .. 2^15
     and 28 to 176 pairs (``tools/k3_experiments.py shapes``):
 
     * a launch that leaves SMs free spreads over them: the digits over the
@@ -252,16 +249,14 @@ def cluster_args(fks, pairs: int, cluster: Optional[int] = None, scheme: Optiona
     return gshare, nblocks, int(lazy), pack_plan(plan["local"]), plan["kf"]
 
 
-def launch(fks, y: torch.Tensor, variant: Optional[str] = None, cluster: Optional[int] = None,
-           scheme: Optional[str] = None, lazy: Optional[bool] = None):
+def launch(fks, y: torch.Tensor, cluster: Optional[int] = None, scheme: Optional[str] = None,
+           lazy: Optional[bool] = None):
     """(acc1, acc2) of ``fks`` for a contiguous int64[..., lt, N] ŷ CUDA
     tensor through the kernel. Raises on anything the kernel does not take.
 
-    ``variant=None`` is the cluster kernel; ``cluster`` / ``scheme`` / ``lazy``
-    override :func:`choose_cluster` (any legal cluster size of either scheme;
-    ``lazy=False`` is legal for every tower, ``lazy=True`` only below 2^30).
-    ``variant="loop"`` is the one-block radix-2 kernel that loops over the
-    digits."""
+    ``cluster`` / ``scheme`` / ``lazy`` override :func:`choose_cluster` (any
+    legal cluster size of either scheme; ``lazy=False`` is legal for every
+    tower, ``lazy=True`` only below 2^30)."""
     if y.device.type != "cuda":
         raise ValueError(f"the CUDA hybrid key switch takes CUDA tensors, got {y.device}")
     if y.dtype != torch.int64:
@@ -272,27 +267,20 @@ def launch(fks, y: torch.Tensor, variant: Optional[str] = None, cluster: Optiona
     check_n(n)
     if not y.is_contiguous():
         raise ValueError("the CUDA hybrid key switch needs a contiguous tensor")
-    if variant not in (None, "loop"):
-        raise ValueError(f"unknown hybrid key switch kernel variant {variant!r}")
-    if variant == "loop" and not (cluster is None and scheme is None and lazy is None):
-        raise ValueError("cluster, scheme and lazy belong to the cluster kernel")
     lead = tuple(y.shape[:-2])
     rows = y.numel() // (fks.lt * n)
     if rows * T * max(CLUSTERS) >= 1 << 31:
         raise ValueError(f"{rows} rows exceed one launch grid")
     lib = LIB.load()
     kt = _tables(fks, y.device)
-    plan_key = ("launch", rows, variant, cluster, scheme, lazy)
+    plan_key = ("launch", rows, cluster, scheme, lazy)
     if plan_key not in fks._dev:           # the launcher's arguments, worked out once
-        if variant is None:
-            tail = cluster_args(fks, rows * T, cluster, scheme, lazy)
-            words = scratch_words(rows * T, n, tail[0], "digits" if tail[1] == 1 else "poly")
-            fks._dev[plan_key] = (lib.toyfhe_hybrid_ks_cluster, tail, words)
-        else:
-            fks._dev[plan_key] = (lib.toyfhe_hybrid_ks, None, 0)
+        tail = cluster_args(fks, rows * T, cluster, scheme, lazy)
+        words = scratch_words(rows * T, n, tail[0], "digits" if tail[1] == 1 else "poly")
+        fks._dev[plan_key] = (lib.toyfhe_hybrid_ks_cluster, tail, words)
     fn, tail, words = fks._dev[plan_key]
     if y.data_ptr() % 16:
-        y = y.clone()                      # the cluster kernel loads 16 bytes a thread
+        y = y.clone()                      # the kernel loads 16 bytes a thread
     out1 = torch.empty(lead + (T, n), dtype=torch.int64, device=y.device)
     out2 = torch.empty_like(out1)
     operands = (y.data_ptr(), out1.data_ptr(), out2.data_ptr(), kt["twist"].data_ptr(),
@@ -301,11 +289,8 @@ def launch(fks, y: torch.Tensor, variant: Optional[str] = None, cluster: Optiona
     shape = (rows, fks.lt, T, fks.dnum_t, fks.alpha, n.bit_length() - 1)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        if tail is None:
-            err = fn(*operands, *shape, stream)
-        else:
-            scratch = torch.empty(words, dtype=torch.int32, device=y.device)
-            err = fn(*operands, scratch.data_ptr() if words else None, *shape, *tail, stream)
+        scratch = torch.empty(words, dtype=torch.int32, device=y.device)
+        err = fn(*operands, scratch.data_ptr() if words else None, *shape, *tail, stream)
     LIB.check(err, "CUDA hybrid key switch")
     launches["k3"] += 1
     return out1, out2

@@ -5,16 +5,14 @@ Replaces the TPU kernel ``toyfhe_tpu/ops/ntt_mxu_pallas.py::_mxu_nat``
 residue tensors. Its plain twin is :func:`..ops.ntt.ntt_plain` /
 :func:`..ops.ntt.intt_plain`, which it equals bit for bit.
 
-Two kernels live in the source. :func:`launch` takes the cluster-split
-register-radix kernel: one thread-block cluster of C blocks per polynomial
-(:func:`choose_cluster` picks C from the launch), the stages grouped into
-radix-8 passes held in registers (:func:`schedule_plan`), lazy [0, 4p)
-butterflies when every prime is below 2^30. ``variant="radix2"`` takes the
-one-block radix-2 kernel it replaced, kept so that one run can time both.
-:func:`ntt_schedule` is the cluster kernel's schedule in plain torch, pass
-for pass and index for index, for the CPU tests.
+One kernel, the cluster-split register-radix kernel: one thread-block
+cluster of C blocks per polynomial (:func:`choose_cluster` picks C from the
+launch), the stages grouped into radix-8 passes held in registers
+(:func:`schedule_plan`), lazy [0, 4p) butterflies when every prime is below
+2^30. :func:`launch` runs it; :func:`ntt_schedule` is its schedule in plain
+torch, pass for pass and index for index, for the CPU tests.
 
-The kernels are compiled by ``nvcc`` from ``toyfhe_tpu_torch/csrc/ntt.cu`` at
+The kernel is compiled by ``nvcc`` from ``toyfhe_tpu_torch/csrc/ntt.cu`` at
 first use into ``toyfhe_tpu_torch/_build/`` (:mod:`.cuda_lib`) and loaded
 with ``ctypes``. Nothing here imports or builds anything at module import.
 
@@ -46,7 +44,6 @@ TW_SHARED = 512                # packed twiddles [0, 512) are copied to shared m
 _MASK32 = (1 << 32) - 1
 
 LIB = CudaLibrary("ntt", {
-    "toyfhe_ntt": ([VP] * 5 + [CI] * 4 + [VP], CI),
     "toyfhe_ntt_cluster": ([VP] * 5 + [CI] * 8 + [VP], CI),
     "toyfhe_ntt_cluster_attrs": ([CI] * 3 + [VP], CI),
 })
@@ -293,7 +290,7 @@ def ntt_schedule(tables, x: torch.Tensor, inverse: bool, cluster: int, radix: in
 # ---------------------------------------------------------------------------
 
 def _checked(tables, x: torch.Tensor) -> int:
-    """Raise on anything the kernels do not take; the polynomial count."""
+    """Raise on anything the kernel does not take; the polynomial count."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA NTT takes CUDA tensors, got {x.device}")
     if x.dtype != torch.int64:
@@ -308,35 +305,6 @@ def _checked(tables, x: torch.Tensor) -> int:
     if polys * max(CLUSTERS) >= 1 << 31:
         raise ValueError(f"{polys} polynomials exceed one launch grid")
     return polys
-
-
-def _run(tables, x: torch.Tensor, inverse: bool, polys: int, entry: str, key: tuple, tail):
-    """Allocate the output, make one launch through the C function ``entry``
-    (x, out, the table pointers, the polynomial count, ``tail()``, the
-    stream), check it and count it. The arguments between ``out`` and the
-    stream are worked out once per ``key`` and device of a ring."""
-    lib = LIB.load()
-    which = "inv" if inverse else "fwd"
-    def arguments():
-        kt = kernel_tables(tables, x.device)
-        twist, tw = kt[which]
-        return (twist.data_ptr(), tw.data_ptr(), kt["pn"].data_ptr(), polys, *tail())
-
-    mid = tables.cached((entry, x.device, polys, which) + key, arguments)
-    if x.data_ptr() % 16:
-        x = x.clone()                      # the kernels load 16 bytes a thread
-    out = torch.empty_like(x)
-    fn = getattr(lib, entry)
-    if x.device.index == torch.cuda.current_device():
-        err = fn(x.data_ptr(), out.data_ptr(), *mid, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), out.data_ptr(), *mid,
-                     torch.cuda.current_stream().cuda_stream)
-    LIB.check(err, "CUDA NTT")
-    launches[which] += 1
-    transforms[which] += polys
-    return out
 
 
 def cluster_args(tables, polys: int, inverse: bool, cluster: Optional[int] = None,
@@ -357,31 +325,41 @@ def cluster_args(tables, polys: int, inverse: bool, cluster: Optional[int] = Non
     return nlimbs, logn, int(inverse), cluster, int(lazy), pack_plan(local), kf
 
 
-def launch_cluster(tables, x: torch.Tensor, inverse: bool, cluster: Optional[int] = None,
-                   lazy: Optional[bool] = None) -> torch.Tensor:
-    """The cluster kernel on a contiguous int64[..., L, N] CUDA tensor.
-    ``cluster`` / ``lazy`` override :func:`choose_cluster` (any legal cluster
-    size; ``lazy=False`` is legal for every tower, ``lazy=True`` only below
-    2^30)."""
-    polys = _checked(tables, x)
-    return _run(tables, x, inverse, polys, "toyfhe_ntt_cluster", (cluster, lazy),
-                lambda: cluster_args(tables, polys, inverse, cluster, lazy))
-
-
-def launch(tables, x: torch.Tensor, inverse: bool, variant: Optional[str] = None) -> torch.Tensor:
+def launch(tables, x: torch.Tensor, inverse: bool, cluster: Optional[int] = None,
+           lazy: Optional[bool] = None) -> torch.Tensor:
     """Forward (or inverse) NTT of a contiguous int64[..., L, N] CUDA tensor
-    through the kernel. Raises on anything the kernel does not take.
+    through the kernel, which takes every N the port supports and both kinds
+    of tower. Raises on anything the kernel does not take. ``cluster`` /
+    ``lazy`` override :func:`choose_cluster` (any legal cluster size;
+    ``lazy=False`` is legal for every tower, ``lazy=True`` only below 2^30).
 
-    ``variant=None`` is the cluster kernel, which takes every N the port
-    supports and both kinds of tower; ``variant="radix2"`` the one-block
-    radix-2 kernel."""
-    if variant is None:
-        return launch_cluster(tables, x, inverse)
-    if variant != "radix2":
-        raise ValueError(f"unknown NTT kernel variant {variant!r}")
+    The launch arguments after the output are worked out once per launch
+    shape and device of a ring; the launch is checked and counted."""
     polys = _checked(tables, x)
-    return _run(tables, x, inverse, polys, "toyfhe_ntt", (),
-                lambda: (len(tables.primes), tables.n.bit_length() - 1, int(inverse)))
+    lib = LIB.load()
+    which = "inv" if inverse else "fwd"
+
+    def arguments():
+        kt = kernel_tables(tables, x.device)
+        twist, tw = kt[which]
+        return (twist.data_ptr(), tw.data_ptr(), kt["pn"].data_ptr(), polys,
+                *cluster_args(tables, polys, inverse, cluster, lazy))
+
+    mid = tables.cached(("toyfhe_ntt_cluster", x.device, polys, which, cluster, lazy), arguments)
+    if x.data_ptr() % 16:
+        x = x.clone()                      # the kernel loads 16 bytes a thread
+    out = torch.empty_like(x)
+    if x.device.index == torch.cuda.current_device():
+        err = lib.toyfhe_ntt_cluster(x.data_ptr(), out.data_ptr(), *mid,
+                                     torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.toyfhe_ntt_cluster(x.data_ptr(), out.data_ptr(), *mid,
+                                         torch.cuda.current_stream().cuda_stream)
+    LIB.check(err, "CUDA NTT")
+    launches[which] += 1
+    transforms[which] += polys
+    return out
 
 
 def kernel_attrs(kf: int, inverse: bool, lazy: bool) -> dict:

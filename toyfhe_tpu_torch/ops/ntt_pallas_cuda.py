@@ -8,27 +8,23 @@
 (K4, body ``_polymul_kernel``); its plain twin is
 :func:`.ntt_pallas.polymul_plain`. Each equals its twin bit for bit.
 
-Two K5 kernels live in the source. :func:`launch` takes the register-radix
-kernel: one polynomial over C independent blocks
+One K5 kernel, the register-radix kernel, which :func:`launch` runs: one
+polynomial over C independent blocks
 (:func:`choose_bitrev_cluster`), the first DIF pass straight from device
 memory with the cross-block stages in it, radix-8 passes in registers
 (:func:`forward_plan`), lazy butterflies when every prime is below 2^30, a
 last pass that stores canonical residues 16 bytes at a time.
-``variant="radix2"`` takes the one-block radix-2 kernel it replaced, kept so
-that one run can time both. :func:`bitrev_schedule` is the new kernel's
-schedule in plain torch for the CPU tests.
+:func:`bitrev_schedule` is its schedule in plain torch for the CPU tests.
 
-Two K4 kernels live in the source. :func:`launch_polymul` takes the
-cluster-split register-radix kernel: one thread-block cluster of C blocks
-per polynomial pair (:func:`choose_polymul_cluster`), both operands through
+One K4 kernel, the cluster-split register-radix kernel, which
+:func:`launch_polymul` runs: one thread-block cluster of C blocks per
+polynomial pair (:func:`choose_polymul_cluster`), both operands through
 radix-8 DIF passes in registers, a middle pass that runs the last DIF
 stages, the product and the first DIT stages without touching shared memory
 in between, radix-8 DIT passes and a closing pass across the cluster
 (:func:`polymul_plan`), lazy butterflies when every prime is below 2^30.
-``variant="radix2"`` takes the one-block radix-2 kernel it replaced, kept so
-that one run can time both. :func:`polymul_schedule` is the cluster kernel's
-schedule in plain torch, pass for pass and index for index, for the CPU
-tests.
+:func:`polymul_schedule` is its schedule in plain torch, pass for pass and
+index for index, for the CPU tests.
 
 Each source is built by ``nvcc`` at first use (:mod:`.cuda_lib`).
 ``launches["k5"]`` and ``polymul_launches["k4"]`` count the launches made
@@ -48,19 +44,16 @@ from .ntt_cuda import (BLOCK_CAP, LAZY_PRIME_LIMIT, _Arith, _stages, check_n, ho
 from .ntt_pallas import _check_lrn
 
 LIB = CudaLibrary("ntt_bitrev", {
-    "toyfhe_ntt_bitrev": ([VP] * 5 + [CI] * 3 + [VP], CI),
     "toyfhe_ntt_bitrev_radix": ([VP] * 5 + [CI] * 8 + [VP], CI),
     "toyfhe_ntt_bitrev_radix_attrs": ([CI] * 2 + [VP], CI),
 })
 launches = {"k5": 0}
 BITREV_CLUSTERS = (1, 2, 4)      # blocks per polynomial the K5 register-radix kernel takes
 LIB_POLYMUL = CudaLibrary("polymul", {
-    "toyfhe_polymul": ([VP] * 9 + [CI] * 4 + [VP], CI),
     "toyfhe_polymul_cluster": ([VP] * 9 + [CI] * 9 + [VP], CI),
     "toyfhe_polymul_cluster_attrs": ([CI] * 2 + [VP], CI),
 })
 polymul_launches = {"k4": 0}
-PARK_ABOVE = 1 << 14   # the radix-2 kernel: two rows of N words fit one block up to here
 POLYMUL_CLUSTERS = (1, 2, 4)     # blocks per polynomial pair the cluster kernel takes
 MIN_BLOCK_N = 8                  # fewest residues one block of a cluster holds
 MAX_BLOCK_N = 1 << 14            # most: two rows of it fit a block's shared memory
@@ -416,18 +409,16 @@ def bitrev_args(pt, polys: int, cluster: Optional[int] = None,
     return cluster, int(lazy), plan["kl"], pack_plan(plan["fwd"])
 
 
-def launch(pt, a: torch.Tensor, variant: Optional[str] = None, cluster: Optional[int] = None,
-           lazy: Optional[bool] = None, row_major: bool = False) -> torch.Tensor:
+def launch(pt, a: torch.Tensor, cluster: Optional[int] = None, lazy: Optional[bool] = None,
+           row_major: bool = False) -> torch.Tensor:
     """Bit-reversed forward NTT of a contiguous int64 [L, R, N] CUDA tensor
     (limb axis first) through the kernel. Raises on anything the kernel
     does not take.
 
-    ``variant=None`` is the register-radix kernel; ``cluster`` / ``lazy``
-    override :func:`choose_bitrev_cluster` (any legal block count;
-    ``lazy=False`` is legal for every tower, ``lazy=True`` only below 2^30),
-    and ``row_major=True`` hands it the batch as [R, L, N] instead, each
-    polynomial transformed where it lies. ``variant="radix2"`` is the
-    one-block radix-2 kernel, limb-major only."""
+    ``cluster`` / ``lazy`` override :func:`choose_bitrev_cluster` (any legal
+    block count; ``lazy=False`` is legal for every tower, ``lazy=True`` only
+    below 2^30), and ``row_major=True`` hands it the batch as [R, L, N]
+    instead, each polynomial transformed where it lies."""
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA bit-reversed NTT takes CUDA tensors, got {a.device}")
     if row_major:
@@ -443,27 +434,19 @@ def launch(pt, a: torch.Tensor, variant: Optional[str] = None, cluster: Optional
     rows = a.shape[0 if row_major else 1]
     if pt.L * rows * max(BITREV_CLUSTERS) >= 1 << 31:
         raise ValueError(f"{pt.L * rows} polynomials exceed one launch grid")
-    if variant is None:
-        entry = "toyfhe_ntt_bitrev_radix"
-        tail = (int(row_major),) + pt.tables.cached(
-            ("k5_args", rows, cluster, lazy), lambda: bitrev_args(pt, pt.L * rows, cluster, lazy))
-        if a.data_ptr() % 16:
-            a = a.clone()                  # the kernel loads 16 bytes a thread
-    elif variant == "radix2":
-        if cluster is not None or lazy is not None or row_major:
-            raise ValueError("cluster, lazy and row_major belong to the register-radix kernel")
-        entry, tail = "toyfhe_ntt_bitrev", ()
-    else:
-        raise ValueError(f"unknown bit-reversed NTT kernel variant {variant!r}")
+    tail = pt.tables.cached(("k5_args", rows, cluster, lazy),
+                            lambda: bitrev_args(pt, pt.L * rows, cluster, lazy))
+    if a.data_ptr() % 16:
+        a = a.clone()                      # the kernel loads 16 bytes a thread
     lib = LIB.load()
     kt = kernel_tables(pt.tables, a.device)
     twist, tw = kt["fwd"]
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(lib, entry)(a.data_ptr(), out.data_ptr(), twist.data_ptr(),
-                                  tw.data_ptr(), kt["pn"].data_ptr(), pt.L, rows,
-                                  pt.logn, *tail, stream)
+        err = lib.toyfhe_ntt_bitrev_radix(a.data_ptr(), out.data_ptr(), twist.data_ptr(),
+                                          tw.data_ptr(), kt["pn"].data_ptr(), pt.L, rows,
+                                          pt.logn, int(row_major), *tail, stream)
     LIB.check(err, "CUDA bit-reversed NTT")
     launches["k5"] += 1
     return out
@@ -497,19 +480,15 @@ def polymul_args(pt, polys: int, cluster: Optional[int] = None,
             plan["kf"])
 
 
-def launch_polymul(pt, a: torch.Tensor, b: torch.Tensor, park: Optional[bool] = None,
-                   variant: Optional[str] = None, cluster: Optional[int] = None,
+def launch_polymul(pt, a: torch.Tensor, b: torch.Tensor, cluster: Optional[int] = None,
                    lazy: Optional[bool] = None) -> torch.Tensor:
     """Fused negacyclic product of contiguous primal int64 [L, R, N] CUDA
-    tensors through the kernel. Raises on anything the kernel does not take.
+    tensors through the kernel, which takes every N the port supports and
+    both kinds of tower. Raises on anything the kernel does not take.
 
-    ``variant=None`` is the cluster kernel, which takes every N the port
-    supports and both kinds of tower; ``cluster`` / ``lazy`` override
-    :func:`choose_polymul_cluster` (any legal cluster size; ``lazy=False`` is
-    legal for every tower, ``lazy=True`` only below 2^30).
-    ``variant="radix2"`` is the one-block radix-2 kernel; its ``park`` keeps
-    one row in shared memory and parks the first transform in the output
-    row, by default only above N = 2^14, where two rows do not fit."""
+    ``cluster`` / ``lazy`` override :func:`choose_polymul_cluster` (any legal
+    cluster size; ``lazy=False`` is legal for every tower, ``lazy=True`` only
+    below 2^30)."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"the CUDA fused product takes CUDA tensors on one device, "
                          f"got {a.device} and {b.device}")
@@ -523,22 +502,8 @@ def launch_polymul(pt, a: torch.Tensor, b: torch.Tensor, park: Optional[bool] = 
     rows = a.shape[1]
     if pt.L * rows * max(POLYMUL_CLUSTERS) >= 1 << 31:
         raise ValueError(f"{pt.L * rows} polynomials exceed one launch grid")
-    if variant is None:
-        if park is not None:
-            raise ValueError("park belongs to variant='radix2'")
-        entry = "toyfhe_polymul_cluster"
-        tail = pt.tables.cached(("k4_args", rows, cluster, lazy),
-                                lambda: polymul_args(pt, pt.L * rows, cluster, lazy))
-    elif variant == "radix2":
-        if cluster is not None or lazy is not None:
-            raise ValueError("cluster and lazy belong to the cluster kernel")
-        if park is None:
-            park = pt.n > PARK_ABOVE
-        elif not park and pt.n > PARK_ABOVE:
-            raise ValueError(f"two rows of N={pt.n} do not fit in shared memory: park=True only")
-        entry, tail = "toyfhe_polymul", (int(bool(park)),)
-    else:
-        raise ValueError(f"unknown fused-product kernel variant {variant!r}")
+    tail = pt.tables.cached(("k4_args", rows, cluster, lazy),
+                            lambda: polymul_args(pt, pt.L * rows, cluster, lazy))
     lib = LIB_POLYMUL.load()
     kt = kernel_tables(pt.tables, a.device)
     twist, tw = kt["fwd"]
@@ -547,10 +512,10 @@ def launch_polymul(pt, a: torch.Tensor, b: torch.Tensor, park: Optional[bool] = 
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(lib, entry)(a.data_ptr(), b.data_ptr(), out.data_ptr(), twist.data_ptr(),
-                                  tw.data_ptr(), itwist.data_ptr(), itw.data_ptr(),
-                                  kt["pn"].data_ptr(), r2.data_ptr(), pt.L, rows, pt.logn,
-                                  *tail, stream)
+        err = lib.toyfhe_polymul_cluster(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                         twist.data_ptr(), tw.data_ptr(), itwist.data_ptr(),
+                                         itw.data_ptr(), kt["pn"].data_ptr(), r2.data_ptr(),
+                                         pt.L, rows, pt.logn, *tail, stream)
     LIB_POLYMUL.check(err, "CUDA fused product")
     polymul_launches["k4"] += 1
     return out

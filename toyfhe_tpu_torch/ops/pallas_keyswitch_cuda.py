@@ -6,16 +6,15 @@ FusedKeyswitch._call`` (K6, body ``_ks_kernel``). Its plain twin is
 :func:`.pallas_keyswitch.fused_keyswitch_plain`, which it equals bit for
 bit.
 
-Two kernels live in the source. :func:`launch` takes the cluster kernel:
-one thread-block cluster of G blocks per (row, output limb) pair
+One kernel, the cluster kernel, which :func:`launch` runs: one thread-block
+cluster of G blocks per (row, output limb) pair
 (:func:`choose_cluster`), the digits dealt out over the blocks, each digit
 built, twisted and transformed by register-radix DIF passes with the key
 products in the last pass, the partial sums reduced across the cluster and
 the two inverse transforms run side by side on the two halves of the
-cluster (:func:`keyswitch_plan`). ``variant="loop"`` takes the one-block
-kernel it replaced, kept so that one run can time both.
-:func:`keyswitch_schedule` is the cluster kernel's schedule in plain torch,
-pass for pass and index for index, for the CPU tests.
+cluster (:func:`keyswitch_plan`). :func:`keyswitch_schedule` is its
+schedule in plain torch, pass for pass and index for index, for the CPU
+tests.
 
 Built by ``nvcc`` from ``toyfhe_tpu_torch/csrc/keyswitch.cu`` at first use
 (:mod:`.cuda_lib`). ``launches["k6"]`` counts the launches made through
@@ -39,8 +38,6 @@ from .ntt_pallas_cuda import (MIDDLE, _DifArith, _int64_tables, _lazy_flag,
                               dit_local_passes, forward_plan)
 
 LIB = CudaLibrary("keyswitch", {
-    "toyfhe_keyswitch": ([VP] * 12 + [CI] * 5 + [VP], CI),
-    "toyfhe_keyswitch_scratch_bytes": ([CI] * 3, ctypes.c_longlong),
     "toyfhe_keyswitch_cluster": ([VP] * 12 + [CI] * 11 + [VP], CI),
     "toyfhe_keyswitch_cluster_scratch_bytes": ([CI] * 4, ctypes.c_longlong),
     "toyfhe_keyswitch_cluster_attrs": ([CI] * 2 + [VP], CI),
@@ -223,16 +220,15 @@ def cluster_args(fk, pairs: int, cluster: Optional[int] = None,
             plan["kf"])
 
 
-def launch(fk, c2p: torch.Tensor, c1e: torch.Tensor, variant: Optional[str] = None,
-           cluster: Optional[int] = None, lazy: Optional[bool] = None):
+def launch(fk, c2p: torch.Tensor, c1e: torch.Tensor, cluster: Optional[int] = None,
+           lazy: Optional[bool] = None):
     """(out1, out2) of ``fk`` for contiguous int64 CUDA tensors c2 primal
     [..., Lc, N] and c1e bit-reversed dual [..., Lc + 1, N] through the
     kernel. Raises on anything the kernel does not take.
 
-    ``variant=None`` is the cluster kernel; ``cluster`` / ``lazy`` override
-    :func:`choose_cluster` (any legal cluster size; ``lazy=False`` is legal
-    for every tower, ``lazy=True`` only below 2^30). ``variant="loop"`` is
-    the one-block kernel that loops over all the digits."""
+    ``cluster`` / ``lazy`` override :func:`choose_cluster` (any legal cluster
+    size; ``lazy=False`` is legal for every tower, ``lazy=True`` only below
+    2^30)."""
     if c2p.device.type != "cuda" or c1e.device.type != "cuda":
         raise ValueError(f"the CUDA fused key switch takes CUDA tensors, got "
                          f"{c2p.device} / {c1e.device}")
@@ -244,33 +240,26 @@ def launch(fk, c2p: torch.Tensor, c1e: torch.Tensor, variant: Optional[str] = No
     rows = c2p.numel() // (fk.Lc * fk.n)
     if rows * Le * max(CLUSTERS) >= 1 << 31:
         raise ValueError(f"{rows} rows exceed one launch grid")
-    if variant not in (None, "loop"):
-        raise ValueError(f"unknown fused key switch kernel variant {variant!r}")
-    if variant == "loop" and (cluster is not None or lazy is not None):
-        raise ValueError("cluster and lazy belong to the cluster kernel")
     lib = LIB.load()
     kt = _tables(fk, c2p.device)
-    plan_key = ("launch", rows, variant, cluster, lazy)
+    plan_key = ("launch", rows, cluster, lazy)
     if plan_key not in fk._dev:            # the launcher's arguments, worked out once
-        if variant is None:
-            tail = cluster_args(fk, rows * Le, cluster, lazy)
-            nbytes = lib.toyfhe_keyswitch_cluster_scratch_bytes(rows, fk.Lc, fk.logn, tail[0])
-            fk._dev[plan_key] = (lib.toyfhe_keyswitch_cluster, tail, nbytes)
-        else:
-            nbytes = lib.toyfhe_keyswitch_scratch_bytes(rows, fk.Lc, fk.logn)
-            fk._dev[plan_key] = (lib.toyfhe_keyswitch, (), nbytes)
-    fn, tail, nbytes = fk._dev[plan_key]
+        tail = cluster_args(fk, rows * Le, cluster, lazy)
+        nbytes = lib.toyfhe_keyswitch_cluster_scratch_bytes(rows, fk.Lc, fk.logn, tail[0])
+        fk._dev[plan_key] = (tail, nbytes)
+    tail, nbytes = fk._dev[plan_key]
     out1 = torch.empty(c1e.shape, dtype=torch.int64, device=c2p.device)
     out2 = torch.empty_like(out1)
     scratch = torch.empty(nbytes // 4, dtype=torch.int32, device=c2p.device)
     (psi, fwd_tw), (ipsi, inv_tw) = kt["fwd"], kt["inv"]
     with torch.cuda.device(c2p.device):
         stream = torch.cuda.current_stream(c2p.device).cuda_stream
-        err = fn(c2p.data_ptr(), c1e.data_ptr(), out1.data_ptr(), out2.data_ptr(),
-                 psi.data_ptr(), fwd_tw.data_ptr(), ipsi.data_ptr(), inv_tw.data_ptr(),
-                 kt["pnr"].data_ptr(), kt["masks"].data_ptr(), kt["maskeds"].data_ptr(),
-                 scratch.data_ptr() if nbytes else None, rows, fk.Lc, fk.window, fk.kpl,
-                 fk.logn, *tail, stream)
+        err = lib.toyfhe_keyswitch_cluster(
+            c2p.data_ptr(), c1e.data_ptr(), out1.data_ptr(), out2.data_ptr(), psi.data_ptr(),
+            fwd_tw.data_ptr(), ipsi.data_ptr(), inv_tw.data_ptr(), kt["pnr"].data_ptr(),
+            kt["masks"].data_ptr(), kt["maskeds"].data_ptr(),
+            scratch.data_ptr() if nbytes else None, rows, fk.Lc, fk.window, fk.kpl, fk.logn,
+            *tail, stream)
     LIB.check(err, "CUDA fused key switch")
     launches["k6"] += 1
     return out1, out2

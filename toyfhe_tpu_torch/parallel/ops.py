@@ -28,8 +28,10 @@ captured.
 The transforms go through :func:`..ops.ntt.ntt` / :func:`..ops.ntt.intt`:
 the CUDA kernel K1 for CUDA tensors, the plain radix-2 version for CPU
 tensors (the coefficient-sharded four-step is plain torch on the digit
-products of :mod:`..ops.ntt_mxu`). Everything else is elementwise modular
-arithmetic in plain torch.
+products of :mod:`..ops.ntt_mxu`). Each hybrid step's digit decomposition
+goes through :func:`..ops.fbc_cuda.fbc` with a plan over the target rows it
+holds (the CUDA kernel for CUDA tensors). Everything else is elementwise
+modular arithmetic in plain torch.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 
 from ..core.hybrid import _mont_col
 from ..core.rlwe import _hybrid_key_stack
-from ..ops import modmath, ntt as nttmod
+from ..ops import fbc_cuda, modmath, ntt as nttmod
 from ..ops.modmath import MontParams
 from ..utils import graphs
 from . import sharding as S
@@ -279,9 +281,8 @@ def _rem_mp(tabs: dict, stabs: dict, sp_keep: int) -> MontParams:
                       half=cat("half"), rinv=cat("rinv"))
 
 
-def _square_relin_rescale_hybrid(c, km, kd, yinv, gconsts, rinv_rows,
-                                 rescale_inv, mps, bounds, tables, fks=None,
-                                 mesh: Mesh = None):
+def _square_relin_rescale_hybrid(c, km, kd, yinv, plan, rinv_rows, rescale_inv, mps, tables,
+                                 fks=None, mesh: Mesh = None):
     """Square → hybrid (dnum-grouped) relinearize → rescale on ct duals.
 
     The reference body. The reference splits every operand into ct rows and
@@ -295,12 +296,13 @@ def _square_relin_rescale_hybrid(c, km, kd, yinv, gconsts, rinv_rows,
 
       c:           int64[B, 2, L_loc, N]   ciphertext duals
       km / kd:     int64[ndig, T, N]   key mask / masked duals
-      yinv:        int64[L_loc, 1]     ŷ premultipliers (Montgomery)
-      gconsts[j]:  int64[T, a_j, 1]    FBC constants Q_j/q_i mod the target
+      yinv:        int64[L_loc, 1]     ŷ premultipliers (Montgomery), the
+                                       rank's rows of ``plan.inv``
+      plan:        the :class:`..ops.fbc_cuda.FbcPlan` of the ct tower into
+                   the T target rows
       rinv_rows[s]: int64[T-1-s, 1]    p_drop^{-1} at contraction step s
       rescale_inv: int64[L_loc, 1]     final data-prime rescale (0 last)
-      mps:         MontParams: "ct", "exp", "exp3" (expanded), "rem" (per s)
-      bounds:      the global ct-limb ranges of the digit groups
+      mps:         MontParams: "ct", "exp" (expanded), "rem" (per s)
       tables:      (ct NttTables, expanded NttTables): routes the transforms
       fks:         a :class:`..ops.hybrid_ks.FusedHybridKS` replaces the
                    digit pipeline (FBC → NTT → key contraction) with K3
@@ -308,7 +310,7 @@ def _square_relin_rescale_hybrid(c, km, kd, yinv, gconsts, rinv_rows,
     Returns int64[B, 2, L_loc, N] rescaled duals with the dropped limb zeroed.
     """
     ct_tables, exp_tables = tables
-    mp, mpe, mpe3 = mps["ct"], mps["exp"], mps["exp3"]
+    mp, mpe = mps["ct"], mps["exp"]
     c1, c2 = c[:, 0], c[:, 1]
     # --- homomorphic square ---
     d1 = modmath.mul_mod(c1, c1, mp)
@@ -323,11 +325,8 @@ def _square_relin_rescale_hybrid(c, km, kd, yinv, gconsts, rinv_rows,
     if fks is not None:
         acc1, acc2 = fks(y)
     else:
-        digs = []
-        for (lo, hi), cj in zip(bounds, gconsts):
-            prod = modmath.mont_mul(y[..., None, lo:hi, :], cj, mpe3)
-            digs.append(modmath.mod_sum(prod, mpe, axis=-2))
-        digs = nttmod.ntt(exp_tables, torch.stack(digs, dim=-3))  # [B, ndig, T, N]
+        digs = nttmod.ntt(exp_tables, fbc_cuda.fbc(plan, y, premultiplied=True,
+                                                   digits_inner=True))   # [B, ndig, T, N]
         acc1 = modmath.mod_sum(modmath.mul_mod(digs, kd, mpe), mpe, axis=-3)
         acc2 = modmath.mod_sum(modmath.mul_mod(digs, km, mpe), mpe, axis=-3)
 
@@ -390,9 +389,8 @@ def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
     erows = rows + sp                                       # the rank's expanded rows
     col = lambda a, which: modmath.as_residues(np.asarray(a)[which], device)
 
-    bounds = tuple(g[0] for g in eng_groups)
-    yinv = col(np.concatenate([g[1] for g in eng_groups], 0), rows)
-    gconsts = tuple(col(g[2], erows) for g in eng_groups)
+    plan = fbc_cuda.make_plan(eng_groups, ct_ring.mp, exp_ring.select(erows).mp, erows)
+    yinv = col(plan.inv, rows)
     if mesh is not None:
         km, kd = km[:, erows].to(device), kd[:, erows].to(device)
 
@@ -413,7 +411,7 @@ def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
     tabs = full_table_pytree(loc_ring.tables, device)
     stabs = full_table_pytree(sp_ring.tables, device)
     mpe = _mp_full(_concat_tabs(tabs, stabs))
-    mps = {"ct": _mp_full(tabs), "exp": mpe, "exp3": mpe.expand(),
+    mps = {"ct": _mp_full(tabs), "exp": mpe,
            "rem": tuple(_rem_mp(tabs, stabs, k - s - 1) for s in range(k))}
     fks = None
     if fused and mesh is None:
@@ -422,8 +420,8 @@ def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
     tables = (loc_ring.tables, (exp_ring if mesh is None else exp_ring.select(erows)).tables)
 
     def step(c: torch.Tensor) -> torch.Tensor:
-        return _square_relin_rescale_hybrid(c, km, kd, yinv, gconsts, rinv_rows,
-                                            rescale_inv, mps, bounds, tables, fks, mesh)
+        return _square_relin_rescale_hybrid(c, km, kd, yinv, plan, rinv_rows, rescale_inv, mps,
+                                            tables, fks, mesh)
 
     if mesh is None:
         return _compiled(step, eager, "hybrid_step_fused_k3" if fused else "hybrid_step"), \
@@ -461,12 +459,10 @@ def _make_hybrid_fused_sharded_step(mesh: Mesh, params, ek, ct_ring, dp: bool):
     km, kd = _hybrid_key_stack(params, ek.key, exp_ring, ndig, 0)
     km, kd = km[:, rows + sp].to(device), kd[:, rows + sp].to(device)
 
-    bounds = tuple(g[0] for g in eng_groups)
-    yinv = col(np.concatenate([g[1] for g in eng_groups], 0), rows)
-    gct = tuple(col(g[2], rows) for g in eng_groups)
-    gsp = tuple(col(g[2], sp) for g in eng_groups)
+    plan = fbc_cuda.make_plan(eng_groups, ct_ring.mp, exp_ring.select(rows + sp).mp, rows + sp)
+    yinv = col(plan.inv, rows)
     g_idx = np.zeros(Lc, np.int64)
-    for j, (lo, hi) in enumerate(bounds):
+    for j, (lo, hi) in enumerate(plan.bounds):
         g_idx[lo:hi] = j
     g_loc = g_idx[rows]
     # [1, ndig-1, L_loc, 1] the non-owning digits of each local row, ascending
@@ -495,10 +491,8 @@ def _make_hybrid_fused_sharded_step(mesh: Mesh, params, ek, ct_ring, dp: bool):
     sp_ring = exp_ring.select(sp)
     last_ring = ct_ring.select([Lc - 1])
     mp = loc_ring.mp.on(device)
-    mp_sp = sp_ring.mp.on(device)
     mp_e = exp_ring.select(rows + sp).mp.on(device)
     mp_last = last_ring.mp.on(device)
-    mp3, mp_sp3 = mp.expand(), mp_sp.expand()
     mp_first = {m: sp_ring.mp.select(range(m)).on(device) for m in range(1, k)}
     L_loc = len(rows)
 
@@ -515,13 +509,8 @@ def _make_hybrid_fused_sharded_step(mesh: Mesh, params, ek, ct_ring, dp: bool):
         y = S.all_gather(y, mesh, "rp", 1, "keyswitch_digit_share")     # [B, Lc, N]
 
         # --- FBC onto the local target rows (ct rows + replicated specials) ---
-        fbc_ct, fbc_sp = [], []
-        for (lo, hi), cct, csp in zip(bounds, gct, gsp):
-            yi = y[..., None, lo:hi, :]
-            fbc_ct.append(modmath.mod_sum(modmath.mont_mul(yi, cct, mp3), mp, axis=-2))
-            fbc_sp.append(modmath.mod_sum(modmath.mont_mul(yi, csp, mp_sp3), mp_sp, axis=-2))
-        fbc_ct = torch.stack(fbc_ct, dim=1)                 # [B, ndig, L_loc, N]
-        fbc_sp = torch.stack(fbc_sp, dim=1)                 # [B, ndig, k, N]
+        digits = fbc_cuda.fbc(plan, y, premultiplied=True, digits_inner=True)
+        fbc_ct, fbc_sp = digits[..., :L_loc, :], digits[..., L_loc:, :]   # [B, ndig, ., N]
 
         # --- in-group reuse: transform only the non-owning digits of each row ---
         B, n = c.shape[0], c.shape[-1]
@@ -609,28 +598,19 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True,
     device = km.device
     col = lambda a: modmath.as_residues(a, device)
 
-    # --- FBC constants + per-group out-of-group transform tables ---
-    bounds = tuple(g[0] for g in eng_groups)
-    yinv = col(np.concatenate([g[1] for g in eng_groups], 0))
-    gconsts = tuple(col(g[2]) for g in eng_groups)
+    # --- the FBC's plan + each group's out-of-group transform tables ---
+    plan = fbc_cuda.make_plan(eng_groups, ct_ring.mp, exp_ring.mp, range(T))
+    bounds = plan.bounds
     mp_exp = exp_ring.mp.on(device)
-    mp_exp3 = mp_exp.expand()
-    grp_out = []
+    grp_out, all_out, seg = [], [], []
     for (lo, hi) in bounds:
-        out_idx = list(range(lo)) + list(range(hi, T))
-        grp_out.append((modmath.as_residues(out_idx, device),
-                        exp_ring.select(out_idx).tables))
-
-    # merged-call schedule: the FBC computes only the out-of-group rows,
-    # every group's digit rows ride one transform call (rows repeat across
-    # groups) and the k-special + last-data-row inverse transforms merge
-    grp_fbc, all_out, seg = [], [], []
-    for (lo, hi), g in zip(bounds, eng_groups):
         oidx = list(range(lo)) + list(range(hi, T))
+        grp_out.append(exp_ring.select(oidx).tables)
         seg.append((len(all_out), len(oidx)))
         all_out += oidx
-        mp_o = exp_ring.mp.select(oidx).on(device)
-        grp_fbc.append((col(np.asarray(g[2])[np.asarray(oidx)]), mp_o, mp_o.expand()))
+    # merged-call schedule: every group's out-of-group digit rows ride one
+    # transform call (rows repeat across groups) and the k-special +
+    # last-data-row inverse transforms merge
     cat_tabs = exp_ring.select(tuple(all_out)).tables
     mix_tabs = exp_ring.select(tuple(range(L, T)) * 2 + (L - 1,) * 4).tables
 
@@ -666,25 +646,14 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True,
 
         # --- digits: FBC + NTT of out-of-group rows, d3 rows in-group ---
         d3p = nttmod.intt(ct_ring.tables, d3)               # [B, L, N]
-        y = modmath.mont_mul(d3p, yinv, mp_ct)
-        digs = []
+        outs = fbc_cuda.fbc(plan, d3p, out_of_group=True)   # [B, T - w_j, N] each
         if merge_calls:
-            mfbc = []
-            for (lo, hi), (cj_o, mp_o, mp_o3) in zip(bounds, grp_fbc):
-                prod = modmath.mont_mul(y[..., None, lo:hi, :], cj_o, mp_o3)
-                mfbc.append(modmath.mod_sum(prod, mp_o, axis=-2))
-            res_all = nttmod.ntt(cat_tabs, torch.cat(mfbc, dim=-2))
-            for (lo, hi), (off, ln) in zip(bounds, seg):
-                res = res_all[..., off:off + ln, :]
-                digs.append(torch.cat([res[..., :lo, :], d3[..., lo:hi, :],
-                                       res[..., lo:, :]], dim=-2))
+            res_all = nttmod.ntt(cat_tabs, torch.cat(outs, dim=-2))
+            outs = [res_all[..., off:off + ln, :] for off, ln in seg]
         else:
-            for (lo, hi), cj, (oidx, otabs) in zip(bounds, gconsts, grp_out):
-                prod = modmath.mont_mul(y[..., None, lo:hi, :], cj, mp_exp3)
-                dj = modmath.mod_sum(prod, mp_exp, axis=-2)  # [B, T, N]
-                res = nttmod.ntt(otabs, dj.index_select(-2, oidx))
-                digs.append(torch.cat([res[..., :lo, :], d3[..., lo:hi, :],
-                                       res[..., lo:, :]], dim=-2))
+            outs = [nttmod.ntt(otabs, o) for otabs, o in zip(grp_out, outs)]
+        digs = [torch.cat([res[..., :lo, :], d3[..., lo:hi, :], res[..., lo:, :]], dim=-2)
+                for (lo, hi), res in zip(bounds, outs)]
         digs = torch.stack(digs, dim=-3)                    # [B, ndig, T, N]
         acc1 = modmath.mod_sum(modmath.mul_mod(digs, kd, mp_exp), mp_exp, axis=-3)
         acc2 = modmath.mod_sum(modmath.mul_mod(digs, km, mp_exp), mp_exp, axis=-3)

@@ -427,7 +427,7 @@ def _transform(x: torch.Tensor, tables: nttmod.NttTables, inverse: bool, lazy: b
         if max(tables.primes) >= ntt_cuda.LAZY_PRIME_LIMIT:
             raise ValueError("lazy butterflies need every prime below 2^30")
         if x.is_cuda:
-            return ntt_cuda.launch_cluster(tables, x.contiguous(), inverse, lazy=True)
+            return ntt_cuda.launch(tables, x.contiguous(), inverse, lazy=True)
     return nttmod.intt(tables, x) if inverse else nttmod.ntt(tables, x)
 
 

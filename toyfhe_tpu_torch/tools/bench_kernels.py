@@ -5,18 +5,15 @@
 Port of the reference's ``tools/bench_kernels.py``: on one batch of ``rows``
 polynomials over ``limbs`` 28-bit primes it compares
 
-  * the transform K1 (``csrc/ntt.cu``): the cluster-split register-radix
-    kernel every caller gets, and the one-block radix-2 kernel it replaced,
+  * the transform K1 (``csrc/ntt.cu``),
   * the four-step digit transform K2 (``csrc/ntt_mxu.cu``, int8 tensor
     cores) with the 7-term and with the paired recombination,
   * the unfused product ``intt(mul_mod(ntt(a), ntt(b)))`` through K1,
-  * the fused product K4 (``csrc/polymul.cu``): the cluster-split
-    register-radix kernel every caller gets, and the one-block radix-2
-    kernel it replaced,
+  * the fused product K4 (``csrc/polymul.cu``),
 
 and prints ms per batch, limb transforms per second and the ratios. Each row
-is first held bit-equal to its plain torch twin on the same tensors, K2 and
-the radix-2 kernel to K1 and both K4 kernels to the unfused product.
+is first held bit-equal to its plain torch twin on the same tensors, K2 to
+K1 and K4 to the unfused product.
 
 Runs on the CUDA device unless ``--device cpu`` is given; there every entry
 point takes its plain twin and the times are host-clock times of the CPU,
@@ -91,7 +88,7 @@ def graph_ms(fn, count: int = 50, replays: int = 5) -> float:
 
 def run(n: int = 1 << 14, limbs: int = 8, rows: int = 16, device="cuda",
         reps: int = 25) -> dict:
-    """Check and time the seven rows on ``device``. Returns ``{"n", "limbs",
+    """Check and time the five rows on ``device``. Returns ``{"n", "limbs",
     "rows", "device", "paired_ok", "rows_ms": {name: {"ms", "device_ms",
     "plain_ms", "transforms_per_s"}}, "ratios": {...}}``; raises if a row differs from
     its plain twin."""
@@ -113,17 +110,8 @@ def run(n: int = 1 << 14, limbs: int = 8, rows: int = 16, device="cuda",
         return lambda: inv(t, modmath.mul_mod(fwd(t, xt), fwd(t, xt), t.mp))
 
     # name -> (entry point, plain twin, limb transforms per call)
-    if device.type == "cuda":
-        from ..ops import ntt_cuda
-        from ..ops import ntt_pallas_cuda
-        radix2 = lambda: ntt_cuda.launch(t, xt, False, variant="radix2")
-        k4_radix2 = lambda: ntt_pallas_cuda.launch_polymul(pt, xl, xl, variant="radix2")
-    else:
-        radix2 = lambda: nttmod.ntt_plain(t, xt)
-        k4_radix2 = lambda: npal.polymul_plain(pt, xl, xl)
     cases = {
         "k1": (lambda: nttmod.ntt(t, xt), lambda: nttmod.ntt_plain(t, xt), 1),
-        "k1_radix2": (radix2, lambda: nttmod.ntt_plain(t, xt), 1),
         "k2_7grp": (lambda: mxp.ntt_mxu_pallas(mt, xr, psis, False),
                     lambda: mxp.ntt_mxu_pallas_plain(mt, xr, psis, False), 1),
         "k2_paired": (lambda: mxp.ntt_mxu_pallas(mt, xr, psis, True),
@@ -132,7 +120,6 @@ def run(n: int = 1 << 14, limbs: int = 8, rows: int = 16, device="cuda",
                             unfused(nttmod.ntt_plain, nttmod.intt_plain), 3),
         "polymul_k4": (lambda: npal.polymul_pallas_raw(pt, xl, xl),
                        lambda: npal.polymul_plain(pt, xl, xl), 3),
-        "polymul_k4_radix2": (k4_radix2, lambda: npal.polymul_plain(pt, xl, xl), 3),
     }
     if not mt.paired_ok:
         raise ValueError("the paired recombination is not valid for these primes")
@@ -144,12 +131,10 @@ def run(n: int = 1 << 14, limbs: int = 8, rows: int = 16, device="cuda",
             raise AssertionError(f"{name} differs from its plain twin")
     nat = lambda c: c.transpose(-1, -2).reshape(limbs, rows, n).transpose(0, 1)
     if not (torch.equal(nat(outs["k2_7grp"]), outs["k1"])
-            and torch.equal(outs["k2_paired"], outs["k2_7grp"])
-            and torch.equal(outs["k1_radix2"], outs["k1"])):
-        raise AssertionError("the four-step or the radix-2 transform differs from K1")
-    if not (torch.equal(outs["polymul_k4"].transpose(0, 1), outs["polymul_unfused"])
-            and torch.equal(outs["polymul_k4_radix2"], outs["polymul_k4"])):
-        raise AssertionError("a fused product differs from the unfused product")
+            and torch.equal(outs["k2_paired"], outs["k2_7grp"])):
+        raise AssertionError("the four-step transform differs from K1")
+    if not torch.equal(outs["polymul_k4"].transpose(0, 1), outs["polymul_unfused"]):
+        raise AssertionError("the fused product differs from the unfused product")
     del outs
 
     polys = rows * limbs
@@ -161,34 +146,29 @@ def run(n: int = 1 << 14, limbs: int = 8, rows: int = 16, device="cuda",
                         "transforms_per_s": tf * polys / ms * 1e3}
     ms = lambda k: result[k]["ms"]
     ratios = {
-        "k1_vs_radix2": ms("k1_radix2") / ms("k1"),
         "k2_7grp_vs_k1": ms("k1") / ms("k2_7grp"),
         "k2_paired_vs_k1": ms("k1") / ms("k2_paired"),
         "k2_paired_vs_7grp": ms("k2_7grp") / ms("k2_paired"),
         "polymul_k4_vs_unfused": ms("polymul_unfused") / ms("polymul_k4"),
-        "polymul_k4_vs_radix2": ms("polymul_k4_radix2") / ms("polymul_k4"),
     }
     return {"n": n, "limbs": limbs, "rows": rows, "device": str(device),
             "paired_ok": bool(mt.paired_ok), "rows_ms": result, "ratios": ratios}
 
 
 def report(res: dict) -> list:
-    """The tool's seven lines for a :func:`run` result."""
+    """The tool's five lines for a :func:`run` result."""
     r, q = res["rows_ms"], res["ratios"]
     dev_ms = lambda v: "not measured" if v is None else f"{v:.4f} ms"
     line = lambda label, k, tail="": (
         f"{label:<17}: {r[k]['ms']:8.3f} ms/batch  {r[k]['transforms_per_s']:10.0f} tf/s  "
         f"(device {dev_ms(r[k]['device_ms'])}, plain {r[k]['plain_ms']:.3f} ms){tail}")
     return [
-        line("K1 cluster", "k1", f"  x{q['k1_vs_radix2']:.2f} vs one-block radix-2"),
-        line("K1 one-block r-2", "k1_radix2"),
+        line("K1 cluster", "k1"),
         line("four-step K2 7grp", "k2_7grp", f"  x{q['k2_7grp_vs_k1']:.2f} vs K1"),
         line("four-step K2 pair", "k2_paired", f"  x{q['k2_paired_vs_k1']:.2f} vs K1, "
                                                f"x{q['k2_paired_vs_7grp']:.2f} vs 7grp"),
         line("polymul unfused", "polymul_unfused"),
-        line("polymul K4", "polymul_k4", f"  x{q['polymul_k4_vs_unfused']:.2f} vs unfused, "
-                                         f"x{q['polymul_k4_vs_radix2']:.2f} vs one-block radix-2"),
-        line("polymul K4 o-b r2", "polymul_k4_radix2"),
+        line("polymul K4", "polymul_k4", f"  x{q['polymul_k4_vs_unfused']:.2f} vs unfused"),
     ]
 
 

@@ -10,8 +10,7 @@ bit-equal to the plain twin, except the knock-outs, which compute something
 else on purpose.
 
 ``shapes``: every legal launch shape of the cluster kernel (the digits over
-1, 2, 4 blocks; the polynomial over 2, 4) and the one-block loop kernel, at
-the gadgets, ring degrees and batch sizes of :data:`SHAPES`. It is what
+1, 2, 4 blocks; the polynomial over 2, 4) at the gadgets, ring degrees and batch sizes of :data:`SHAPES`. It is what
 ``hybrid_ks_cuda.choose_cluster`` is fitted to.
 
 ``plans``: other pass plans than ``ntt_cuda.schedule_plan``'s at N = 2^13.
@@ -125,23 +124,19 @@ def forget_launch_plans(fks) -> None:
 
 def variant_ms(fks, y, variants=None, want=None) -> dict:
     """Device ms of each ``(scheme, cluster)`` of ``variants`` (default:
-    every legal one, and the loop kernel), each first held bit-equal to
-    ``want`` where that is given."""
+    every legal one), each first held bit-equal to ``want`` where that is
+    given."""
     n, dnum = fks.exp_ring.n, fks.dnum_t
     if variants is None:
         variants = [(s, g) for s in k3c.SCHEMES for g in k3c.legal_clusters(n, dnum, s)]
-        variants.append(("loop", None))
     out = {}
     for scheme, g in variants:
-        if scheme == "loop":
-            fn = lambda: k3c.launch(fks, y, variant="loop")
-        else:
-            fn = lambda scheme=scheme, g=g: k3c.launch(fks, y, cluster=g, scheme=scheme)
+        fn = lambda scheme=scheme, g=g: k3c.launch(fks, y, cluster=g, scheme=scheme)
         if want is not None:
             got = fn()
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise AssertionError(f"K3 {scheme} {g} differs from the plain twin")
-        out["loop" if scheme == "loop" else f"{scheme} {g}"] = graph_ms(fn, 100)
+        out[f"{scheme} {g}"] = graph_ms(fn, 100)
     return out
 
 

@@ -25,8 +25,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-GROUPS = (("ntt_cluster_kernel", "K1 transforms"), ("ntt_radix2_kernel", "K1 transforms"),
-          ("elementwise", "elementwise"),
+GROUPS = (("ntt_cluster_kernel", "K1 transforms"), ("elementwise", "elementwise"),
           ("reduce", "reductions"), ("index", "gathers"), ("gather", "gathers"),
           ("Cat", "concatenations"), ("cat", "concatenations"), ("copy", "copies"))
 
