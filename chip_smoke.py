@@ -141,7 +141,17 @@ Then, for each path:
   bound; the launch census of one refresh at N = 2^10 (one launch a
   decomposition, and no tensor of the old [..., T, alpha, N] product).
   ``python3 chip_smoke.py --fbc-only`` builds the kernels and runs this
-  phase alone.
+  phase alone;
+* the key products (phase 42, ``ops/keyprod_cuda.py``) of every hybrid key
+  switch: the kernel bit-equal to its plain twin at the cells' shapes (the
+  ResNet's top at 1, 2 and 4 ciphertexts, ``mnist-boot``'s dense 1, the
+  refresh's top, the BSGS dense layers) with the digits first and inside,
+  with and without a Galois permutation and an accumulator; its time, its
+  share of a replayed graph, the plain twin's and the bound; the launch
+  census of one refresh at N = 2^13 and of one BSGS + dual-flow batch,
+  eager and replayed: one launch a key-product call, none left on the torch
+  formula. ``python3 chip_smoke.py --keyprod-only`` builds the kernels and
+  runs this phase alone.
 
 Kernels, plain twins and steps are timed with CUDA events, and each path is
 run once with the launch counts set to 0 to show it went through its
@@ -233,13 +243,13 @@ def phase_environment():
 
 
 def phase_build():
-    from toyfhe_tpu_torch.ops import (cuda_lib, fbc_cuda, hybrid_ks_cuda, ntt_cuda,
+    from toyfhe_tpu_torch.ops import (cuda_lib, fbc_cuda, hybrid_ks_cuda, keyprod_cuda, ntt_cuda,
                                       ntt_mxu_pallas_cuda, ntt_pallas_cuda, pallas_keyswitch_cuda)
 
     log("== phase 2: build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
     libs = [ntt_cuda.LIB, hybrid_ks_cuda.LIB, ntt_pallas_cuda.LIB, pallas_keyswitch_cuda.LIB,
-            ntt_mxu_pallas_cuda.LIB, ntt_pallas_cuda.LIB_POLYMUL, fbc_cuda.LIB]
+            ntt_mxu_pallas_cuda.LIB, ntt_pallas_cuda.LIB_POLYMUL, fbc_cuda.LIB, keyprod_cuda.LIB]
     cuda_lib.build_all(libs)
     for lib in libs:
         lib.load()
@@ -504,10 +514,11 @@ def flavour_steps(params, ek, ct_ring):
 
 
 def reset_launches():
-    from toyfhe_tpu_torch.ops import (fbc_cuda, hybrid_ks_cuda, ntt_cuda, ntt_pallas_cuda,
-                                      pallas_keyswitch_cuda)
+    from toyfhe_tpu_torch.ops import (fbc_cuda, hybrid_ks_cuda, keyprod_cuda, ntt_cuda,
+                                      ntt_pallas_cuda, pallas_keyswitch_cuda)
     for d in (ntt_cuda.launches, ntt_cuda.transforms, hybrid_ks_cuda.launches,
-              ntt_pallas_cuda.launches, pallas_keyswitch_cuda.launches, fbc_cuda.launches):
+              ntt_pallas_cuda.launches, pallas_keyswitch_cuda.launches, fbc_cuda.launches,
+              keyprod_cuda.launches):
         for k in d:
             d[k] = 0
 
@@ -3250,11 +3261,11 @@ def _census_of(fn) -> list:
 def _kernel_census(census: list) -> dict:
     """The kernels' part of a census (:func:`_census_of`), keyed as
     ``profile_mnist.kernel_launches`` keys a trace: K1 by direction, K3,
-    K5, K6, the FBC."""
-    k1, k3, k5, k6, fbc = census[0], census[2], census[3], census[5], census[9]
+    K5, K6, the FBC, the key products."""
+    k1, k3, k5, k6, fbc, kp = (census[i] for i in (0, 2, 3, 5, 9, 10))
     out = {**{d: k1[d] for d in ("fwd", "inv") if k1.get(d)},
-           **{k: c[k] for k, c in (("k3", k3), ("k5", k5), ("k6", k6), ("fbc", fbc))
-              if c.get(k)}}
+           **{k: c[k] for k, c in (("k3", k3), ("k5", k5), ("k6", k6), ("fbc", fbc),
+                                   ("key_products", kp)) if c.get(k)}}
     return out
 
 
@@ -3267,12 +3278,14 @@ _K1 = re.compile(r"(?<![A-Za-z_])ntt_cluster_kernel")
 _KERNEL_NAMES = (("k3", re.compile(r"(?<![A-Za-z_])hybrid_ks_cluster_kernel")),
                  ("k5", re.compile(r"(?<![A-Za-z_])ntt_bitrev_radix_kernel")),
                  ("k6", re.compile(r"(?<![A-Za-z_])keyswitch_cluster_kernel")),
-                 ("fbc", re.compile(r"(?<![A-Za-z_])fbc_kernel")))
+                 ("fbc", re.compile(r"(?<![A-Za-z_])fbc_kernel")),
+                 ("key_products", re.compile(r"(?<![A-Za-z_])keyprod_kernel")))
 
 
 def kernel_of(name: str):
-    """``"fwd"`` / ``"inv"`` for K1, ``"k3"``, ``"k5"``, ``"k6"``, ``"fbc"``, or None;
-    ``"k1?"`` for a K1 whose direction the name does not show."""
+    """``"fwd"`` / ``"inv"`` for K1, ``"k3"``, ``"k5"``, ``"k6"``, ``"fbc"``,
+    ``"key_products"``, or None; ``"k1?"`` for a K1 whose direction the name
+    does not show."""
     if _K1.search(name):
         for pat in _K1_DIRECTION:
             m = pat.search(name)
@@ -3897,6 +3910,138 @@ def phase_fbc(dev, smi) -> dict:
             "refresh_decompositions": decomps}
 
 
+# ---------------------------------------------------------------------------
+# phase 42: the key products of the hybrid key switch
+# ---------------------------------------------------------------------------
+
+# (label, params as FBC_CASES, ct limbs, leads): the cells' key products
+KEYPROD_CASES = (
+    ("resnet top", ("boot", 58), 60, ((1,), (2,), (4,))),
+    ("mnist-boot dense 1", ("boot", 46), 46, ((), (4,))),
+    ("refresh top", ("boot", 46), 48, ((2,), (4,))),
+    ("mnist-bsgs dense", ("hybrid", (28,) * 7 + (29,) * 4, 2, 4), 7, ((4,),)),
+    ("mnist-bsgs dense, 5 limbs", ("hybrid", (28,) * 7 + (29,) * 4, 2, 4), 5, ((4,),)),
+)
+KEYPROD_GALOIS = 5 ** 3                 # a rotation's Galois element (any odd one reads alike)
+
+
+def bound_keyprod(dnum: int, rows: int, nt: int, n: int) -> dict:
+    """The digits and both key rows read once, both accumulators written
+    once (int64); two Montgomery products and two modular adds a digit
+    word and component, one product a word at the end."""
+    words = (rows * dnum + 2 * dnum + 2 * rows) * nt * n
+    ops = 2 * rows * nt * n * (dnum * (MONT_OPS + MODADD_OPS) + MONT_OPS)
+    return bound(words * RESIDUE_BYTES, ops)
+
+
+def keyprod_census(census: list) -> tuple:
+    """(key-product launches, key-product calls) of a census
+    (:func:`_census_of`): the calls are the hoisted schedules' key products
+    and one a decomposition outside them (a direct key switch, a compiled
+    layer's, a fused square step's), each of which ran the FBC once."""
+    hoist, fbc, kp = census[7], census[9], census[10]
+    calls = (hoist.get("key_product_calls", 0) + fbc.get("fbc", 0)
+             - hoist.get("decompose_calls", 0))
+    return kp.get("key_products", 0), calls
+
+
+def phase_keyprod(dev, smi) -> dict:
+    """Phase 42: the key products (``csrc/keyprod.cu``) against their plain
+    twin at the cells' shapes in both digit layouts, with and without the
+    Galois permutation and the accumulator; the kernel's time, its share of
+    a replayed graph, the plain twin's and the bound; the launch census of
+    one refresh at N = 2^13 and of one BSGS + dual-flow batch, eager and
+    replayed."""
+    import functools
+    from toyfhe_tpu_torch.core import bootstrap as B
+    from toyfhe_tpu_torch.models import mnist as M
+    from toyfhe_tpu_torch.ops import keyprod_cuda as kp, ntt as nttmod
+    from toyfhe_tpu_torch.tools.bench_kernels import graph_ms
+    from toyfhe_tpu_torch.utils import graphs
+
+    log("== phase 42: the key products against their plain twin at the cells' shapes: digits "
+        "first and inside, with and without a Galois permutation and an accumulator")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    perm = nttmod.galois_dual_perm_dev(FBC_N, KEYPROD_GALOIS, dev)
+    rows_out, ncheck = [], 0
+    for label, spec, lt, leads in KEYPROD_CASES:
+        exp_ring, groups = fbc_params(spec)._tables(lt)
+        dnum, nt_, mp = len(groups), exp_ring.nlimbs, exp_ring.mp
+        km, kd = (random_residues(exp_ring.primes, (dnum,), FBC_N, gen, dev) for _ in range(2))
+        for lead in leads:
+            acc = random_residues(exp_ring.primes, (2,) + lead, FBC_N, gen, dev)
+            outer = random_residues(exp_ring.primes, (dnum,) + lead, FBC_N, gen, dev)
+            inner = torch.movedim(outer, 0, -3).contiguous()
+            for pm in (None, perm):
+                for with_acc in (False, True):
+                    want = kp.key_products_plain(outer, km, kd, mp, perm=pm,
+                                                 acc=acc.clone() if with_acc else None)
+                    got = {"digits first": kp.key_products(
+                               outer, km, kd, mp, perm=pm, acc=acc.clone() if with_acc else None),
+                           "digits inside": kp.key_products(
+                               inner, km, kd, mp, digits_inner=True, perm=pm,
+                               acc=acc.clone() if with_acc else None)}
+                    sync(dev)
+                    for what, g in got.items():
+                        if not torch.equal(g, want):
+                            raise AssertionError(f"key products {what} != plain: {label} "
+                                                 f"lead={lead} perm={pm is not None} "
+                                                 f"acc={with_acc}")
+                    ncheck += 2
+            rows = int(np.prod(lead))
+            hoisted = lambda: kp.key_products(outer, km, kd, mp, perm=perm)
+            layer = lambda: kp.key_products(inner, km, kd, mp, digits_inner=True)
+            row = {"case": label, "lead": list(lead), "dnum": dnum, "T": nt_,
+                   "kernel_ms": cuda_ms(hoisted), "device_ms": graph_ms(hoisted, 20),
+                   "kernel_inner_ms": cuda_ms(layer), "device_inner_ms": graph_ms(layer, 20),
+                   "plain_ms": cuda_ms(lambda: kp.key_products_plain(outer, km, kd, mp, perm=perm),
+                                       reps=5),
+                   **bound_keyprod(dnum, rows, nt_, FBC_N)}
+            rows_out.append(row)
+            log(f"{label} lead={lead}: dnum={dnum} T={nt_}: bit-equal; permuted, digits first: "
+                f"kernel {row['kernel_ms']:.4f} ms, device {row['device_ms']:.4f}; digits "
+                f"inside: kernel {row['kernel_inner_ms']:.4f}, device "
+                f"{row['device_inner_ms']:.4f}; plain {row['plain_ms']:.4f}; bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+    log(f"{ncheck} comparisons bit-equal ({smi})")
+
+    # the launch census: one refresh at N = 2^13 and one BSGS + dual-flow batch,
+    # eager and replayed (the replay's kernel nodes counted on its graphs)
+    cfg = M.MNISTConfig()
+    bgen, bsetup, ctx = boot_full_keys(dev, cfg)
+    c1 = boot_exhausted(bsetup.params, bsetup.kp, boot_vals(1 << (cfg.ring_logn - 1),
+                                                            COMPILED_SEED), bgen)
+    refresh_e = functools.partial(B.bootstrap, ctx)
+    refresh_c = graphs.jit(refresh_e, name="bootstrap")
+    pipe, gks = _serving_fixture(dev, cfg)
+    run_c = M.build_inference_pipeline(pipe["setup"], pipe["weights"], gks)
+    pts = run_c.eager.encode(pipe["imgs"])
+    seeded = lambda: torch.Generator(device=dev).manual_seed(PIPE_ENC_SEED)
+    census = {}
+    for name, eager, compiled, pool in (
+            ("refresh at N=2^13", lambda: refresh_e(c1), lambda: refresh_c(c1),
+             lambda: refresh_c.pool),
+            ("BSGS + dual-flow batch", lambda: run_c.eager.forward(pts, seeded()),
+             lambda: run_c.forward(pts, seeded()), lambda: run_c.pool)):
+        want = eager()                                   # fills the plain caches
+        got = compiled()                                 # warm-up, capture, replay
+        equal = _bit_equal(got, want)
+        ce = _census_of(eager)
+        cc, nodes = _replay_census(dev, compiled, pool())
+        launched, calls = keyprod_census(ce)
+        replayed = (nodes or {}).get("key_products")
+        census[name] = dict(launches=launched, calls=calls, replayed=replayed,
+                            replay_equal=equal, census_equal=ce == cc)
+        log(f"  {name}: replay == eager {equal}; key products launched {launched} eager, "
+            f"{keyprod_census(cc)[0]} in the replay's census, {replayed} kernel nodes "
+            f"replayed; calls {calls} (hoisted key products + decompositions outside the "
+            f"hoisted schedules); " + _census_line(ce, cc, nodes) + f" [{smi}]")
+        if not (equal and ce == cc and launched and launched == calls == replayed
+                and nodes == _kernel_census(ce)):
+            raise AssertionError(f"key products off the kernel in the {name}: {census[name]}")
+    return {"rows": rows_out, "checks": ncheck, "census": census}
+
+
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 ALU32_OPS_PER_S = 67e12
@@ -3976,6 +4121,8 @@ def main() -> int:
                         help="build the kernels and run phase 40 alone, on its own fixtures")
     parser.add_argument("--fbc-only", action="store_true",
                         help="build the kernels and run phase 41 (the FBC kernel) alone")
+    parser.add_argument("--keyprod-only", action="store_true",
+                        help="build the kernels and run phase 42 (the key products) alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3992,6 +4139,10 @@ def main() -> int:
     if args.fbc_only:
         fbc = phase_fbc(dev, smi)
         print(json.dumps({"fbc": fbc["rows"]}))
+        return 0
+    if args.keyprod_only:
+        kprod = phase_keyprod(dev, smi)
+        print(json.dumps({"key_products": kprod["rows"], "census": kprod["census"]}))
         return 0
     err = phase_kernel_vs_plain(dev)
     entry = phase_entry_step(dev)
@@ -4050,6 +4201,7 @@ def main() -> int:
     sboot = phase_boot_sharded(dev, smi, boot)
     comp = phase_compiled(dev, smi, pipe, bsgs, boot, bmn, kpath)
     fbc = phase_fbc(dev, smi)
+    kprod = phase_keyprod(dev, smi)
 
     # No single PyTorch call computes a modular transform, a modular
     # polynomial product or a key switch, so library_ms is null in every row.
@@ -4135,6 +4287,15 @@ def main() -> int:
          "launches_by_path": {"mnist_bsgs_batch": bsgs["fbc_launches"],
                               **_compiled_launches(comp, "fbc")},
          "ms": top["kernel_ms"], "device_ms": None, "plain_ms": top["plain_ms"],
+         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None})
+    top = kprod["rows"][0]
+    kernels.append(
+        {"name": "key_products", "route": "cuda", "source": "toyfhe_tpu_torch/csrc/keyprod.cu",
+         "replaces": None, "launches": kprod["census"]["refresh at N=2^13"]["launches"],
+         "max_abs_err": 0,
+         "launches_by_path": {"mnist_bsgs_batch": kprod["census"]["BSGS + dual-flow batch"][
+                                  "launches"], **_compiled_launches(comp, "key_products")},
+         "ms": top["kernel_ms"], "device_ms": top["device_ms"], "plain_ms": top["plain_ms"],
          "bound_ms": top["bound_ms"], "bound_by": top["bound_by"], "library_ms": None})
     log(f"== summary: MNIST pipeline {pipe['ms']:.1f} ms per {pipe['batch']}-image batch on the "
         f"iterated schedule (K1 {pipe['launches']['fwd']} + {pipe['launches']['inv']} launches, "

@@ -34,7 +34,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
-from ..ops import modmath, ntt as nttmod, sampling
+from ..ops import keyprod_cuda, modmath, ntt as nttmod, sampling
 from ..utils import metrics
 from . import ring as R
 from .ring import RingContext, RingElt
@@ -664,16 +664,12 @@ def _keyswitch_hybrid(params, ek: KeySwitchKey, c: CipherText) -> CipherText:
     ring = c.ring
     metrics.count("keyswitch")
     exp_ring, ddual = params.hybrid_decompose_dual(ring, c.cs[-1])
-    masks, maskeds = _hybrid_key_stack(params, ek, exp_ring,
-                                       int(ddual.shape[0]), ddual.dim() - 3)
-    mp = exp_ring.mp
-    acc2 = modmath.mod_sum(modmath.mul_mod(masks, ddual, mp), mp, axis=0)
-    acc1 = modmath.mod_sum(modmath.mul_mod(maskeds, ddual, mp), mp, axis=0)
+    masks, maskeds = _hybrid_key_stack(params, ek, exp_ring, int(ddual.shape[0]))
+    acc = keyprod_cuda.key_products(ddual, masks, maskeds, exp_ring.mp)
 
     # one stacked contraction: the fused ModDown's transforms batch over
     # both accumulator components in a single NTT call
-    out_ring, a = params.hybrid_contract(
-        exp_ring, RingElt(dual=torch.stack([acc1, acc2], dim=0)))
+    out_ring, a = params.hybrid_contract(exp_ring, RingElt(dual=acc))
     if a.dual is not None:
         a1, a2 = RingElt(dual=a.dual[0]), RingElt(dual=a.dual[1])
     else:                       # the BGV contraction returns the primal form
@@ -685,17 +681,10 @@ def _keyswitch_hybrid(params, ek: KeySwitchKey, c: CipherText) -> CipherText:
     return CipherText(c.params, (c1, c2), ring, enc=c.enc)
 
 
-def _hybrid_key_stack(params, ksk: KeySwitchKey, exp_ring: RingContext,
-                      ndig: int, extra: int):
+def _hybrid_key_stack(params, ksk: KeySwitchKey, exp_ring: RingContext, ndig: int):
     """A hybrid key's components as dual tensors [ndig, Le, N] restricted
-    to the expanded tower, with ``extra`` broadcast axes inserted for
-    batched ciphertexts."""
-    masks, maskeds = _key_stack(ksk, params.hybrid_key_limbs(exp_ring), ndig)
-    if extra:
-        shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
-        masks = masks.reshape(shp)
-        maskeds = maskeds.reshape(shp)
-    return masks, maskeds
+    to the expanded tower."""
+    return _key_stack(ksk, params.hybrid_key_limbs(exp_ring), ndig)
 
 
 # ---------------------------------------------------------------------------
@@ -771,34 +760,31 @@ class _HoistGadget:
         _count("decompositions", "decompose_calls", ddual)
         return ddual
 
-    def key_products(self, ksk: KeySwitchKey, pd: torch.Tensor):
-        """(Σ_digits maskeds·pd, Σ_digits masks·pd) in the raised tower:
-        the contributions to the first and to the second component."""
-        extra = pd.dim() - 3
+    def key_products(self, ksk: KeySwitchKey, ddual: torch.Tensor, perm: torch.Tensor,
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[2, ..., Le, N]: (Σ_digits maskeds·σ(ddual), Σ_digits
+        masks·σ(ddual)) in the raised tower, σ the dual permutation
+        ``perm``: the contributions to the first and to the second
+        component, added into ``acc`` in place when given."""
         if self.hybrid:
-            masks, maskeds = _hybrid_key_stack(self.params, ksk, self.exp_ring, self.ndig, extra)
+            masks, maskeds = _hybrid_key_stack(self.params, ksk, self.exp_ring, self.ndig)
         else:
             masks, maskeds = _downswitch_stack(self.params, ksk, self.exp_ring, self.ndig)
-            if extra:
-                shp = masks.shape[:1] + (1,) * extra + masks.shape[1:]
-                masks = masks.reshape(shp)
-                maskeds = maskeds.reshape(shp)
-        mp = self.exp_ring.mp
-        _count("key_products", "key_product_calls", pd)
-        acc2 = modmath.mod_sum(modmath.mul_mod(masks, pd, mp), mp, axis=0)
-        acc1 = modmath.mod_sum(modmath.mul_mod(maskeds, pd, mp), mp, axis=0)
-        return acc1, acc2
+        _count("key_products", "key_product_calls", ddual)
+        return keyprod_cuda.key_products(ddual, masks, maskeds, self.exp_ring.mp, perm=perm,
+                                         acc=acc)
 
-    def contract_pair(self, acc1: torch.Tensor, acc2: torch.Tensor):
-        """ModDown both raised accumulators back to the base tower in one
-        stacked contraction (a no-op for the plain RNS gadget)."""
-        elt = RingElt(dual=torch.stack([acc1, acc2], dim=0))
+    def contract_pair(self, acc: torch.Tensor):
+        """ModDown both raised accumulators ``acc`` [2, ..., Le, N] back to
+        the base tower in one stacked contraction (a no-op for the plain RNS
+        gadget)."""
+        elt = RingElt(dual=acc)
         if self.hybrid:
             out_ring, e = self.params.hybrid_contract(self.exp_ring, elt)
         else:
             hook = getattr(self.params, "keyswitch_contract", None)
             if hook is None:
-                return RingElt(dual=acc1), RingElt(dual=acc2)
+                return RingElt(dual=acc[0]), RingElt(dual=acc[1])
             out_ring, e = hook(self.exp_ring, elt)
         if out_ring.primes != self.ring.primes:
             raise UsageError("the contraction left the ciphertext tower")
@@ -814,7 +800,8 @@ def rotate_many(gks: GaloisKeys, c: CipherText, elements) -> dict:
     σ_g commutes with the limb / FBC decomposition (per-coefficient linear
     ops commute with the signed coefficient permutation) and acts on the
     dual domain as the pure permutation ``ntt.galois_dual_perm``; so the
-    per-rotation cost drops to a digit gather + key contraction + contract —
+    per-rotation cost drops to the key products, which read the digits
+    through the permutation (:mod:`..ops.keyprod_cuda`), and the contraction —
     the (ndig·Le)-transform decomposition is paid once. Hybrid-gadget and
     centered-RNS (window 0, incl. ModulusRaised) params take the fast path;
     unsigned windowed digits fall back to rotate()."""
@@ -833,9 +820,7 @@ def rotate_many(gks: GaloisKeys, c: CipherText, elements) -> dict:
         metrics.count("rotate")
         metrics.count("keyswitch")
         perm = nttmod.galois_dual_perm_dev(n, g, ddual.device)
-        pd = ddual.index_select(-1, perm)
-        acc1, acc2 = gad.key_products(gk.key, pd)
-        a1, a2 = gad.contract_pair(acc1, acc2)
+        a1, a2 = gad.contract_pair(gad.key_products(gk.key, ddual, perm))
         c0_rot = RingElt(dual=c0d.index_select(-1, perm))
         outs[g] = CipherText(c.params, (R.add(ring, c0_rot, a1), a2), ring, enc=c.enc)
     return outs
@@ -884,7 +869,7 @@ def rotate_sum(gks: GaloisKeys, terms) -> CipherText:
     n = ring.n
     mp = ring.mp
     gad = _HoistGadget(params, ring)
-    acc1s = acc2s = None                 # raised-tower accumulators (dual)
+    accs = None                          # raised-tower accumulators [2, ..., Le, N] (dual)
     c0s = None                           # base-tower Σ σ_g(c0) (dual)
     for g, t in rotated_terms:
         if t.ring is not ring:
@@ -894,15 +879,11 @@ def rotate_sum(gks: GaloisKeys, terms) -> CipherText:
         metrics.count("keyswitch")
         ddual = gad.decompose_dual(t.cs[1])
         perm = nttmod.galois_dual_perm_dev(n, g, ddual.device)
-        pd = ddual.index_select(-1, perm)             # σ_g ∘ decompose
-        a1, a2 = gad.key_products(gk.key, pd)
-        mp3 = gad.exp_ring.mp
-        acc1s = a1 if acc1s is None else modmath.add_mod(acc1s, a1, mp3)
-        acc2s = a2 if acc2s is None else modmath.add_mod(acc2s, a2, mp3)
+        accs = gad.key_products(gk.key, ddual, perm, accs)     # σ_g ∘ decompose, summed
         c0g = R.ensure_dual(ring, t.cs[0]).dual.index_select(-1, perm)
         c0s = c0g if c0s is None else modmath.add_mod(c0s, c0g, mp)
 
-    a1, a2 = gad.contract_pair(acc1s, acc2s)
+    a1, a2 = gad.contract_pair(accs)
     t0 = rotated_terms[0][1]
     out = CipherText(params, (R.add(ring, RingElt(dual=c0s), a1), a2), ring, enc=t0.enc)
     return out if c0_ident is None else ct_add(out, c0_ident)

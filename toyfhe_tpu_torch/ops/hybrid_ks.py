@@ -51,7 +51,7 @@ class FusedHybridKS:
         self.cst, self.inv_col = plan.cst, plan.inv
 
         # key duals over the expanded tower, pre-multiplied by 2^32 mod p
-        km, kd = _hybrid_key_stack(params, ek.key, self.exp_ring, self.dnum_t, 0)
+        km, kd = _hybrid_key_stack(params, ek.key, self.exp_ring, self.dnum_t)
         self.km = modmath.to_mont(km, self.exp_ring.mp)        # [dnum_t, T, N]
         self.kd = modmath.to_mont(kd, self.exp_ring.mp)
         self._dev: dict = {}

@@ -33,15 +33,15 @@ _REPO = Path(__file__).resolve().parents[2]
 
 def prebuild(cuda: bool) -> None:
     """Build every library a rank may load: the C++ CRT, and with ``cuda``
-    the seven CUDA kernels (one ``nvcc`` each, started together)."""
+    the eight CUDA kernels (one ``nvcc`` each, started together)."""
     from .. import native
     native.get_lib()
     if cuda:
-        from ..ops import (cuda_lib, fbc_cuda, hybrid_ks_cuda, ntt_cuda, ntt_mxu_pallas_cuda,
-                           ntt_pallas_cuda, pallas_keyswitch_cuda)
+        from ..ops import (cuda_lib, fbc_cuda, hybrid_ks_cuda, keyprod_cuda, ntt_cuda,
+                           ntt_mxu_pallas_cuda, ntt_pallas_cuda, pallas_keyswitch_cuda)
         cuda_lib.build_all([ntt_cuda.LIB, hybrid_ks_cuda.LIB, ntt_pallas_cuda.LIB,
                             pallas_keyswitch_cuda.LIB, ntt_mxu_pallas_cuda.LIB,
-                            ntt_pallas_cuda.LIB_POLYMUL, fbc_cuda.LIB])
+                            ntt_pallas_cuda.LIB_POLYMUL, fbc_cuda.LIB, keyprod_cuda.LIB])
 
 
 def run_ranks(target: str, world: int, workdir, args: Optional[dict] = None,

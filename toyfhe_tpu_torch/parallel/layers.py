@@ -35,7 +35,7 @@ from torch import nn
 
 from ..core import ring as R
 from ..core.ring import RingContext
-from ..ops import fbc_cuda, modmath, ntt as nttmod
+from ..ops import fbc_cuda, keyprod_cuda, modmath, ntt as nttmod
 from ..ops.modmath import MontParams, as_residues
 from ..utils import graphs
 from . import sharding as S
@@ -184,17 +184,29 @@ def _rescale_chain(x: torch.Tensor, ka: HybridKeyArrays) -> torch.Tensor:
     return x
 
 
-def _contract(ka, r1: torch.Tensor, r2: torch.Tensor, rescale):
-    """Inverse-transform both accumulators in one call and rescale them."""
-    out = rescale(_intt_t(torch.stack([r1, r2], dim=0), ka.exp_ring))
+def _contract(ka, acc: torch.Tensor, rescale):
+    """Inverse-transform both accumulators ``acc`` [2, ..., Le, N] in one
+    call and rescale them."""
+    out = rescale(_intt_t(acc, ka.exp_ring))
     return out[0], out[1]
 
 
-def _key_products(ka, ddual: torch.Tensor):
-    mp_exp = ka.exp_ring.mp
-    acc1 = modmath.mod_sum(modmath.mul_mod(ddual, ka.maskeds, mp_exp), mp_exp, -3)
-    acc2 = modmath.mod_sum(modmath.mul_mod(ddual, ka.masks, mp_exp), mp_exp, -3)
-    return acc1, acc2
+def _key_products(ka, ddual: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``acc`` [2, ..., Le, N] plus the key products of the digit duals
+    ``ddual`` (..., ndig, Le, N), in place (the kernel on the card)."""
+    return keyprod_cuda.key_products(ddual, ka.masks, ka.maskeds, ka.exp_ring.mp,
+                                     digits_inner=True, acc=acc)
+
+
+def _scaled_start(ka, scale: torch.Tensor, e1: torch.Tensor, e2=None) -> torch.Tensor:
+    """The accumulators' start [2, ..., Le, N]: the ct-tower duals ``e1``
+    (and ``e2``, else zero) times ``scale``, with zero special rows."""
+    mp_ct = ka.ct_ring.mp
+    e1 = modmath.mul_mod(e1, scale, mp_ct)
+    e2 = torch.zeros_like(e1) if e2 is None else modmath.mul_mod(e2, scale, mp_ct)
+    e = torch.stack([e1, e2])
+    k = ka.exp_ring.nlimbs - ka.ct_ring.nlimbs
+    return torch.cat([e, e.new_zeros(e.shape[:-2] + (k, e.shape[-1]))], -2)
 
 
 def _special_zeros(x: torch.Tensor, ka) -> torch.Tensor:
@@ -207,23 +219,17 @@ def _hybrid_keyswitch(ka: HybridKeyArrays, c1p, c2p):
     through the accumulator pre-scaled by P — bit-identical to the engine's
     contract-then-add since P ≡ 0 mod every special prime, so each rescale
     step sees exactly the accumulator's residue."""
-    mp_ct, mp_exp = ka.ct_ring.mp, ka.exp_ring.mp
-    acc1, acc2 = _key_products(ka, _hybrid_digits(ka, c2p))
-    c1d = _ntt_t(modmath.mul_mod(c1p, ka.P_res, mp_ct), ka.ct_ring)
-    r1 = modmath.add_mod(torch.cat([c1d, _special_zeros(c1d, ka)], -2), acc1, mp_exp)
-    return _contract(ka, r1, acc2, lambda x: _rescale_chain(x, ka))
+    start = _scaled_start(ka, ka.P_res, _ntt_t(c1p, ka.ct_ring))
+    return _contract(ka, _key_products(ka, _hybrid_digits(ka, c2p), start),
+                     lambda x: _rescale_chain(x, ka))
 
 
 def _hybrid_keyswitch_pair(ka: HybridKeyArrays, d1_dual, d2_dual, d3p):
     """Hybrid key switch for a 3-component ct (relinearization): digits from
     d3 primal; d1 / d2 dual folded through the P-scaled channel."""
-    mp_ct, mp_exp = ka.ct_ring.mp, ka.exp_ring.mp
-    acc1, acc2 = _key_products(ka, _hybrid_digits(ka, d3p))
-    zero = _special_zeros(d1_dual, ka)
-    e1 = torch.cat([modmath.mul_mod(d1_dual, ka.P_res, mp_ct), zero], -2)
-    e2 = torch.cat([modmath.mul_mod(d2_dual, ka.P_res, mp_ct), zero], -2)
-    return _contract(ka, modmath.add_mod(e1, acc1, mp_exp),
-                     modmath.add_mod(e2, acc2, mp_exp), lambda x: _rescale_chain(x, ka))
+    start = _scaled_start(ka, ka.P_res, d1_dual, d2_dual)
+    return _contract(ka, _key_products(ka, _hybrid_digits(ka, d3p), start),
+                     lambda x: _rescale_chain(x, ka))
 
 
 def _keyswitch_2(ka, c1p, c2p):
@@ -271,13 +277,10 @@ def _modraise_keyswitch(ka: ModRaiseKeyArrays, c1p, c2p):
     ModulusRaised expand / contract hooks). Returns primal (Lc, N)
     components. :class:`..ops.pallas_keyswitch.FusedKeyswitch` (K6) fuses
     everything here before the final rescale."""
-    mp_ct, mp_exp = ka.ct_ring.mp, ka.exp_ring.mp
-    acc1, acc2 = _key_products(ka, _gadget_digits(ka, c2p))
     # expand c1 by ps and adjoin the zero special limb (in the dual domain
     # — scalar multiply and zero limb are domain-independent)
-    c1d = _ntt_t(modmath.mul_mod(c1p, ka.ps_res, mp_ct), ka.ct_ring)
-    r1 = modmath.add_mod(torch.cat([c1d, _special_zeros(c1d, ka)], -2), acc1, mp_exp)
-    return _contract(ka, r1, acc2, _ps_rescale(ka))
+    start = _scaled_start(ka, ka.ps_res, _ntt_t(c1p, ka.ct_ring))
+    return _contract(ka, _key_products(ka, _gadget_digits(ka, c2p), start), _ps_rescale(ka))
 
 
 def build_fused_keyswitch(ka: ModRaiseKeyArrays):
@@ -306,13 +309,8 @@ def _modraise_keyswitch_fused(ka: ModRaiseKeyArrays, fk, c1p, c2p):
 def _modraise_keyswitch_pair(ka: ModRaiseKeyArrays, d1_dual, d2_dual, d3p):
     """Key switch for a 3-component ct (d1, d2, d3): digits from d3, d1 / d2
     already dual in the ct ring. Returns primal ct-ring components."""
-    mp_ct, mp_exp = ka.ct_ring.mp, ka.exp_ring.mp
-    acc1, acc2 = _key_products(ka, _gadget_digits(ka, d3p))
-    zero = _special_zeros(d1_dual, ka)
-    e1 = torch.cat([modmath.mul_mod(d1_dual, ka.ps_res, mp_ct), zero], -2)
-    e2 = torch.cat([modmath.mul_mod(d2_dual, ka.ps_res, mp_ct), zero], -2)
-    return _contract(ka, modmath.add_mod(e1, acc1, mp_exp),
-                     modmath.add_mod(e2, acc2, mp_exp), _ps_rescale(ka))
+    start = _scaled_start(ka, ka.ps_res, d1_dual, d2_dual)
+    return _contract(ka, _key_products(ka, _gadget_digits(ka, d3p), start), _ps_rescale(ka))
 
 
 # ---------------------------------------------------------------------------

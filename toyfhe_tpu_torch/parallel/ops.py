@@ -30,8 +30,10 @@ the CUDA kernel K1 for CUDA tensors, the plain radix-2 version for CPU
 tensors (the coefficient-sharded four-step is plain torch on the digit
 products of :mod:`..ops.ntt_mxu`). Each hybrid step's digit decomposition
 goes through :func:`..ops.fbc_cuda.fbc` with a plan over the target rows it
-holds (the CUDA kernel for CUDA tensors). Everything else is elementwise
-modular arithmetic in plain torch.
+holds (the CUDA kernel for CUDA tensors); the fused schedule's key
+products go through :func:`..ops.keyprod_cuda.key_products`, while the
+per-limb and the sharded steps keep their torch product and sum. Everything
+else is elementwise modular arithmetic in plain torch.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 
 from ..core.hybrid import _mont_col
 from ..core.rlwe import _hybrid_key_stack
-from ..ops import fbc_cuda, modmath, ntt as nttmod
+from ..ops import fbc_cuda, keyprod_cuda, modmath, ntt as nttmod
 from ..ops.modmath import MontParams
 from ..utils import graphs
 from . import sharding as S
@@ -382,7 +384,7 @@ def make_hybrid_sharded_step(mesh, params, ek, fused: bool = False,
     ct_ring = ct_ring if ct_ring is not None else params.ring_cipher
     Lc, k = ct_ring.nlimbs, params.num_special
     exp_ring, eng_groups = params._tables(Lc)
-    km, kd = _hybrid_key_stack(params, ek.key, exp_ring, len(eng_groups), 0)
+    km, kd = _hybrid_key_stack(params, ek.key, exp_ring, len(eng_groups))
     device = km.device if mesh is None else mesh.device
     rows = list(range(Lc)) if mesh is None else S.limb_rows(Lc, mesh)
     sp = list(range(Lc, Lc + k))
@@ -456,7 +458,7 @@ def _make_hybrid_fused_sharded_step(mesh: Mesh, params, ek, ct_ring, dp: bool):
     sp = list(range(Lc, Lc + k))
     col = lambda a, which=None: modmath.as_residues(
         np.asarray(a) if which is None else np.asarray(a)[which], device)
-    km, kd = _hybrid_key_stack(params, ek.key, exp_ring, ndig, 0)
+    km, kd = _hybrid_key_stack(params, ek.key, exp_ring, ndig)
     km, kd = km[:, rows + sp].to(device), kd[:, rows + sp].to(device)
 
     plan = fbc_cuda.make_plan(eng_groups, ct_ring.mp, exp_ring.select(rows + sp).mp, rows + sp)
@@ -594,14 +596,13 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True,
     last_ring = ct_ring.select([L - 1])
     surv_ring = ct_ring.select(range(L - 1))
 
-    km, kd = _hybrid_key_stack(params, ek.key, exp_ring, len(eng_groups), 0)  # [ndig, T, N]
+    km, kd = _hybrid_key_stack(params, ek.key, exp_ring, len(eng_groups))  # [ndig, T, N]
     device = km.device
     col = lambda a: modmath.as_residues(a, device)
 
     # --- the FBC's plan + each group's out-of-group transform tables ---
     plan = fbc_cuda.make_plan(eng_groups, ct_ring.mp, exp_ring.mp, range(T))
     bounds = plan.bounds
-    mp_exp = exp_ring.mp.on(device)
     grp_out, all_out, seg = [], [], []
     for (lo, hi) in bounds:
         oidx = list(range(lo)) + list(range(hi, T))
@@ -655,9 +656,8 @@ def make_hybrid_fused_step(params, ek, ct_ring=None, merge_calls: bool = True,
         digs = [torch.cat([res[..., :lo, :], d3[..., lo:hi, :], res[..., lo:, :]], dim=-2)
                 for (lo, hi), res in zip(bounds, outs)]
         digs = torch.stack(digs, dim=-3)                    # [B, ndig, T, N]
-        acc1 = modmath.mod_sum(modmath.mul_mod(digs, kd, mp_exp), mp_exp, axis=-3)
-        acc2 = modmath.mod_sum(modmath.mul_mod(digs, km, mp_exp), mp_exp, axis=-3)
-        acc = torch.stack([acc1, acc2], dim=1)              # [B, 2, T, N]
+        acc = keyprod_cuda.key_products(digs, km, kd, exp_ring.mp,
+                                        digits_inner=True).movedim(0, 1)   # [B, 2, T, N]
         d12 = torch.stack([d1, d2], dim=1)                  # [B, 2, L, N]
 
         # --- fused ModDown lifts from the special rows only ---

@@ -119,13 +119,13 @@ def counters() -> List[Dict[str, int]]:
     """The port's call-time counters, read where they live (a caller may
     reset them in place at any time)."""
     from ..core import rlwe
-    from ..ops import (fbc_cuda, hybrid_ks_cuda, ntt_cuda, ntt_mxu_pallas_cuda,
+    from ..ops import (fbc_cuda, hybrid_ks_cuda, keyprod_cuda, ntt_cuda, ntt_mxu_pallas_cuda,
                        ntt_pallas_cuda, pallas_keyswitch_cuda)
     from . import metrics
     return [ntt_cuda.launches, ntt_cuda.transforms, hybrid_ks_cuda.launches,
             ntt_pallas_cuda.launches, ntt_pallas_cuda.polymul_launches,
             pallas_keyswitch_cuda.launches, ntt_mxu_pallas_cuda.launches,
-            rlwe.hoist_counts, metrics.counters, fbc_cuda.launches]
+            rlwe.hoist_counts, metrics.counters, fbc_cuda.launches, keyprod_cuda.launches]
 
 
 def _snapshot() -> List[Dict[str, int]]:
